@@ -1,0 +1,16 @@
+from . import memo
+from .interlayer import (Chain, PruneStats, dp_prioritize,
+                         dp_prioritize_scalar, enumerate_segments,
+                         enumerate_segments_scalar, segment_pool)
+from .intralayer import Constraints, solve_intra_layer
+from .kapla import (NetworkSchedule, greedy_chain, rebatch_scheme,
+                    seed_chains_from, solve, solve_greedy, solve_many,
+                    solve_topk, warm_layer_solver)
+
+__all__ = [
+    "Chain", "Constraints", "NetworkSchedule", "PruneStats",
+    "dp_prioritize", "dp_prioritize_scalar", "enumerate_segments",
+    "enumerate_segments_scalar", "greedy_chain", "memo", "rebatch_scheme",
+    "seed_chains_from", "segment_pool", "solve", "solve_greedy",
+    "solve_intra_layer", "solve_many", "solve_topk", "warm_layer_solver",
+]

@@ -1,0 +1,138 @@
+"""Where a run goes, and the build of the CUDA kernels.
+
+The one source of truth for the port's device choice:
+
+``resolve_device(None)``
+    the card (``cuda``).  With no card it raises; it never falls back to
+    the CPU quietly.
+``resolve_device("cpu")``
+    the CPU, where every kernel wrapper takes its plain PyTorch version
+    (the port's counterpart of Pallas interpret mode).
+
+The kernels live in ``repro_torch/csrc/lower_kernels.cu`` and are compiled at first use
+with ``nvcc`` for ``sm_90a`` into a shared library with a plain C interface,
+loaded with ``ctypes``.  The library goes into ``build/repro_torch/<hash>/``
+under the repository root (``REPRO_TORCH_BUILD_DIR`` overrides it), keyed by
+the hash of the source and the flags, so an edit rebuilds and an unchanged
+tree reuses the build.  A missing ``nvcc`` or a failed build raises with the
+compiler's message.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Optional, Union
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+REPO_ROOT = Path(__file__).resolve().parents[3]
+#: where the CUDA toolkit is looked for after $NVCC, PATH and $CUDA_HOME
+CUDA_HOMES = ("/usr/local/cuda",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+SOURCE = CSRC / "lower_kernels.cu"
+#: C entry points and their argument counts; every argument is a pointer
+#: (device buffers, the host parameter array, the stream)
+ENTRY_POINTS = {"kapla_fc": 5, "kapla_conv": 5, "kapla_pool": 4,
+                "kapla_eltwise": 4}
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+def resolve_device(device: Union[None, str, torch.device] = None
+                   ) -> torch.device:
+    """The device a run goes to: ``None`` means the card and raises when
+    there is none; ``"cpu"`` selects the plain PyTorch versions."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cpu":
+        return dev
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}; expected cuda or cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: repro_torch runs on the card by default; pass "
+            "device='cpu' to run the plain PyTorch versions instead")
+    return dev if dev.index is not None else \
+        torch.device("cuda", torch.cuda.current_device())
+
+
+def build_dir() -> Path:
+    return Path(os.environ.get("REPRO_TORCH_BUILD_DIR",
+                               REPO_ROOT / "build" / "repro_torch"))
+
+
+def find_nvcc() -> str:
+    """Path of ``nvcc``: ``$NVCC``, then ``PATH``, then ``$CUDA_HOME/bin``
+    and ``/usr/local/cuda/bin``."""
+    cands = [os.environ.get("NVCC"), shutil.which("nvcc")]
+    for home in (os.environ.get("CUDA_HOME"), *CUDA_HOMES):
+        if home:
+            cands.append(os.path.join(home, "bin", "nvcc"))
+    for c in cands:
+        if c and os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "nvcc not found ($NVCC, PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): "
+        "repro_torch builds its CUDA kernels from src/repro_torch/csrc at "
+        "first use and needs the CUDA toolkit for that")
+
+
+def library_path() -> Path:
+    """Where the build goes (keyed by the source and the flags)."""
+    digest = hashlib.sha256(SOURCE.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return build_dir() / digest[:16] / (SOURCE.stem + ".so")
+
+
+def build() -> Path:
+    """Compile ``csrc/lower_kernels.cu`` unless its build exists; returns
+    the library's path.  ``nvcc``'s ``-Xptxas -v`` report (registers, shared
+    memory, spills per kernel) is kept beside it as ``<stem>.ptxas.txt``."""
+    out = library_path()
+    if out.exists():
+        return out
+    nvcc = find_nvcc()
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed (exit {proc.returncode}) building "
+                           f"{SOURCE.name}:\n{proc.stdout}{proc.stderr}")
+    out.with_name(out.stem + ".ptxas.txt").write_text(proc.stdout
+                                                      + proc.stderr)
+    os.replace(tmp, out)
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built at first use), with every entry
+    point's ``argtypes`` set: pointers and the stream as ``c_void_p``."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, n_args in ENTRY_POINTS.items():
+                fn = getattr(lib, name)
+                fn.argtypes = [ctypes.c_void_p] * n_args
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+def check_launch(name: str, status: int) -> None:
+    """Raise when a C entry point reports a CUDA error."""
+    if status != 0:
+        raise RuntimeError(f"{name}: CUDA error {status} at launch")
+
+__all__ = ["ENTRY_POINTS", "SOURCE", "build", "build_dir", "check_launch",
+           "find_nvcc", "library", "library_path", "resolve_device"]

@@ -1,0 +1,42 @@
+"""Lowering: compile solved dataflow schemes into executable plans and run
+them through the hand-written CUDA kernels, at two tiers:
+
+  layer tier
+      solver (LayerScheme)
+          -> plan.lower_scheme                      (KernelPlan)
+          -> exec.execute_plan / verify_plan / measure_plan
+  network tier
+      solver (NetworkSchedule, or schedule.lower(graph, hw))
+          -> netplan.lower_network                  (NetworkPlan: ordered
+             kernel plans + segment buffer schedule w/ on-chip forwarding)
+          -> netexec.network_runner / execute_network / verify_network /
+             measure_network
+
+``plan.py`` and ``netplan.py`` are byte-identical copies of ``repro``'s.
+The fused tier (``fuse.py``) and calibration (``calibrate.py``) are ported
+in later slices.
+"""
+from .plan import GridAxis, KernelPlan, lower_scheme, lower_schedule
+from .exec import (LAUNCHES, execute_plan, make_inputs, measure_plan,
+                   plan_runner, reference_output, rel_error,
+                   reset_launch_counts, verify_plan)
+from .netplan import (NetworkPlan, SegmentPlan, TensorPlacement,
+                      lower_cached, lower_network)
+from .netexec import (NetworkExecution, NetworkVerification,
+                      compare_network, execute_network,
+                      from_reference_inputs, make_network_inputs,
+                      measure_network, network_runner, reference_network,
+                      verify_network)
+
+__all__ = [
+    "GridAxis", "KernelPlan", "lower_scheme", "lower_schedule",
+    "LAUNCHES", "execute_plan", "make_inputs", "measure_plan",
+    "plan_runner", "reference_output", "rel_error", "reset_launch_counts",
+    "verify_plan",
+    "NetworkPlan", "SegmentPlan", "TensorPlacement", "lower_cached",
+    "lower_network",
+    "NetworkExecution", "NetworkVerification", "compare_network",
+    "execute_network", "from_reference_inputs", "make_network_inputs",
+    "measure_network", "network_runner", "reference_network",
+    "verify_network",
+]

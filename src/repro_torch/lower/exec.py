@@ -1,0 +1,516 @@
+"""Execute ``KernelPlan``s through hand-written CUDA kernels.
+
+The port of ``repro/lower/exec.py``.  One kernel per layer family of the
+network tier (fc, conv, pool, eltwise), in ``csrc/lower_kernels.cu``, each
+parameterized by the plan: the plan's grid axes that index the output become
+the CUDA grid (a plan output tile may span several CUDA blocks), and the
+grid axes that do not (the reduction, ``C``) become a loop inside the block,
+walked in the plan's order, each C tile accumulated into the output.  So
+every loop order the solver picks runs, including the reduction-outermost
+orders that compiled Pallas refuses (``repro/lower/exec.py:45-60``).
+
+Beside each kernel sits its plain PyTorch version, which walks ``plan.grid``
+in order and accumulates into output blocks exactly as the Pallas kernel
+does: the port's counterpart of interpret mode.  A wrapper takes the plain
+version only for tensors on the CPU; for CUDA tensors it launches the kernel
+or raises.  ``LAUNCHES`` counts kernel launches per family.
+
+Attention plans (``_run_attention``) are ported in a later slice.
+"""
+from __future__ import annotations
+
+import ctypes
+import itertools
+import time
+from typing import Callable, Dict, Iterator, List, Mapping, Optional, \
+    Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..kernels import backend, ref
+from .plan import KernelPlan
+
+#: kernel launches per family since the last ``reset_launch_counts()``
+LAUNCHES: Dict[str, int] = {"fc": 0, "conv": 0, "pool": 0, "eltwise": 0}
+
+#: the TPU kernel each CUDA kernel replaces (file:line of its definition)
+REPLACES = {"fc": "src/repro/lower/exec.py:88",
+            "conv": "src/repro/lower/exec.py:118",
+            "pool": "src/repro/lower/exec.py:179",
+            "eltwise": "src/repro/lower/exec.py:230"}
+
+SOURCE = "src/repro_torch/csrc/lower_kernels.cu"
+NEG_INF = -1e30
+ELTWISE_MAX_OPS = 8
+CONV_THREADS = 256
+CONV_SMEM_BYTES = 48 * 1024
+FC_TILE = 64
+
+_INPUT_NAMES = {"fc": ("I", "W"), "conv": ("I", "W"), "pool": ("I",),
+                "eltwise": ("A", "B")}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _check_kind(plan: KernelPlan) -> None:
+    if plan.kind == "attention":
+        raise NotImplementedError(
+            "attention plans are not ported yet: the attention kernel "
+            "(repro/lower/exec.py _run_attention) comes in a later slice "
+            "of repro_torch")
+    if plan.kind not in _INPUT_NAMES:
+        raise ValueError(f"unsupported kind {plan.kind!r}")
+
+
+# ---------------------------------------------------------------------------
+# grid walking (the plain versions) and tensor checks (the wrappers)
+# ---------------------------------------------------------------------------
+
+def _walk(plan: KernelPlan) -> Iterator[Dict[str, int]]:
+    """Grid coordinates per dim, in the plan's (lexicographic) order."""
+    dims = [ax.dim for ax in plan.grid]
+    for idx in itertools.product(*(range(ax.steps) for ax in plan.grid)):
+        yield dict(zip(dims, idx))
+
+
+def _blk(plan: KernelPlan, g: Mapping[str, int], d: str) -> slice:
+    b = plan.block[d]
+    i = g.get(d, 0)
+    return slice(i * b, (i + 1) * b)
+
+
+def _check_reduction(plan: KernelPlan) -> None:
+    """The kernels loop the reduction inside the block over C tiles only."""
+    rel = plan.layer.tensors["O"]
+    if {ax.dim for ax in plan.grid if ax.dim not in rel} - {"C"}:
+        raise ValueError(f"{plan.describe()}: only C may be a reduction "
+                         "grid axis of an fc/conv plan")
+
+
+def _check(t: torch.Tensor, shape: Tuple[int, ...], what: str,
+           device: torch.device) -> None:
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{what}: expected a torch.Tensor, got {type(t)}")
+    if t.device != device:
+        raise ValueError(f"{what}: on {t.device}, expected {device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{what}: dtype {t.dtype}, expected float32")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{what}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: must be contiguous")
+
+
+def _cuda_or_cpu(t: torch.Tensor, what: str) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU one
+    (take the plain version); anything else raises."""
+    if t.is_cuda:
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"{what}: unsupported device {t.device}")
+
+
+def _params(values: Sequence[int]):
+    return (ctypes.c_int64 * len(values))(*[int(v) for v in values])
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+# ---------------------------------------------------------------------------
+# fc
+# ---------------------------------------------------------------------------
+
+def plain_fc(plan: KernelPlan, x: torch.Tensor,
+             w: torch.Tensor) -> torch.Tensor:
+    """``O[N,K] = I[N,C] @ W[C,K]`` walked over the plan's grid; C-tile
+    revisits accumulate into the output block."""
+    ref.full_fp32(x)
+    L = plan.layer
+    out = torch.zeros((L.dim("N"), L.dim("K")), dtype=torch.float32,
+                      device=x.device)
+    for g in _walk(plan):
+        n, c, k = (_blk(plan, g, d) for d in "NCK")
+        out[n, k] += x[n, c] @ w[c, k]
+    return out
+
+
+def fc_launch(plan: KernelPlan) -> List[int]:
+    """Parameters of ``kapla_fc``: dims, plan block, 64x64 sub-tiles per
+    plan tile, grid."""
+    _check_reduction(plan)
+    L, b = plan.layer, plan.block
+    N, C, K = L.dim("N"), L.dim("C"), L.dim("K")
+    sub_n, sub_k = _ceil(b["N"], FC_TILE), _ceil(b["K"], FC_TILE)
+    grid = ((K // b["K"]) * sub_k, (N // b["N"]) * sub_n)
+    if grid[1] > 65535:
+        raise ValueError(f"{plan.describe()}: fc grid {grid} too large")
+    return [N, C, K, b["N"], b["C"], b["K"], sub_n, sub_k, *grid]
+
+
+def run_fc(plan: KernelPlan, x: torch.Tensor,
+           w: torch.Tensor) -> torch.Tensor:
+    """fc wrapper: the CUDA kernel on the card, ``plain_fc`` on the CPU."""
+    L = plan.layer
+    N, C, K = L.dim("N"), L.dim("C"), L.dim("K")
+    _check(x, (N, C), "fc input I[N,C]", x.device)
+    _check(w, (C, K), "fc weight W[C,K]", x.device)
+    if not _cuda_or_cpu(x, "fc"):
+        return plain_fc(plan, x, w)
+    prm = _params(fc_launch(plan))
+    out = torch.empty((N, K), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        lib = backend.library()
+        backend.check_launch("kapla_fc", lib.kapla_fc(
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), prm,
+            torch.cuda.current_stream(x.device).cuda_stream))
+    LAUNCHES["fc"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# conv
+# ---------------------------------------------------------------------------
+
+def plain_conv(plan: KernelPlan, x: torch.Tensor,
+               w: torch.Tensor) -> torch.Tensor:
+    """Direct VALID conv walked over the plan's grid: per step, the halo'd
+    window of the (ix, iy) block, one channel contraction per (r, s) into
+    the ``[bn, bk, bx, by]`` tile, added to the output block."""
+    ref.full_fp32(x)
+    L, b = plan.layer, plan.block
+    R, S, st = (int(L.meta[k]) for k in ("R", "S", "stride"))
+    bx, by = b["X"], b["Y"]
+    out = torch.zeros((L.dim("N"), L.dim("K"), L.dim("X"), L.dim("Y")),
+                      dtype=torch.float32, device=x.device)
+    for g in _walk(plan):
+        n, c, k, ox, oy = (_blk(plan, g, d) for d in "NCKXY")
+        x0, y0 = g.get("X", 0) * bx * st, g.get("Y", 0) * by * st
+        xw = x[n, c, x0:x0 + (bx - 1) * st + R, y0:y0 + (by - 1) * st + S]
+        acc = torch.zeros((b["N"], b["K"], bx, by), dtype=torch.float32,
+                          device=x.device)
+        for r in range(R):
+            for s in range(S):
+                patch = xw[:, :, r:r + (bx - 1) * st + 1:st,
+                           s:s + (by - 1) * st + 1:st]
+                acc += torch.einsum("ncxy,kc->nkxy", patch, w[k, c, r, s])
+        out[n, k, ox, oy] += acc
+    return out
+
+
+def conv_launch(plan: KernelPlan, XI: int, YI: int) -> List[int]:
+    """Parameters of ``kapla_conv``: the CUDA sub-tile of a plan tile (tk
+    output channels x tn images x tx rows x ty cols), the channel chunk
+    staged per step, threads, shared memory and grid.  Shared memory stays
+    within 48 KB, so no opt-in is needed."""
+    _check_reduction(plan)
+    L, b = plan.layer, plan.block
+    N, C, K, XO, YO = (L.dim(d) for d in "NCKXY")
+    R, S, st = (int(L.meta[k]) for k in ("R", "S", "stride"))
+    RS = R * S
+    tk = min(64, max(4, 1 << (b["K"] - 1).bit_length()))
+    kthr = tk // 4
+    tp = 4 * (CONV_THREADS // kthr)          # positions a block can hold
+    ty = min(b["Y"], 8)
+    tx = min(b["X"], max(1, tp // ty), 8)
+    tn = min(b["N"], max(1, tp // (tx * ty)))
+
+    def ldw(cc: int) -> int:                 # odd pitch: fewer bank conflicts
+        return cc * RS + (1 - (cc * RS) % 2)
+
+    def smem(cc: int) -> int:
+        win = ((tx - 1) * st + R) * ((ty - 1) * st + S)
+        return 4 * (tk * ldw(cc) + cc * tn * win)
+
+    while smem(1) > CONV_SMEM_BYTES:
+        if tn > 1:
+            tn = _ceil(tn, 2)
+        elif tx > 1:
+            tx = _ceil(tx, 2)
+        elif ty > 1:
+            ty = _ceil(ty, 2)
+        else:
+            raise ValueError(f"{plan.describe()}: one channel of the conv "
+                             "window does not fit in shared memory")
+    cc = 1
+    while cc < b["C"] and smem(cc + 1) <= CONV_SMEM_BYTES:
+        cc += 1
+    pthr = _ceil(tn * tx * ty, 4)
+    sub = {d: _ceil(b[d], t) for d, t in
+           (("N", tn), ("K", tk), ("X", tx), ("Y", ty))}
+    grid = ((XO // b["X"]) * sub["X"] * (YO // b["Y"]) * sub["Y"],
+            (K // b["K"]) * sub["K"], (N // b["N"]) * sub["N"])
+    if grid[1] > 65535 or grid[2] > 65535:
+        raise ValueError(f"{plan.describe()}: conv grid {grid} too large")
+    return [N, C, K, XI, YI, XO, YO, R, S, st,
+            b["N"], b["C"], b["K"], b["X"], b["Y"],
+            tn, tx, ty, tk, cc, sub["N"], sub["K"], sub["X"], sub["Y"],
+            kthr, pthr, ldw(cc), *grid, kthr * pthr, smem(cc)]
+
+
+def run_conv(plan: KernelPlan, x: torch.Tensor,
+             w: torch.Tensor) -> torch.Tensor:
+    """conv wrapper: the CUDA kernel on the card, ``plain_conv`` on the
+    CPU.  ``x`` holds exactly the halo'd input extent."""
+    L = plan.layer
+    N, C, K = L.dim("N"), L.dim("C"), L.dim("K")
+    R, S = int(L.meta["R"]), int(L.meta["S"])
+    XI, YI = input_extent(L)
+    _check(x, (N, C, XI, YI), "conv input I[N,C,XI,YI]", x.device)
+    _check(w, (K, C, R, S), "conv weight W[K,C,R,S]", x.device)
+    if not _cuda_or_cpu(x, "conv"):
+        return plain_conv(plan, x, w)
+    prm = _params(conv_launch(plan, XI, YI))
+    out = torch.empty((N, K, L.dim("X"), L.dim("Y")), dtype=torch.float32,
+                      device=x.device)
+    with torch.cuda.device(x.device):
+        lib = backend.library()
+        backend.check_launch("kapla_conv", lib.kapla_conv(
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), prm,
+            torch.cuda.current_stream(x.device).cuda_stream))
+    LAUNCHES["conv"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# pool (max; every grid axis indexes the output: single visit)
+# ---------------------------------------------------------------------------
+
+def plain_pool(plan: KernelPlan, x: torch.Tensor) -> torch.Tensor:
+    """Max pool walked over the plan's grid, each block from ``NEG_INF``."""
+    L, b = plan.layer, plan.block
+    R, S, st = (int(L.meta[k]) for k in ("R", "S", "stride"))
+    bx, by = b["X"], b["Y"]
+    out = torch.empty((L.dim("N"), L.dim("C"), L.dim("X"), L.dim("Y")),
+                      dtype=torch.float32, device=x.device)
+    for g in _walk(plan):
+        n, c, ox, oy = (_blk(plan, g, d) for d in "NCXY")
+        x0, y0 = g.get("X", 0) * bx * st, g.get("Y", 0) * by * st
+        xw = x[n, c, x0:x0 + (bx - 1) * st + R, y0:y0 + (by - 1) * st + S]
+        acc = torch.full((b["N"], b["C"], bx, by), NEG_INF,
+                         dtype=torch.float32, device=x.device)
+        for r in range(R):
+            for s in range(S):
+                acc = torch.maximum(acc, xw[:, :, r:r + (bx - 1) * st + 1:st,
+                                            s:s + (by - 1) * st + 1:st])
+        out[n, c, ox, oy] = acc
+    return out
+
+
+def run_pool(plan: KernelPlan, x: torch.Tensor) -> torch.Tensor:
+    """pool wrapper: the CUDA kernel on the card, ``plain_pool`` on the
+    CPU."""
+    L = plan.layer
+    N, C, XO, YO = (L.dim(d) for d in "NCXY")
+    XI, YI = input_extent(L)
+    _check(x, (N, C, XI, YI), "pool input I[N,C,XI,YI]", x.device)
+    if not _cuda_or_cpu(x, "pool"):
+        return plain_pool(plan, x)
+    prm = _params([N, C, XI, YI, XO, YO, int(L.meta["R"]),
+                   int(L.meta["S"]), int(L.meta["stride"])])
+    out = torch.empty((N, C, XO, YO), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        lib = backend.library()
+        backend.check_launch("kapla_pool", lib.kapla_pool(
+            x.data_ptr(), out.data_ptr(), prm,
+            torch.cuda.current_stream(x.device).cuda_stream))
+    LAUNCHES["pool"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# eltwise (n-ary sum; residual adds, gate merges, channel-embedded concat)
+# ---------------------------------------------------------------------------
+
+def plain_eltwise(plan: KernelPlan,
+                  xs: Sequence[torch.Tensor]) -> torch.Tensor:
+    """n-ary sum walked over the plan's grid, operands added in order."""
+    L = plan.layer
+    out = torch.empty(tuple(L.dim(d) for d in "NCXY"), dtype=torch.float32,
+                      device=xs[0].device)
+    for g in _walk(plan):
+        blk = tuple(_blk(plan, g, d) for d in "NCXY")
+        acc = xs[0][blk].clone()
+        for x in xs[1:]:
+            acc = acc + x[blk]
+        out[blk] = acc
+    return out
+
+
+def run_eltwise(plan: KernelPlan,
+                xs: Sequence[torch.Tensor]) -> torch.Tensor:
+    """eltwise wrapper (1 to 8 operands): the CUDA kernel on the card,
+    ``plain_eltwise`` on the CPU.  Both add in operand order, so they agree
+    bit for bit."""
+    shape = tuple(plan.layer.dim(d) for d in "NCXY")
+    if not 1 <= len(xs) <= ELTWISE_MAX_OPS:
+        raise ValueError(f"eltwise takes 1..{ELTWISE_MAX_OPS} operands, "
+                         f"got {len(xs)}")
+    for i, x in enumerate(xs):
+        _check(x, shape, f"eltwise operand {i}", xs[0].device)
+    if not _cuda_or_cpu(xs[0], "eltwise"):
+        return plain_eltwise(plan, xs)
+    ptrs = (ctypes.c_void_p * len(xs))(*[x.data_ptr() for x in xs])
+    prm = _params([len(xs), xs[0].numel()])
+    out = torch.empty(shape, dtype=torch.float32, device=xs[0].device)
+    with torch.cuda.device(out.device):
+        lib = backend.library()
+        backend.check_launch("kapla_eltwise", lib.kapla_eltwise(
+            ptrs, out.data_ptr(), prm, torch.cuda.current_stream(out.device).cuda_stream))
+    LAUNCHES["eltwise"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Public API: inputs, execution, verification, measurement
+# ---------------------------------------------------------------------------
+
+def input_extent(layer) -> Tuple[int, int]:
+    """Minimal halo'd spatial input extent of a conv/pool layer under VALID
+    padding: (X-1)*stride + R."""
+    R, S = int(layer.meta["R"]), int(layer.meta["S"])
+    stride = int(layer.meta["stride"])
+    return ((layer.dim("X") - 1) * stride + R,
+            (layer.dim("Y") - 1) * stride + S)
+
+
+def input_shapes(plan: KernelPlan) -> Dict[str, Tuple[int, ...]]:
+    """The plan's canonical input layouts (fc: I[N,C] W[C,K]; conv:
+    I[N,C,XI,YI] W[K,C,R,S]; pool: I[N,C,XI,YI]; eltwise: A/B [N,C,X,Y])."""
+    _check_kind(plan)
+    L = plan.layer
+    if plan.kind == "fc":
+        return {"I": (L.dim("N"), L.dim("C")), "W": (L.dim("C"), L.dim("K"))}
+    if plan.kind == "eltwise":
+        shape = tuple(L.dim(d) for d in "NCXY")
+        return {"A": shape, "B": shape}
+    XI, YI = input_extent(L)
+    shapes = {"I": (L.dim("N"), L.dim("C"), XI, YI)}
+    if plan.kind == "conv":
+        shapes["W"] = (L.dim("K"), L.dim("C"), int(L.meta["R"]),
+                       int(L.meta["S"]))
+    return shapes
+
+
+def as_tensor(v, device: torch.device) -> torch.Tensor:
+    """A float32 contiguous tensor on ``device`` from a tensor or array."""
+    if not isinstance(v, torch.Tensor):
+        v = torch.from_numpy(np.array(v, dtype=np.float32, order="C"))
+    return v.to(device=device, dtype=torch.float32).contiguous()
+
+
+def make_inputs(plan: KernelPlan, seed: int = 0,
+                device=None) -> Dict[str, torch.Tensor]:
+    """Deterministic float32 inputs in the plan's canonical layouts, drawn
+    with numpy's ``default_rng(seed)``; weights scaled by fan-in^-1/2."""
+    dev = backend.resolve_device(device)
+    rng = np.random.default_rng(seed)
+    L = plan.layer
+    out = {}
+    for name, shape in input_shapes(plan).items():
+        a = rng.standard_normal(shape, dtype=np.float32)
+        if name == "W":
+            fan_in = int(np.prod(shape[1:])) if plan.kind == "conv" \
+                else L.dim("C")
+            a *= np.float32(fan_in ** -0.5)
+        out[name] = torch.from_numpy(a).to(dev)
+    return out
+
+
+_RUN = {"fc": run_fc, "conv": run_conv, "pool": run_pool}
+
+
+def plan_runner(plan: KernelPlan, device=None) -> Callable[[Mapping],
+                                                          torch.Tensor]:
+    """``inputs -> output`` for the plan on ``device`` (the card unless the
+    caller passes ``"cpu"``); inputs may be tensors or numpy arrays."""
+    if not plan.valid:
+        raise ValueError(
+            f"cannot execute invalid plan for layer {plan.layer.name!r}: "
+            f"{plan.invalid_reason}")
+    _check_kind(plan)
+    dev = backend.resolve_device(device)
+    names = _INPUT_NAMES[plan.kind]
+    if plan.kind == "eltwise":
+        return lambda inputs: run_eltwise(
+            plan, [as_tensor(inputs[n], dev) for n in names])
+    fn = _RUN[plan.kind]
+    return lambda inputs: fn(plan, *(as_tensor(inputs[n], dev)
+                                     for n in names))
+
+
+def execute_plan(plan: KernelPlan, inputs: Optional[Mapping] = None,
+                 device=None, seed: int = 0) -> torch.Tensor:
+    """Run the plan and return the output."""
+    run = plan_runner(plan, device)          # refuses invalid plans first
+    inputs = inputs if inputs is not None else make_inputs(plan, seed,
+                                                           device)
+    return run(inputs)
+
+
+def reference_output(plan: KernelPlan, inputs: Mapping) -> torch.Tensor:
+    """Ground truth from ``kernels/ref.py`` for the plan's layer."""
+    _check_kind(plan)
+    L = plan.layer
+    if plan.kind == "fc":
+        return ref.matmul_ref(inputs["I"], inputs["W"])
+    if plan.kind == "conv":
+        return ref.conv2d_ref(inputs["I"], inputs["W"],
+                              stride=int(L.meta["stride"]))
+    if plan.kind == "pool":
+        return ref.pool2d_ref(inputs["I"], int(L.meta["R"]),
+                              int(L.meta["S"]), stride=int(L.meta["stride"]))
+    return ref.eltwise_ref(inputs["A"], inputs["B"])
+
+
+def rel_error(out, want) -> float:
+    """max |out - want| / max |want| (float32), on ``want``'s device."""
+    b = want if isinstance(want, torch.Tensor) else as_tensor(want, "cpu")
+    a = as_tensor(out, b.device)
+    if a.shape != b.shape:
+        raise ValueError(f"shape {tuple(a.shape)} vs reference "
+                         f"{tuple(b.shape)}")
+    b = b.float()
+    return float((a - b).abs().max() / (b.abs().max() + 1e-9))
+
+
+def verify_plan(plan: KernelPlan, device=None, seed: int = 0,
+                tol: float = 1e-3) -> Tuple[bool, float]:
+    """Execute the plan and compare against the oracle: (ok, rel err)."""
+    inputs = make_inputs(plan, seed, device)
+    out = execute_plan(plan, inputs, device)
+    err = rel_error(out, reference_output(plan, inputs))
+    return err < tol, err
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def measure_plan(plan: KernelPlan, inputs: Optional[Mapping] = None,
+                 device=None, iters: int = 2, warmup: int = 1) -> float:
+    """Wall-clock seconds of one plan execution: min over ``iters`` after
+    ``warmup`` runs, fenced by ``torch.cuda.synchronize``."""
+    dev = backend.resolve_device(device)
+    run = plan_runner(plan, dev)
+    inputs = {k: as_tensor(v, dev) for k, v in
+              (inputs if inputs is not None
+               else make_inputs(plan, device=dev)).items()}
+    for _ in range(max(1, warmup)):
+        run(inputs)
+    _sync(dev)
+    best = float("inf")
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        run(inputs)
+        _sync(dev)
+        best = min(best, time.perf_counter() - t0)
+    return best

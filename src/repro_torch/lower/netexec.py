@@ -1,0 +1,377 @@
+"""Execute a ``NetworkPlan`` end to end through the CUDA kernels.
+
+The port of ``repro/lower/netexec.py``.  The layer tier (``exec.py``) runs
+one kernel; this module chains every kernel of a lowered network in
+topological order, realizing the plan's buffer schedule:
+
+  * **forwarded** tensors (segment-internal, see ``netplan``) stay device
+    tensors handed from the producing kernel to its consumers;
+  * **boundary** tensors go to host numpy after the producer
+    (``.cpu().numpy()``) and back to the device when consumed: the
+    execution analogue of a DRAM store + reload.
+
+Producer and consumer shapes line up only approximately (conv halos,
+flattening before FC, LSTM gate merges, inception concat).  One canonical
+adapter closes the gap, used identically by the executor and the
+whole-graph reference pass, so rel-error comparisons are like for like:
+
+  1. equal per-batch size        -> reshape (flatten before FC, 2-D<->4-D);
+  2. channel-matched 4-D tensors -> centered zero-pad / crop of the
+     spatial dims;
+  3. divisible per-batch size    -> fold-sum over the leading groups;
+
+and multi-source eltwise layers whose channel counts partition the output
+(inception concat) embed each source at its channel offset, so the n-ary
+sum kernel computes the concatenation.  Attention layers stay layer-tier
+only, as in the reference.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+import zlib
+from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..kernels import backend, ref
+from ..workloads.layers import LayerSpec
+from .exec import (as_tensor, input_extent, input_shapes, rel_error,
+                   run_conv, run_eltwise, run_fc, run_pool)
+from .netplan import NetworkPlan
+
+
+# ---------------------------------------------------------------------------
+# shapes + the canonical adapter
+# ---------------------------------------------------------------------------
+
+def required_input_shape(layer: LayerSpec) -> Tuple[int, ...]:
+    """Canonical input-activation shape each kernel consumes."""
+    if layer.kind == "fc":
+        return (layer.dim("N"), layer.dim("C"))
+    if layer.kind in ("conv", "pool"):
+        XI, YI = input_extent(layer)
+        return (layer.dim("N"), layer.dim("C"), XI, YI)
+    if layer.kind == "eltwise":
+        return (layer.dim("N"), layer.dim("C"), layer.dim("X"),
+                layer.dim("Y"))
+    raise ValueError(f"no network-exec input feed for kind {layer.kind!r}")
+
+
+def adapt_tensor(arr: torch.Tensor, shape: Tuple[int, ...]) -> torch.Tensor:
+    """Adapt a producer output to a consumer's required input shape (see
+    module docstring for the three rules); the result is contiguous."""
+    if tuple(arr.shape) == tuple(shape):
+        return arr.contiguous()
+    n = shape[0]
+    src_per = int(np.prod(arr.shape[1:]))
+    dst_per = int(np.prod(shape[1:]))
+    if src_per == dst_per:
+        return arr.reshape(shape).contiguous()
+    if arr.dim() == 4 and len(shape) == 4 and arr.shape[1] == shape[1]:
+        out = arr
+        for ax in (2, 3):
+            d = shape[ax] - out.shape[ax]
+            if d > 0:
+                pad = [0, 0, 0, 0]               # F.pad: last dim first
+                pad[2 * (3 - ax)] = d // 2
+                pad[2 * (3 - ax) + 1] = d - d // 2
+                out = F.pad(out, pad)
+            elif d < 0:
+                lo = (-d) // 2
+                out = out.narrow(ax, lo, shape[ax])
+        return out.contiguous()
+    if src_per % dst_per == 0:
+        k = src_per // dst_per
+        return arr.reshape((n, k, dst_per)).sum(dim=1).reshape(shape)
+    raise ValueError(f"cannot adapt shape {tuple(arr.shape)} -> "
+                     f"{tuple(shape)}")
+
+
+def _eltwise_operands(srcs: Sequence[torch.Tensor],
+                      layer: LayerSpec) -> List[torch.Tensor]:
+    """Adapt eltwise sources to the output shape.  When the sources'
+    channel counts partition the output channels (inception concat), each
+    source is embedded at its channel offset so the sum kernel computes
+    the concatenation; otherwise every source adapts independently and
+    the kernel computes a plain sum (residual add, gate merge)."""
+    shape = required_input_shape(layer)
+    C = shape[1]
+    chans = [a.shape[1] if a.dim() == 4 else -1 for a in srcs]
+    if len(srcs) > 1 and all(c > 0 for c in chans) and sum(chans) == C \
+            and any(c != C for c in chans):
+        out, off = [], 0
+        for a, c in zip(srcs, chans):
+            a4 = adapt_tensor(a, (shape[0], c, shape[2], shape[3]))
+            out.append(F.pad(a4, (0, 0, 0, 0, off, C - off - c)))
+            off += c
+        return out
+    return [adapt_tensor(a, shape) for a in srcs]
+
+
+# ---------------------------------------------------------------------------
+# deterministic network inputs (external activations + per-layer weights)
+# ---------------------------------------------------------------------------
+
+def network_input_shapes(nplan: NetworkPlan) -> Dict[str, Tuple[int, ...]]:
+    """``"<layer>.I"`` for graph sources and ``"<layer>.W"`` for conv/fc
+    layers (fc ``W[C,K]``, conv ``W[K,C,R,S]``, activations NCHW)."""
+    shapes: Dict[str, Tuple[int, ...]] = {}
+    for name in nplan.order:
+        layer = nplan.plans[name].layer
+        if not any(s in nplan.plans for s in layer.src):
+            shapes[f"{name}.I"] = required_input_shape(layer)
+        if layer.kind == "fc":
+            shapes[f"{name}.W"] = (layer.dim("C"), layer.dim("K"))
+        elif layer.kind == "conv":
+            shapes[f"{name}.W"] = (layer.dim("K"), layer.dim("C"),
+                                   int(layer.meta["R"]), int(layer.meta["S"]))
+    return shapes
+
+
+def make_network_inputs(nplan: NetworkPlan, seed: int = 0,
+                        device=None) -> Dict[str, torch.Tensor]:
+    """Deterministic inputs for the plan, drawn with numpy (one generator
+    per name, seeded by ``(seed, crc32(name))``), weights variance-scaled
+    by fan-in^-1/2 so activations stay O(1) through deep graphs."""
+    dev = backend.resolve_device(device)
+    out: Dict[str, torch.Tensor] = {}
+    for name, shape in network_input_shapes(nplan).items():
+        rng = np.random.default_rng(
+            [seed, zlib.crc32(name.encode()) & 0x7FFFFFFF])
+        a = rng.standard_normal(shape, dtype=np.float32)
+        if name.endswith(".W"):
+            fan_in = shape[0] if len(shape) == 2 else int(np.prod(shape[1:]))
+            a *= np.float32(fan_in ** -0.5)
+        out[name] = torch.from_numpy(a).to(dev)
+    return out
+
+
+def from_reference_inputs(arrays: Mapping[str, np.ndarray], plan,
+                          device=None) -> Dict[str, torch.Tensor]:
+    """A checked copy of the input dict that ``repro.lower.make_inputs`` /
+    ``make_network_inputs`` return (passed through ``np.asarray``): same
+    keys, float32, contiguous, in the JAX package's layouts.  ``plan`` is
+    the ``KernelPlan`` or ``NetworkPlan`` the inputs are for; a missing or
+    extra key, a shape the plan does not expect, or a dtype other than
+    float32 raises."""
+    dev = backend.resolve_device(device)
+    want = network_input_shapes(plan) if isinstance(plan, NetworkPlan) \
+        else input_shapes(plan)
+    if set(arrays) != set(want):
+        raise ValueError(
+            f"input keys differ from the plan's: missing "
+            f"{sorted(set(want) - set(arrays))}, extra "
+            f"{sorted(set(arrays) - set(want))}")
+    out: Dict[str, torch.Tensor] = {}
+    for k, shape in want.items():
+        a = np.asarray(arrays[k])
+        if a.shape != shape:
+            raise ValueError(f"{k}: shape {a.shape}, plan expects {shape}")
+        if a.dtype != np.float32:
+            raise TypeError(f"{k}: dtype {a.dtype}, expected float32")
+        out[k] = torch.from_numpy(np.array(a, order="C")).to(dev)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# per-layer step functions + the execution chain
+# ---------------------------------------------------------------------------
+
+def _layer_fn(nplan: NetworkPlan, name: str, inputs: Mapping
+              ) -> Tuple[Callable, Tuple[str, ...]]:
+    """(fn, src_names): ``fn(*src_tensors) -> output`` for one layer, with
+    the shape adapter folded in."""
+    plan = nplan.plans[name]
+    layer = plan.layer
+    srcs = tuple(s for s in layer.src if s in nplan.plans)
+    w = inputs.get(f"{name}.W")
+    ext = inputs.get(f"{name}.I")
+    if plan.kind == "eltwise":
+        def fn(*xs):
+            return run_eltwise(plan, _eltwise_operands(
+                list(xs) if xs else [ext], layer))
+        return fn, srcs
+    if plan.kind not in ("fc", "conv", "pool"):
+        raise ValueError(f"cannot execute layer {name!r}: kind "
+                         f"{plan.kind!r} has no network-exec input feed")
+    shape = required_input_shape(layer)
+    run = {"fc": run_fc, "conv": run_conv, "pool": run_pool}[plan.kind]
+    extra = () if plan.kind == "pool" else (w,)
+
+    def fn(*xs):
+        return run(plan, adapt_tensor(xs[0] if xs else ext, shape), *extra)
+    return fn, srcs
+
+
+@dataclasses.dataclass
+class NetworkExecution:
+    """Outputs of one end-to-end network run plus the realized buffer
+    schedule.  Forwarded outputs are device tensors; round-tripped ones
+    are the host copies (CPU tensors over the numpy buffers)."""
+
+    outputs: Dict[str, torch.Tensor]
+    forwarded: Tuple[str, ...]      # handed on the device, never left it
+    roundtrips: Tuple[str, ...]     # materialized to host numpy
+    seconds: float
+    device: str = "cuda"
+
+
+def _check_executable(nplan: NetworkPlan) -> None:
+    bad = nplan.invalid_layers()
+    if bad:
+        raise ValueError(
+            f"network plan {nplan.graph_name!r} is not executable: "
+            + "; ".join(f"{n}: {r}" for n, r in bad))
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def network_runner(nplan: NetworkPlan, inputs: Mapping, device=None,
+                   keep: str = "all") -> Callable[[], NetworkExecution]:
+    """Build a reusable ``() -> NetworkExecution`` for the plan on
+    ``device`` (the card unless the caller passes ``"cpu"``).
+
+    Inputs (tensors or numpy arrays) are moved to the device once, so
+    weights stay resident.  Each call runs every kernel in topological
+    order; forwarded tensors pass between kernels on the device, boundary
+    tensors round-trip through host numpy.  ``keep="boundary"`` returns
+    only the round-tripped outputs (the measurement path), ``keep="all"``
+    every layer output (verification)."""
+    if keep not in ("all", "boundary"):
+        raise ValueError(f"keep must be 'all' or 'boundary', got {keep!r}")
+    dev = backend.resolve_device(device)
+    _check_executable(nplan)
+    inputs = {k: as_tensor(v, dev) for k, v in inputs.items()}
+    steps = []
+    for name in nplan.order:
+        fn, srcs = _layer_fn(nplan, name, inputs)
+        steps.append((name, fn, srcs, nplan.placements[name].forwarded))
+
+    def run() -> NetworkExecution:
+        t0 = time.perf_counter()
+        onchip: Dict[str, torch.Tensor] = {}
+        host: Dict[str, np.ndarray] = {}
+        for name, fn, srcs, fwd in steps:
+            args = [onchip[s] if s in onchip
+                    else torch.from_numpy(host[s]).to(dev) for s in srcs]
+            out = fn(*args)
+            if fwd:
+                onchip[name] = out              # stays a device tensor
+            else:
+                host[name] = out.cpu().numpy()  # the host round-trip
+        _sync(dev)
+        seconds = time.perf_counter() - t0
+        outputs = {k: torch.from_numpy(v) for k, v in host.items()}
+        if keep == "all":
+            outputs.update(onchip)
+        return NetworkExecution(outputs=outputs, forwarded=tuple(onchip),
+                                roundtrips=tuple(host), seconds=seconds,
+                                device=str(dev))
+    return run
+
+
+def execute_network(nplan: NetworkPlan, inputs: Optional[Mapping] = None,
+                    device=None, seed: int = 0) -> NetworkExecution:
+    """Run every kernel of the plan in topological order (one-shot
+    convenience over ``network_runner``)."""
+    inputs = inputs if inputs is not None \
+        else make_network_inputs(nplan, seed, device)
+    return network_runner(nplan, inputs, device)()
+
+
+# ---------------------------------------------------------------------------
+# whole-graph reference forward pass + verification
+# ---------------------------------------------------------------------------
+
+def reference_network(nplan: NetworkPlan, inputs: Mapping,
+                      device=None) -> Dict[str, torch.Tensor]:
+    """Ground truth: the same graph evaluated with the ``kernels/ref.py``
+    oracles and the same canonical adapters, in the same order."""
+    dev = backend.resolve_device(device)
+    vals: Dict[str, torch.Tensor] = {}
+    for name in nplan.order:
+        layer = nplan.plans[name].layer
+        srcs = [vals[s] for s in layer.src if s in vals]
+        shape = required_input_shape(layer)
+        ext = inputs.get(f"{name}.I")
+        ext = None if ext is None else as_tensor(ext, dev)
+        x = adapt_tensor(srcs[0], shape) if srcs else ext
+        if layer.kind == "fc":
+            vals[name] = ref.matmul_ref(x, as_tensor(inputs[f"{name}.W"],
+                                                     dev))
+        elif layer.kind == "conv":
+            vals[name] = ref.conv2d_ref(x, as_tensor(inputs[f"{name}.W"],
+                                                     dev),
+                                        stride=int(layer.meta["stride"]))
+        elif layer.kind == "pool":
+            vals[name] = ref.pool2d_ref(x, int(layer.meta["R"]),
+                                        int(layer.meta["S"]),
+                                        stride=int(layer.meta["stride"]))
+        elif layer.kind == "eltwise":
+            vals[name] = ref.eltwise_ref(
+                *_eltwise_operands(srcs if srcs else [ext], layer))
+        else:
+            raise ValueError(f"no oracle for kind {layer.kind!r}")
+    return vals
+
+
+@dataclasses.dataclass
+class NetworkVerification:
+    ok: bool
+    max_rel_err: float
+    worst_layer: str
+    errors: Dict[str, float]
+    n_forwarded: int
+
+
+def compare_network(nplan: NetworkPlan, ex: NetworkExecution,
+                    inputs: Mapping, tol: float = 1e-3
+                    ) -> NetworkVerification:
+    """Compare every layer output of an execution against the whole-graph
+    reference pass, run on the execution's device (per-layer max relative
+    error)."""
+    want = reference_network(nplan, inputs, ex.device)
+    errors = {n: rel_error(ex.outputs[n], want[n]) for n in nplan.order}
+    worst = max(errors, key=errors.get)
+    return NetworkVerification(
+        ok=errors[worst] < tol, max_rel_err=errors[worst],
+        worst_layer=worst, errors=errors, n_forwarded=len(ex.forwarded))
+
+
+def verify_network(nplan: NetworkPlan, device=None, seed: int = 0,
+                   tol: float = 1e-3) -> NetworkVerification:
+    """Execute the plan and compare against the whole-graph reference."""
+    inputs = make_network_inputs(nplan, seed, device)
+    return compare_network(nplan, execute_network(nplan, inputs, device),
+                           inputs, tol)
+
+
+def measure_network(nplan: NetworkPlan, inputs: Optional[Mapping] = None,
+                    device=None, iters: int = 3, warmup: int = 1,
+                    runner: Optional[Callable[[], NetworkExecution]] = None
+                    ) -> float:
+    """Wall-clock seconds of one end-to-end network execution: min over
+    ``iters`` after ``warmup`` runs, host round-trips included.  Pass an
+    existing ``network_runner`` (with ``warmup=0`` if it already ran) to
+    reuse it."""
+    if runner is None:
+        inputs = inputs if inputs is not None \
+            else make_network_inputs(nplan, device=device)
+        runner = network_runner(nplan, inputs, device, keep="boundary")
+        warmup = max(1, warmup)
+    for _ in range(warmup):
+        runner()
+    return min(runner().seconds for _ in range(max(1, iters)))
+
+
+__all__ = ["NetworkExecution", "NetworkVerification", "adapt_tensor",
+           "compare_network", "execute_network", "from_reference_inputs",
+           "make_network_inputs", "measure_network", "network_input_shapes",
+           "network_runner", "reference_network", "required_input_shape",
+           "verify_network"]

@@ -1,0 +1,76 @@
+"""The port's numpy modules are byte-identical copies of the JAX package's,
+and the port's solver and planners pick exactly the reference's schedules
+and plans."""
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+from repro.core.solver import solve
+from repro.hw.presets import eyeriss_multinode
+from repro.workloads.nets import get_net, transformer
+from repro_torch.core.solver import solve as t_solve
+from repro_torch.hw.presets import eyeriss_multinode as t_eyeriss
+from repro_torch.lower import lower_network as t_lower_network
+from repro_torch.workloads.nets import get_net as t_get_net
+from repro_torch.workloads.nets import transformer as t_transformer
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+COPIES = [
+    "workloads/layers.py", "workloads/nets.py",
+    "hw/template.py", "hw/presets.py",
+    "core/directives.py", "core/cost_model.py", "core/cost_batch.py",
+    "core/estimate.py", "core/estimate_batch.py",
+    "obs/metrics.py", "obs/trace.py",
+    "runtime/inject.py",
+    "core/solver/memo.py", "core/solver/intralayer.py",
+    "core/solver/interlayer.py", "core/solver/kapla.py",
+    "lower/plan.py", "lower/netplan.py",
+]
+
+
+@pytest.mark.parametrize("rel", COPIES)
+def test_copy_is_byte_identical(rel):
+    assert (SRC / "repro_torch" / rel).read_bytes() == \
+        (SRC / "repro" / rel).read_bytes()
+
+
+NETS = {
+    "alexnet_b64": (lambda: get_net("alexnet", batch=64),
+                    lambda: t_get_net("alexnet", batch=64)),
+    "resnet_b64": (lambda: get_net("resnet", batch=64),
+                   lambda: t_get_net("resnet", batch=64)),
+    "mlp_b4": (lambda: get_net("mlp", batch=4),
+               lambda: t_get_net("mlp", batch=4)),
+    "transformer2_b8": (lambda: transformer(batch=8, layers=2),
+                        lambda: t_transformer(batch=8, layers=2)),
+    "lstm_b8": (lambda: get_net("lstm", batch=8),
+                lambda: t_get_net("lstm", batch=8)),
+}
+HWS = {"16x16": {}, "4x4": {"nodes": 4, "pe": 8}}
+
+
+def _untimed(sched_json):
+    return {k: v for k, v in sched_json.items() if k != "solve_seconds"}
+
+
+def _plan_shape(nplan):
+    return {n: (tuple((a.dim, a.steps) for a in p.grid), dict(p.block),
+                p.valid) for n, p in nplan.plans.items()}
+
+
+@pytest.mark.parametrize("hw", sorted(HWS))
+@pytest.mark.parametrize("net", sorted(NETS))
+def test_solve_and_lower_parity(net, hw):
+    make_ref, make_port = NETS[net]
+    ref_net, port_net = make_ref(), make_port()
+    ref_hw, port_hw = eyeriss_multinode(**HWS[hw]), t_eyeriss(**HWS[hw])
+    ref_sched, port_sched = solve(ref_net, ref_hw), t_solve(port_net, port_hw)
+    assert ref_sched.valid
+    assert _untimed(port_sched.to_json()) == _untimed(ref_sched.to_json())
+    ref_plan = ref_sched.lower(ref_net, ref_hw)
+    port_plan = t_lower_network(port_sched, port_net, port_hw)
+    assert _plan_shape(port_plan) == _plan_shape(ref_plan)
+    assert port_plan.forwarded() == ref_plan.forwarded()

@@ -1,0 +1,126 @@
+"""Where the port runs: the card unless the caller passes ``device="cpu"``,
+never a quiet fallback; the CUDA build raises a clear error without nvcc;
+the CPU path launches no kernel.  The card-only test is marked ``gpu``."""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core.solver import solve
+from repro_torch.core.solver.intralayer import Constraints, solve_intra_layer
+from repro_torch.hw.presets import eyeriss_multinode
+from repro_torch.kernels import backend
+from repro_torch.lower import (LAUNCHES, lower_network, lower_scheme,
+                               make_network_inputs, network_runner,
+                               plan_runner, reset_launch_counts,
+                               verify_network)
+from repro_torch.lower import exec as tex
+from repro_torch.workloads.layers import conv, eltwise, fc, pool
+from repro_torch.workloads.nets import get_net
+
+HW = eyeriss_multinode(nodes=4, pe=8)
+
+
+def _plan(layer, order=None):
+    scheme, cost = solve_intra_layer(layer, HW,
+                                     Constraints(nodes=HW.node_array))
+    assert scheme is not None and cost.valid
+    if order:
+        scheme.levels[-1].order = order
+    plan = lower_scheme(scheme, HW)
+    assert plan.valid, plan.reason
+    return plan
+
+
+def _mlp_plan():
+    net = get_net("mlp", batch=4)
+    return lower_network(solve(net, HW), net, HW)
+
+
+def test_entry_points_raise_without_card_and_device():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is the card")
+    plan = _plan(fc("d.fc", 8, 64, 64))
+    nplan = _mlp_plan()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        plan_runner(plan)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        network_runner(nplan, make_network_inputs(nplan, device="cpu"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_network_inputs(nplan)
+    assert backend.resolve_device("cpu").type == "cpu"
+    with pytest.raises(ValueError, match="unsupported device"):
+        backend.resolve_device("meta")
+
+
+def test_build_raises_clearly_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.delenv("NVCC", raising=False)
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.setattr(backend, "CUDA_HOMES", ())
+    monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path / "build"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        backend.build()
+    monkeypatch.setattr(backend, "_lib", None)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        backend.library()
+    assert not (tmp_path / "build").exists() or \
+        not any((tmp_path / "build").rglob("*.so"))
+
+
+def test_cpu_path_launches_no_kernel():
+    reset_launch_counts()
+    ver = verify_network(_mlp_plan(), device="cpu")
+    assert ver.ok
+    assert set(LAUNCHES) == {"fc", "conv", "pool", "eltwise"}
+    assert all(v == 0 for v in LAUNCHES.values()), LAUNCHES
+
+
+def test_wrappers_check_their_inputs():
+    plan = _plan(fc("d.fc", 8, 64, 64))
+    x = torch.zeros((8, 64))
+    with pytest.raises(ValueError, match="shape"):
+        tex.run_fc(plan, x, torch.zeros((64, 32)))
+    with pytest.raises(TypeError, match="float32"):
+        tex.run_fc(plan, x.double(), torch.zeros((64, 64)))
+    with pytest.raises(ValueError, match="contiguous"):
+        tex.run_fc(plan, torch.zeros((64, 8)).t(), torch.zeros((64, 64)))
+    with pytest.raises(ValueError, match="shape"):
+        tex.rel_error(torch.zeros((2, 3)), torch.zeros((3, 2)))
+    elt = _plan(eltwise("d.elt", 2, 4, 3, 3))
+    with pytest.raises(ValueError, match="operands"):
+        tex.run_eltwise(elt, [torch.zeros((2, 4, 3, 3))] * 9)
+
+
+@pytest.mark.gpu
+def test_kernels_match_plain_versions_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tiny = eyeriss_multinode(nodes=2, pe=4, gbuf_bytes=2048)
+    cases = [(fc("g.fc", 64, 512, 200), None),
+             (fc("g.fc.cout", 64, 512, 200), ("C", "K", "N", "X", "Y")),
+             (conv("g.conv", 2, 32, 48, 10, 10, 3, 3), None),
+             (conv("g.conv.s4", 2, 3, 16, 10, 10, 11, 11, stride=4), None),
+             (conv("g.conv.cout", 4, 64, 32, 4, 4, 1, 1),
+              ("C", "N", "K", "X", "Y")),
+             (pool("g.pool", 2, 16, 13, 13, 3, 3, stride=2), None),
+             (eltwise("g.elt", 2, 64, 14, 14), None)]
+    reset_launch_counts()
+    for layer, order in cases:
+        scheme, _ = solve_intra_layer(layer, tiny,
+                                      Constraints(nodes=tiny.node_array))
+        if order:
+            scheme.levels[-1].order = order
+        plan = lower_scheme(scheme, tiny)
+        inputs = tex.make_inputs(plan, device="cuda")
+        out = tex.execute_plan(plan, inputs, device="cuda")
+        plain = {"fc": lambda: tex.plain_fc(plan, inputs["I"], inputs["W"]),
+                 "conv": lambda: tex.plain_conv(plan, inputs["I"],
+                                                inputs["W"]),
+                 "pool": lambda: tex.plain_pool(plan, inputs["I"]),
+                 "eltwise": lambda: tex.plain_eltwise(
+                     plan, [inputs["A"], inputs["B"]])}[plan.kind]()
+        torch.cuda.synchronize()
+        assert tex.rel_error(out, plain) <= 1e-5, plan.describe()
+    assert LAUNCHES == {"fc": 2, "conv": 3, "pool": 1, "eltwise": 1}
