@@ -7,19 +7,39 @@ Runs on one NVIDIA card, from the root of a checkout:
 
 Phases, in order; any failure exits non-zero:
 
-1. build ``src/repro_torch/csrc/lower_kernels.cu`` for sm_90a with nvcc;
-2. hold each of the four kernels (fc, conv, pool, eltwise) against its
-   plain PyTorch version on the card, at every distinct (kind, shape, grid
-   order) among the plans of ResNet-50 b64 and AlexNet b64 on the 16x16
-   Eyeriss template and AlexNet b64 on the 4x4 one: max rel error <= 1e-5
-   (both float32, only the summation order differs); time the kernel, the
-   plain version and one PyTorch library call on the same inputs;
+1. build ``src/repro_torch/csrc/lower_kernels.cu`` and ``model_kernels.cu``
+   for sm_90a, one nvcc each, both started together;
+2. hold each of the four network kernels (fc, conv, pool, eltwise) against
+   its plain PyTorch version on the card, at every distinct (kind, shape,
+   grid order) among the plans of ResNet-50 b64 and AlexNet b64 on the
+   16x16 Eyeriss template and AlexNet b64 on the 4x4 one: max rel error
+   <= 1e-5 (both float32, only the summation order differs); time the
+   kernel, the plain version and one PyTorch library call on the same
+   inputs;
 3. ResNet-50 b64 end to end: solve -> lower_network -> network_runner on
    the card, with the launch counters set to 0 just before the run and
    read just after (each must equal the plan's layer count of its kind);
    every layer within 1e-3 of the torch oracles; measure_network;
 4. the same for AlexNet b64;
-5. print ``{"kernels": [...]}``, the card's name and power limit, and last
+5. hold the two model-zoo kernels against their plain versions on the
+   card: flash attention at the Qwen2.5-3B and Zamba2-1.2B serve prefill
+   shapes (bf16), a Gemma2-like case (D=256, window, soft-cap), a
+   right-aligned case (Sq < Sk) and a non-causal float32 case; the SSD
+   intra-chunk term at the Mamba2-1.3B and Zamba2-1.2B shapes.  float32
+   within 1e-5 max rel error, bf16 within 8e-3 x max|plain| (one bf16
+   ulp); time the kernel, the plain version and, where one PyTorch call
+   computes the same function, ``F.scaled_dot_product_attention``;
+6. serve Qwen2.5-3B and Zamba2-1.2B at full width in bf16 (8 requests,
+   512-token prompts, 32 generated tokens) through ``serve``, with the
+   launch counters set to 0 just before and read just after: flash 36 for
+   Qwen; flash 6 and SSD 38 for Zamba2 (decode runs no kernel); finite
+   logits, tokens [8, 32]; then one prefill and 8 decode steps under
+   ``torch.profiler``;
+7. consistency, float32, full width, reduced depth (Qwen 4 layers, Zamba2
+   12): the prefill's last-token logits (through the kernels) against a
+   replay of the prompt through ``decode_step`` (no kernel), max rel error
+   <= 1e-3;
+8. print ``{"kernels": [...]}``, the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 
 Details go to ``chiprun_out/chip_smoke.json`` beside this script.
@@ -27,20 +47,32 @@ Details go to ``chiprun_out/chip_smoke.json`` beside this script.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import json
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 KERNEL_TOL = 1e-5
+BF16_TOL = 8e-3
 NETWORK_TOL = 1e-3
+CONSISTENCY_TOL = 1e-3
 
 #: published peaks (NVIDIA H100 data sheet, dense, no sparsity): FP32 on
-#: the CUDA cores, and device-memory bandwidth
-PEAKS = {"PCIe": (51.2e12, 2.0e12), "SXM": (67e12, 3.35e12)}
+#: the CUDA cores, device-memory bandwidth, and bf16 on the tensor cores
+#: (989 TFLOP/s SXM, 756 TFLOP/s PCIe)
+PEAKS = {"PCIe": (51.2e12, 2.0e12, 756e12), "SXM": (67e12, 3.35e12, 989e12)}
+
+#: the serve phase: arch -> kernel launches per prefill
+SERVE = {"qwen2.5-3b": {"flash_attention": 36, "ssd_intra_chunk": 0},
+         "zamba2-1.2b": {"flash_attention": 6, "ssd_intra_chunk": 38}}
+SERVE_REQUESTS, SERVE_PROMPT, SERVE_GEN = 8, 512, 32
+#: the consistency phase: arch -> depth
+CONSISTENCY = {"qwen2.5-3b": 4, "zamba2-1.2b": 12}
 
 
 def peaks(name: str):
@@ -99,6 +131,333 @@ def device_profile(runner):
             "idle_share": None if not busy else 1.0 - busy / wall_ms}
 
 
+def events_ms(fn, reps: int = 10) -> float:
+    """Median of ``reps`` CUDA-event timings of ``fn`` (ms)."""
+    import torch
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+# ---------------------------------------------------------------------------
+# the model zoo: kernels, serving, consistency
+# ---------------------------------------------------------------------------
+
+#: flash cases: name, B, H, KV, Sq, Sk, D, causal, window, softcap, dtype,
+#: whether one PyTorch call (SDPA) computes the same function
+FLASH_CASES = [
+    ("qwen2.5-3b", 8, 16, 2, 512, 512, 128, True, 0, 0.0, "bf16", True),
+    ("zamba2-1.2b", 8, 32, 32, 512, 512, 64, True, 0, 0.0, "bf16", True),
+    ("gemma2-like", 8, 8, 4, 512, 512, 256, True, 128, 50.0, "bf16", False),
+    ("right-aligned", 8, 16, 2, 128, 512, 128, True, 0, 0.0, "bf16", False),
+    ("non-causal-f32", 8, 16, 2, 512, 512, 128, False, 0, 0.0, "f32", True),
+]
+#: SSD cases: name, B, S, H, P, N, chunk
+SSD_CASES = [("mamba2-1.3b", 8, 512, 64, 64, 128, 128),
+             ("zamba2-1.2b", 8, 512, 64, 64, 64, 128)]
+
+
+def attention_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
+    """Unmasked (query, key) pairs of one head: query row r sits at
+    r + Sk - Sq and sees keys in [lo, hi]."""
+    n = 0
+    for r in range(Sq):
+        qpos = r + Sk - Sq
+        hi = min(Sk - 1, qpos) if causal else Sk - 1
+        lo = max(0, qpos - window + 1) if window > 0 else 0
+        n += max(0, hi - lo + 1)
+    return n
+
+
+def kernel_row(name, out, want, ms, plain_ms, library_ms, ops, nbytes,
+               peak_ops, peak_bw, dtype):
+    """One checked and timed kernel case; raises past the tolerance."""
+    abs_err = float((out.float() - want.float()).abs().max())
+    rel_err = abs_err / (float(want.float().abs().max()) + 1e-9)
+    tol = KERNEL_TOL if dtype == "f32" else BF16_TOL
+    if out.shape != want.shape or not rel_err <= tol:
+        raise AssertionError(f"{name}: kernel disagrees with its plain "
+                             f"version: rel err {rel_err:.3e} > {tol} "
+                             f"(shapes {tuple(out.shape)}, "
+                             f"{tuple(want.shape)})")
+    row = {"case": name, "dtype": dtype, "max_abs_err": abs_err,
+           "max_rel_err": rel_err, "tol": tol, "ms": ms,
+           "plain_ms": plain_ms, "library_ms": library_ms, "ops": ops,
+           "bytes": nbytes, "ops_ms": ops / peak_ops * 1e3,
+           "bytes_ms": nbytes / peak_bw * 1e3}
+    row["bound_ms"] = max(row["ops_ms"], row["bytes_ms"])
+    lib = "-" if library_ms is None else f"{library_ms:.4f} ms"
+    log(f"[kernel] {name:24s} {dtype} rel {rel_err:.2e} | kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.3f} ms, library {lib}, bound "
+        f"{row['bound_ms']:.4f} ms "
+        f"({'operations' if row['ops_ms'] >= row['bytes_ms'] else 'bytes'})")
+    return row
+
+
+def model_kernel_phase(dev, peak_ops, peak_bw, peak_bf16):
+    """Phase 5: both model-zoo kernels against their plain versions."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    types = {"bf16": torch.bfloat16, "f32": torch.float32}
+    flash, ssd = [], []
+    for (case, B, H, KV, Sq, Sk, D, causal, window, cap, dtype,
+         has_lib) in FLASH_CASES:
+        t = types[dtype]
+        q = torch.randn((B, H, Sq, D), generator=g, device=dev).to(t)
+        k = torch.randn((B, KV, Sk, D), generator=g, device=dev).to(t)
+        v = torch.randn((B, KV, Sk, D), generator=g, device=dev).to(t)
+
+        def kern():
+            return fa.flash_attention(q, k, v, causal, window, cap)
+
+        def plain():
+            return fa.plain_flash_attention(q, k, v, causal, window, cap)
+
+        def library():
+            return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                  enable_gqa=True)
+        out, want = kern(), plain()
+        for _ in range(2):
+            kern()
+        ms, plain_ms = events_ms(kern), events_ms(plain)
+        library_ms = None
+        if has_lib:
+            lib_err = float((library().float() - want.float()).abs().max())
+            if lib_err > 0.05 * float(want.float().abs().max()):
+                raise AssertionError(f"{case}: SDPA does not compute the "
+                                     f"same function (abs err {lib_err})")
+            library_ms = events_ms(library)
+        elem = 2 if dtype == "bf16" else 4
+        ops = 4 * B * H * D * attention_pairs(Sq, Sk, causal, window)
+        nbytes = elem * (2 * B * H * Sq * D + 2 * B * KV * Sk * D)
+        flash.append(kernel_row(
+            f"flash {case}", out, want, ms, plain_ms, library_ms, ops,
+            nbytes, peak_bf16 if dtype == "bf16" else peak_ops, peak_bw,
+            dtype))
+        del q, k, v, out, want
+    for case, B, S, H, P, N, Lc in SSD_CASES:
+        NC = S // Lc
+        x = torch.randn((B, H, NC, Lc, P), generator=g,
+                        device=dev).to(torch.bfloat16)
+        dt = torch.rand((B, H, NC, Lc), generator=g, device=dev) * 0.1 \
+            + 1e-3
+        a = -torch.exp(torch.randn((H,), generator=g, device=dev) * 0.5)
+        acum = torch.cumsum(dt * a[None, :, None, None], dim=-1)
+        b = torch.randn((B, NC, Lc, N), generator=g, device=dev) * 0.5
+        c = torch.randn((B, NC, Lc, N), generator=g, device=dev) * 0.5
+
+        def kern():
+            return ssd_scan.ssd_intra_chunk(x, dt, acum, b, c)
+
+        def plain():
+            return ssd_scan.plain_ssd_intra_chunk(x, dt, acum, b, c)
+        out, want = kern(), plain()
+        for _ in range(2):
+            kern()
+        ms, plain_ms = events_ms(kern), events_ms(plain)
+        tri = Lc * (Lc + 1) // 2             # pairs l >= m of one chunk
+        ops = 2 * B * NC * tri * N + 2 * B * H * NC * tri * P
+        nbytes = 2 * 2 * B * H * NC * Lc * P + 4 * 2 * B * H * NC * Lc \
+            + 4 * 2 * B * NC * Lc * N
+        ssd.append(kernel_row(f"ssd {case}", out, want, ms, plain_ms, None,
+                              ops, nbytes, peak_ops, peak_bw, "bf16"))
+        del x, dt, acum, b, c, out, want
+    torch.cuda.empty_cache()
+    return {"flash_attention": flash, "ssd_intra_chunk": ssd}
+
+
+def kernel_group(name: str) -> str:
+    n = name.lower()
+    if "flash_kernel" in n:
+        return "flash_attention"
+    if "ssd_intra_kernel" in n:
+        return "ssd_intra_chunk"
+    if any(w in n for w in ("gemm", "gemv", "nvjet", "cutlass", "xmma",
+                            "cublas", "wgmma", "matmul")):
+        return "matmul"
+    if "memcpy" in n:
+        return "memcpy"
+    return "other"
+
+
+def profile_serving(api, params, prompts, max_len: int, steps: int):
+    """One prefill and ``steps`` decode steps under ``torch.profiler``:
+    device time by group (the two kernels, matmuls, the rest) and the
+    number of device kernels and copies, against the wall clock of each."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.steps import build_serve_step
+    step = build_serve_step(api)
+    out = {}
+    with torch.inference_mode():
+        for what in ("prefill", "decode"):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                if what == "prefill":
+                    logits, cache = api.prefill(params, prompts, max_len)
+                else:
+                    tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+                    for i in range(steps):
+                        tok, cache = step(params, cache, tok,
+                                          prompts.shape[1] + i)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            groups = collections.Counter()
+            top = collections.Counter()
+            launched = 0
+            for e in prof.key_averages():
+                us = getattr(e, "self_device_time_total", None)
+                if us is None:
+                    us = getattr(e, "self_cuda_time_total", 0)
+                if not us or "cuda" not in str(
+                        getattr(e, "device_type", "")).lower():
+                    continue
+                groups[kernel_group(e.key)] += us / 1e3
+                top[e.key[:80]] += us / 1e3
+                launched += e.count
+            busy = sum(groups.values())
+            out[what] = {"wall_ms": wall_ms, "device_ms": dict(groups),
+                         "device_busy_ms": busy,
+                         "device_kernels": launched,
+                         "idle_share": None if not busy
+                         else 1.0 - busy / wall_ms,
+                         "top_kernels_ms": dict(top.most_common(8))}
+            if what == "decode":
+                out[what]["steps"] = steps
+    return out
+
+
+def serve_phase(dev):
+    """Phase 6: both archs served at full width in bf16."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.api import build_model
+
+    results = {}
+    for arch, expect in SERVE.items():
+        cfg = get_config(arch)
+        api = build_model(cfg, device=dev)
+        with torch.inference_mode():
+            params = api.init(0)
+        n_params = sum(p.numel() for p in params.parameters())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        res = serve(arch, requests=SERVE_REQUESTS, prompt_len=SERVE_PROMPT,
+                    gen=SERVE_GEN, tiny=False, seed=0, device=dev,
+                    params=params)
+        launches = ops.launch_counts()
+        if launches != expect:
+            raise AssertionError(f"{arch}: launches {launches}, the model "
+                                 f"has {expect}")
+        if res.tokens.shape != (SERVE_REQUESTS, SERVE_GEN):
+            raise AssertionError(f"{arch}: tokens {res.tokens.shape}")
+        if not bool(torch.isfinite(res.logits).all()):
+            raise AssertionError(f"{arch}: non-finite prefill logits")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        prompts = torch.from_numpy(np.random.default_rng(0).integers(
+            1, min(cfg.vocab_size, 1000),
+            size=(SERVE_REQUESTS, SERVE_PROMPT)).astype(np.int32)).to(dev)
+        prof = profile_serving(api, params, prompts,
+                               SERVE_PROMPT + SERVE_GEN, 8)
+        results[arch] = {
+            "params": n_params, "weights_gb": n_params * 2 / 1e9,
+            "launches": launches, "prefill_s": res.prefill_seconds,
+            "decode_s": res.decode_seconds,
+            "decode_tok_s": res.decode_tokens_per_second,
+            "peak_memory_gb": peak_gb, "tokens_head": res.tokens[:2].tolist(),
+            "profile": prof}
+        log(f"[serve] {arch} bf16 full width ({n_params / 1e9:.3f} B "
+            f"params): {SERVE_REQUESTS} x {SERVE_PROMPT} prefill "
+            f"{res.prefill_seconds:.4f} s, decode "
+            f"{res.decode_tokens_per_second:.2f} tok/s, launches {launches}, "
+            f"peak memory {peak_gb:.2f} GB")
+        log(f"[profile] {arch}: {json.dumps(prof)}")
+        del api, params, res
+        torch.cuda.empty_cache()
+    return results
+
+
+def consistency_phase(dev):
+    """Phase 7: f32 prefill (the kernels) vs a decode replay (no kernel)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import build_model
+
+    results = {}
+    for arch, layers in CONSISTENCY.items():
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+        api = build_model(cfg, device=dev, dtype=torch.float32)
+        prompts = torch.from_numpy(np.random.default_rng(0).integers(
+            1, min(cfg.vocab_size, 1000),
+            size=(SERVE_REQUESTS, SERVE_PROMPT)).astype(np.int32)).to(dev)
+        with torch.inference_mode():
+            params = api.init(0)
+            ops.reset_launch_counts()
+            logits, _ = api.prefill(params, prompts, SERVE_PROMPT)
+            launches = ops.launch_counts()
+            cache = api.init_cache(SERVE_REQUESTS, SERVE_PROMPT)
+            for t in range(SERVE_PROMPT):
+                step_logits, cache = api.decode_step(
+                    params, cache, prompts[:, t:t + 1], t)
+            replay = ops.launch_counts()
+        if replay != launches:
+            raise AssertionError(f"{arch}: the decode replay launched a "
+                                 "kernel")
+        want = step_logits.float()
+        err = float((logits.float() - want).abs().max()
+                    / want.abs().max())
+        results[arch] = {"layers": layers, "max_rel_err": err,
+                         "launches": launches}
+        log(f"[consistency] {arch} f32 {layers} layers: prefill vs decode "
+            f"replay max rel err {err:.3e}, prefill launches {launches}")
+        if not err <= CONSISTENCY_TOL:
+            raise AssertionError(f"{arch}: prefill vs replay rel err "
+                                 f"{err:.3e} > {CONSISTENCY_TOL}")
+        del api, params, cache
+        torch.cuda.empty_cache()
+    return results
+
+
+def model_kernel_entry(name, rows, uses, serve_res, source, replaces):
+    """The kernels-line entry of a model-zoo kernel: times summed over the
+    launches of the two serve prefills, at their shapes."""
+    by_case = {r["case"].split(" ", 1)[1]: r for r in rows}
+    launches = {arch: serve_res[arch]["launches"][name] for arch in SERVE}
+
+    def per_run(field):
+        return sum(by_case[arch][field] * n for arch, n in uses.items())
+    libs = [by_case[arch]["library_ms"] for arch in uses]
+    ops_ms, bytes_ms = per_run("ops_ms"), per_run("bytes_ms")
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": sum(launches.values()),
+            "launches_by_path": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "max_rel_err": max(r["max_rel_err"] for r in rows),
+            "ms": per_run("ms"), "plain_ms": per_run("plain_ms"),
+            "bound_ms": per_run("bound_ms"),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": None if None in libs else per_run("library_ms")}
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "csrc"
             / "lower_kernels.cu").is_file():
@@ -124,18 +483,24 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
-    peak_ops, peak_bw = peaks(name)
+    peak_ops, peak_bw, peak_bf16 = peaks(name)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} | {name}")
     detail = {"device": name, "peaks": {"fp32_ops_s": peak_ops,
-                                        "bytes_s": peak_bw}}
+                                        "bytes_s": peak_bw,
+                                        "bf16_ops_s": peak_bf16}}
 
-    # 1. build --------------------------------------------------------------
+    # 1. build: one nvcc per source, started together ------------------------
     t0 = time.perf_counter()
-    lib_path = backend.build()
-    backend.library()
+    sources = (backend.SOURCE, backend.MODEL_SOURCE)
+    with ThreadPoolExecutor(len(sources)) as pool:
+        lib_paths = list(pool.map(backend.build, sources))
+    for src in sources:
+        backend.library(src)
     build_s = time.perf_counter() - t0
-    log(f"[build] {lib_path.name} in {build_s:.1f} s")
-    log(lib_path.with_name(lib_path.stem + ".ptxas.txt").read_text().strip())
+    log(f"[build] {', '.join(p.name for p in lib_paths)} in {build_s:.1f} s")
+    for lib_path in lib_paths:
+        log(lib_path.with_name(lib_path.stem + ".ptxas.txt").read_text()
+            .strip())
     detail["build_seconds"] = build_s
 
     # solve + lower the three configurations --------------------------------
@@ -177,18 +542,6 @@ def main() -> int:
                 resnet_uses[k] += 1
 
     # 2. kernels vs plain versions ------------------------------------------
-    def events_ms(fn, reps):
-        times = []
-        for _ in range(reps):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
-        return statistics.median(times)
-
     run = {"fc": lambda p, i: lx.run_fc(p, i["I"], i["W"]),
            "conv": lambda p, i: lx.run_conv(p, i["I"], i["W"]),
            "pool": lambda p, i: lx.run_pool(p, i["I"]),
@@ -294,7 +647,19 @@ def main() -> int:
         torch.cuda.empty_cache()
     detail["e2e"] = e2e
 
-    # 5. the kernels line ----------------------------------------------------
+    # 5.-7. the model zoo ----------------------------------------------------
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan
+    t_phase = time.perf_counter()
+    model_rows = model_kernel_phase(dev, peak_ops, peak_bw, peak_bf16)
+    log(f"[kernels] model zoo checked in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    detail["model_kernels"] = model_rows
+    serve_res = serve_phase(dev)
+    detail["serve"] = serve_res
+    detail["consistency"] = consistency_phase(dev)
+
+    # 8. the kernels line ----------------------------------------------------
     kernels = []
     for kind in ("fc", "conv", "pool", "eltwise"):
         mine = [r for r in rows if r["kind"] == kind]
@@ -314,12 +679,23 @@ def main() -> int:
                             for r in res),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "library_ms": per_forward("library_ms")})
+    uses = {arch: counts["flash_attention"] for arch, counts in
+            SERVE.items()}
+    kernels.append(model_kernel_entry(
+        "flash_attention", model_rows["flash_attention"], uses, serve_res,
+        fa.SOURCE, fa.REPLACES["flash_attention"]))
+    kernels.append(model_kernel_entry(
+        "ssd_intra_chunk", model_rows["ssd_intra_chunk"],
+        {"zamba2-1.2b": SERVE["zamba2-1.2b"]["ssd_intra_chunk"]}, serve_res,
+        ssd_scan.SOURCE, ssd_scan.REPLACES["ssd_intra_chunk"]))
     detail["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
-    log("(times of the kernels line: per ResNet-50 b64 forward, summed over "
-        "its layers at their plans' shapes)")
+    log("(times of the kernels line: fc/conv/pool/eltwise per ResNet-50 b64 "
+        "forward, summed over its layers at their plans' shapes; "
+        "flash_attention and ssd_intra_chunk per serve prefill of "
+        "Qwen2.5-3B and Zamba2-1.2B together, summed over their launches)")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()

@@ -9,12 +9,15 @@ The one source of truth for the port's device choice:
     the CPU, where every kernel wrapper takes its plain PyTorch version
     (the port's counterpart of Pallas interpret mode).
 
-The kernels live in ``repro_torch/csrc/lower_kernels.cu`` and are compiled at first use
-with ``nvcc`` for ``sm_90a`` into a shared library with a plain C interface,
-loaded with ``ctypes``.  The library goes into ``build/repro_torch/<hash>/``
-under the repository root (``REPRO_TORCH_BUILD_DIR`` overrides it), keyed by
-the hash of the source and the flags, so an edit rebuilds and an unchanged
-tree reuses the build.  A missing ``nvcc`` or a failed build raises with the
+The kernels live in two sources under ``repro_torch/csrc/``:
+``lower_kernels.cu`` (the network tier: fc, conv, pool, eltwise) and
+``model_kernels.cu`` (the model zoo: flash attention, the SSD intra-chunk
+term).  Each is compiled at first use with ``nvcc`` for ``sm_90a`` into a
+shared library of its own with a plain C interface, loaded with ``ctypes``.
+A library goes into ``build/repro_torch/<hash>/`` under the repository root
+(``REPRO_TORCH_BUILD_DIR`` overrides it), keyed by the hash of its source
+and the flags, so an edit rebuilds only that source and an unchanged tree
+reuses the build.  A missing ``nvcc`` or a failed build raises with the
 compiler's message.
 """
 from __future__ import annotations
@@ -26,7 +29,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Optional, Union
+from typing import Dict, Union
 
 import torch
 
@@ -38,13 +41,22 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 SOURCE = CSRC / "lower_kernels.cu"
-#: C entry points and their argument counts; every argument is a pointer
-#: (device buffers, the host parameter array, the stream)
-ENTRY_POINTS = {"kapla_fc": 5, "kapla_conv": 5, "kapla_pool": 4,
-                "kapla_eltwise": 4}
+MODEL_SOURCE = CSRC / "model_kernels.cu"
+#: C entry points of each source and their argument counts; every argument
+#: is a pointer (device buffers, the host parameter arrays, the stream)
+ENTRY_POINTS = {
+    SOURCE.name: {"kapla_fc": 5, "kapla_conv": 5, "kapla_pool": 4,
+                  "kapla_eltwise": 4},
+    MODEL_SOURCE.name: {"kapla_flash_attention": 7,
+                        "kapla_ssd_intra_chunk": 8},
+}
+
+#: element-type codes the model kernels' C entry points take
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
+#: loaded libraries by source file name
+_libs: Dict[str, ctypes.CDLL] = {}
 
 
 def resolve_device(device: Union[None, str, torch.device] = None
@@ -85,48 +97,51 @@ def find_nvcc() -> str:
         "first use and needs the CUDA toolkit for that")
 
 
-def library_path() -> Path:
-    """Where the build goes (keyed by the source and the flags)."""
-    digest = hashlib.sha256(SOURCE.read_bytes()
+def library_path(source: Path = SOURCE) -> Path:
+    """Where the build of ``source`` goes (keyed by the source and the
+    flags)."""
+    digest = hashlib.sha256(source.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return build_dir() / digest[:16] / (SOURCE.stem + ".so")
+    return build_dir() / digest[:16] / (source.stem + ".so")
 
 
-def build() -> Path:
-    """Compile ``csrc/lower_kernels.cu`` unless its build exists; returns
-    the library's path.  ``nvcc``'s ``-Xptxas -v`` report (registers, shared
-    memory, spills per kernel) is kept beside it as ``<stem>.ptxas.txt``."""
-    out = library_path()
+def build(source: Path = SOURCE) -> Path:
+    """Compile ``source`` (a ``.cu`` file under ``csrc/``) unless its build
+    exists; returns the library's path.  ``nvcc``'s ``-Xptxas -v`` report
+    (registers, shared memory, spills per kernel) is kept beside it as
+    ``<stem>.ptxas.txt``."""
+    out = library_path(source)
     if out.exists():
         return out
     nvcc = find_nvcc()
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed (exit {proc.returncode}) building "
-                           f"{SOURCE.name}:\n{proc.stdout}{proc.stderr}")
+                           f"{source.name}:\n{proc.stdout}{proc.stderr}")
     out.with_name(out.stem + ".ptxas.txt").write_text(proc.stdout
                                                       + proc.stderr)
     os.replace(tmp, out)
     return out
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library (built at first use), with every entry
-    point's ``argtypes`` set: pointers and the stream as ``c_void_p``."""
-    global _lib
+def library(source: Path = SOURCE) -> ctypes.CDLL:
+    """The loaded kernel library of ``source`` (built at first use), with
+    every entry point's ``argtypes`` set: pointers and the stream as
+    ``c_void_p``."""
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, n_args in ENTRY_POINTS.items():
+        lib = _libs.get(source.name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build(source)))
+            for name, n_args in ENTRY_POINTS[source.name].items():
                 fn = getattr(lib, name)
                 fn.argtypes = [ctypes.c_void_p] * n_args
                 fn.restype = ctypes.c_int
-            _lib = lib
-        return _lib
+            _libs[source.name] = lib
+        return lib
 
 
 def check_launch(name: str, status: int) -> None:
@@ -134,5 +149,6 @@ def check_launch(name: str, status: int) -> None:
     if status != 0:
         raise RuntimeError(f"{name}: CUDA error {status} at launch")
 
-__all__ = ["ENTRY_POINTS", "SOURCE", "build", "build_dir", "check_launch",
-           "find_nvcc", "library", "library_path", "resolve_device"]
+__all__ = ["DTYPE_CODES", "ENTRY_POINTS", "MODEL_SOURCE", "SOURCE", "build",
+           "build_dir", "check_launch", "find_nvcc", "library",
+           "library_path", "resolve_device"]

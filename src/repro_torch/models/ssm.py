@@ -1,0 +1,142 @@
+"""Mamba2 (SSD) block: in-proj -> causal conv -> selective SSM -> gated out.
+
+The port of ``repro/models/ssm.py``.  Prefill uses the chunked SSD path
+(``kernels.ops.ssd``, whose intra-chunk term is the CUDA kernel on the
+card); decode keeps O(1) per-token state (conv tail + SSM state).
+Projections stay separate weights (w_z, w_x, w_b, w_c, w_dt) in the JAX
+layout (``[in, out]``, applied as ``x @ w``).
+"""
+from __future__ import annotations
+
+from typing import Dict, Mapping, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ModelConfig
+from ..kernels import ops
+from .common import dense_init, rms_norm
+
+#: the per-layer decode state of a Mamba2 block
+STATE_KEYS = ("conv_x", "conv_b", "conv_c", "ssm")
+#: leaves kept in f32 whatever the model dtype
+F32_LEAVES = ("a_log", "dt_bias", "d_skip")
+
+
+def ssm_dims(cfg: ModelConfig) -> Tuple[int, int, int]:
+    di = cfg.ssm_expand * cfg.d_model
+    H = di // cfg.ssm_head_dim
+    return di, H, cfg.ssm_state
+
+
+def init_mamba(generator: torch.Generator, cfg: ModelConfig,
+               dtype: torch.dtype = torch.bfloat16
+               ) -> Dict[str, torch.Tensor]:
+    d = cfg.d_model
+    di, H, N = ssm_dims(cfg)
+    cw = cfg.conv_width
+    dev = generator.device
+    g = generator
+    return {
+        "w_z": dense_init(g, (d, di), d, dtype),
+        "w_x": dense_init(g, (d, di), d, dtype),
+        "w_b": dense_init(g, (d, N), d, dtype),
+        "w_c": dense_init(g, (d, N), d, dtype),
+        "w_dt": dense_init(g, (d, H), d, dtype),
+        "conv_x_w": dense_init(g, (cw, di), cw, dtype),
+        "conv_b_w": dense_init(g, (cw, N), cw, dtype),
+        "conv_c_w": dense_init(g, (cw, N), cw, dtype),
+        "conv_x_b": torch.zeros((di,), dtype=dtype, device=dev),
+        "conv_b_b": torch.zeros((N,), dtype=dtype, device=dev),
+        "conv_c_b": torch.zeros((N,), dtype=dtype, device=dev),
+        "a_log": torch.zeros((H,), dtype=torch.float32, device=dev),
+        "dt_bias": torch.zeros((H,), dtype=torch.float32, device=dev),
+        "d_skip": torch.ones((H,), dtype=torch.float32, device=dev),
+        "norm": torch.zeros((di,), dtype=dtype, device=dev),
+        "w_out": dense_init(g, (di, d), di, dtype),
+    }
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor,
+                 b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv along seq.  x: [B,S,C]; w: [cw, C]; the taps
+    are added in order in x's dtype, as the JAX version does."""
+    B, S, C = x.shape
+    cw = w.shape[0]
+    xp = F.pad(x, (0, 0, cw - 1, 0))
+    y = xp[:, 0:S] * w[0]
+    for i in range(1, cw):
+        y = y + xp[:, i:i + S] * w[i]
+    return F.silu(y + b)
+
+
+def mamba_forward(p: Mapping[str, torch.Tensor], x_in: torch.Tensor,
+                  cfg: ModelConfig) -> torch.Tensor:
+    """Full-sequence forward.  x_in: [B, S, d]."""
+    B, S, _ = x_in.shape
+    di, H, N = ssm_dims(cfg)
+    z = x_in @ p["w_z"]
+    xs = _causal_conv(x_in @ p["w_x"], p["conv_x_w"], p["conv_x_b"])
+    b = _causal_conv(x_in @ p["w_b"], p["conv_b_w"], p["conv_b_b"])
+    c = _causal_conv(x_in @ p["w_c"], p["conv_c_w"], p["conv_c_b"])
+    dt = F.softplus((x_in @ p["w_dt"]).float() + p["dt_bias"])
+    xh = xs.reshape(B, S, H, cfg.ssm_head_dim)
+    y, _ = ops.ssd(xh, dt, p["a_log"], b, c)
+    y = y + xh * p["d_skip"][None, None, :, None].to(xh.dtype)
+    y = y.reshape(B, S, di)
+    y = rms_norm(y * F.silu(z), p["norm"])
+    return y @ p["w_out"]
+
+
+def mamba_init_state(cfg: ModelConfig, batch: int,
+                     dtype: torch.dtype = torch.bfloat16,
+                     device=None) -> Dict[str, torch.Tensor]:
+    di, H, N = ssm_dims(cfg)
+    cw = cfg.conv_width
+    return {
+        "conv_x": torch.zeros((batch, cw - 1, di), dtype=dtype,
+                              device=device),
+        "conv_b": torch.zeros((batch, cw - 1, N), dtype=dtype,
+                              device=device),
+        "conv_c": torch.zeros((batch, cw - 1, N), dtype=dtype,
+                              device=device),
+        "ssm": torch.zeros((batch, H, cfg.ssm_head_dim, N),
+                           dtype=torch.float32, device=device),
+    }
+
+
+def _conv_step(tail: torch.Tensor, xt: torch.Tensor, w: torch.Tensor,
+               b: torch.Tensor):
+    """tail: [B, cw-1, C]; xt: [B, C] -> (y [B, C], new tail)."""
+    window = torch.cat([tail, xt[:, None]], dim=1)
+    y = torch.einsum("bwc,wc->bc", window.float(), w.float())
+    return F.silu(y + b.float()).to(xt.dtype), window[:, 1:]
+
+
+def mamba_decode(p: Mapping[str, torch.Tensor], x_in: torch.Tensor,
+                 state: Mapping[str, torch.Tensor], cfg: ModelConfig,
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One-token decode.  x_in: [B, 1, d].  Returns (out, new state)."""
+    B = x_in.shape[0]
+    di, H, N = ssm_dims(cfg)
+    xt = x_in[:, 0]
+    z = xt @ p["w_z"]
+    xs, conv_x = _conv_step(state["conv_x"], xt @ p["w_x"],
+                            p["conv_x_w"], p["conv_x_b"])
+    b, conv_b = _conv_step(state["conv_b"], xt @ p["w_b"],
+                           p["conv_b_w"], p["conv_b_b"])
+    c, conv_c = _conv_step(state["conv_c"], xt @ p["w_c"],
+                           p["conv_c_w"], p["conv_c_b"])
+    dt = F.softplus((xt @ p["w_dt"]).float() + p["dt_bias"])
+    xh = xs.reshape(B, H, cfg.ssm_head_dim)
+    h, y = ops.ssd_decode(state["ssm"], xh, dt, p["a_log"], b, c)
+    y = y + xh * p["d_skip"][None, :, None].to(xh.dtype)
+    y = y.reshape(B, di)
+    y = rms_norm(y * F.silu(z), p["norm"])
+    out = (y @ p["w_out"])[:, None]
+    return out, {"conv_x": conv_x, "conv_b": conv_b, "conv_c": conv_c,
+                 "ssm": h}
+
+
+__all__ = ["F32_LEAVES", "STATE_KEYS", "init_mamba", "mamba_decode",
+           "mamba_forward", "mamba_init_state", "ssm_dims"]

@@ -1,15 +1,19 @@
 """The port's numpy modules are byte-identical copies of the JAX package's,
 and the port's solver and planners pick exactly the reference's schedules
 and plans."""
+import dataclasses
 from pathlib import Path
 
 import pytest
 
 pytest.importorskip("torch")
 
+from repro.configs import get_config, list_archs
 from repro.core.solver import solve
 from repro.hw.presets import eyeriss_multinode
 from repro.workloads.nets import get_net, transformer
+from repro_torch.configs import get_config as t_get_config
+from repro_torch.configs import list_archs as t_list_archs
 from repro_torch.core.solver import solve as t_solve
 from repro_torch.hw.presets import eyeriss_multinode as t_eyeriss
 from repro_torch.lower import lower_network as t_lower_network
@@ -28,6 +32,12 @@ COPIES = [
     "core/solver/memo.py", "core/solver/intralayer.py",
     "core/solver/interlayer.py", "core/solver/kapla.py",
     "lower/plan.py", "lower/netplan.py",
+    "configs/__init__.py", "configs/base.py", "configs/registry.py",
+    "configs/gemma2_2b.py", "configs/internlm2_20b.py",
+    "configs/internvl2_26b.py", "configs/kimi_k2.py",
+    "configs/mamba2_1_3b.py", "configs/musicgen_large.py",
+    "configs/qwen2_5_3b.py", "configs/qwen2_moe_a2_7b.py",
+    "configs/yi_6b.py", "configs/zamba2_1_2b.py",
 ]
 
 
@@ -35,6 +45,19 @@ COPIES = [
 def test_copy_is_byte_identical(rel):
     assert (SRC / "repro_torch" / rel).read_bytes() == \
         (SRC / "repro" / rel).read_bytes()
+
+
+def test_every_config_file_is_copied():
+    ref = {p.name for p in (SRC / "repro" / "configs").glob("*.py")}
+    assert {f"configs/{n}" for n in ref} <= set(COPIES)
+
+
+@pytest.mark.parametrize("arch", list_archs())
+def test_configs_are_equal(arch):
+    assert t_list_archs() == list_archs()
+    assert dataclasses.asdict(t_get_config(arch)) == \
+        dataclasses.asdict(get_config(arch))
+    assert t_get_config(arch).padded_vocab == get_config(arch).padded_vocab
 
 
 NETS = {

@@ -60,9 +60,12 @@ def test_build_raises_clearly_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path / "build"))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         backend.build()
-    monkeypatch.setattr(backend, "_lib", None)
-    with pytest.raises(RuntimeError, match="nvcc not found"):
-        backend.library()
+    monkeypatch.setattr(backend, "_libs", {})
+    for source in (backend.SOURCE, backend.MODEL_SOURCE):
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            backend.build(source)
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            backend.library(source)
     assert not (tmp_path / "build").exists() or \
         not any((tmp_path / "build").rglob("*.so"))
 
@@ -124,3 +127,74 @@ def test_kernels_match_plain_versions_on_card():
         torch.cuda.synchronize()
         assert tex.rel_error(out, plain) <= 1e-5, plan.describe()
     assert LAUNCHES == {"fc": 2, "conv": 3, "pool": 1, "eltwise": 1}
+
+
+def test_model_zoo_entry_points_raise_without_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is the card")
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(get_config("zamba2-1.2b"))
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _max_rel(out, want):
+    return float((out.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("H,KV,Sq,Sk,D,causal,window,cap", [
+    (4, 2, 128, 128, 64, True, 0, 0.0),
+    (8, 4, 96, 200, 256, True, 64, 50.0),
+    (2, 1, 64, 256, 128, False, 0, 0.0),
+    (4, 4, 130, 130, 32, True, 0, 30.0),
+])
+def test_flash_kernel_matches_plain_on_card(dtype, H, KV, Sq, Sk, D, causal,
+                                            window, cap):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    dev = _card()
+    dt = torch.float32 if dtype == "f32" else torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(0)
+    q = torch.randn((2, H, Sq, D), generator=g, device=dev).to(dt)
+    k = torch.randn((2, KV, Sk, D), generator=g, device=dev).to(dt)
+    v = torch.randn((2, KV, Sk, D), generator=g, device=dev).to(dt)
+    ops.reset_launch_counts()
+    out = fa.flash_attention(q, k, v, causal, window, cap)
+    want = fa.plain_flash_attention(q, k, v, causal, window, cap)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == {"flash_attention": 1}
+    assert out.dtype == dt
+    assert _max_rel(out, want) <= (1e-5 if dtype == "f32" else 8e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("H,NC,Lc,P,N", [(4, 2, 128, 64, 128),
+                                         (3, 3, 64, 32, 16)])
+def test_ssd_kernel_matches_plain_on_card(dtype, H, NC, Lc, P, N):
+    from repro_torch.kernels import ops, ssd_scan
+    dev = _card()
+    dt_ = torch.float32 if dtype == "f32" else torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn((2, H, NC, Lc, P), generator=g, device=dev).to(dt_)
+    dt = torch.rand((2, H, NC, Lc), generator=g, device=dev) * 0.2
+    acum = torch.cumsum(-dt * 0.5, dim=-1)
+    b = torch.randn((2, NC, Lc, N), generator=g, device=dev) * 0.3
+    c = torch.randn((2, NC, Lc, N), generator=g, device=dev) * 0.3
+    ops.reset_launch_counts()
+    out = ssd_scan.ssd_intra_chunk(x, dt, acum, b, c)
+    want = ssd_scan.plain_ssd_intra_chunk(x, dt, acum, b, c)
+    torch.cuda.synchronize()
+    assert ssd_scan.LAUNCHES == {"ssd_intra_chunk": 1}
+    assert out.dtype == dt_
+    assert _max_rel(out, want) <= (1e-5 if dtype == "f32" else 8e-3)

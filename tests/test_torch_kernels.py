@@ -1,0 +1,271 @@
+"""The port's model-zoo kernels on the CPU (their plain versions) and
+``kernels/ops.py`` against the JAX package: flash attention vs Pallas
+interpret mode, the SSD intra-chunk term vs Pallas interpret mode, and the
+ops wrappers vs ``repro.kernels.ops``.  Inputs are drawn with numpy from a
+seed and handed to both."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.kernels.flash_attention import flash_attention as j_flash
+from repro.kernels.ssd_scan import ssd_intra_chunk as j_ssd_intra
+from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels import ssd_scan as tssd
+
+
+def _rel_err(a, b):
+    a = np.asarray(a, np.float32)
+    b = np.asarray(b, np.float32)
+    return float(np.max(np.abs(a - b)) / (np.abs(b).max() + 1e-9))
+
+
+def _np(t):
+    return t.detach().float().numpy() if isinstance(t, torch.Tensor) \
+        else np.asarray(jnp.asarray(t, jnp.float32))
+
+
+def _pair(a, dtype):
+    """The same numpy array as a JAX array and a torch tensor of ``dtype``
+    (``"f32"`` or ``"bf16"``)."""
+    if dtype == "bf16":
+        return jnp.asarray(a, jnp.bfloat16), \
+            torch.from_numpy(a).to(torch.bfloat16)
+    return jnp.asarray(a), torch.from_numpy(a)
+
+
+# the sweep of tests/test_kernels.py
+ATTN_SWEEP = [
+    # B, H, KV, S, D, causal, window, softcap, dtype
+    (1, 2, 1, 128, 32, True, 0, 0.0, "f32"),
+    (2, 4, 2, 256, 64, True, 0, 0.0, "f32"),
+    (1, 8, 4, 128, 64, True, 0, 50.0, "f32"),
+    (1, 4, 4, 256, 32, True, 64, 0.0, "f32"),
+    (2, 2, 1, 256, 128, False, 0, 0.0, "f32"),
+    (1, 4, 2, 128, 64, True, 32, 30.0, "f32"),
+    (1, 2, 2, 128, 32, True, 0, 0.0, "bf16"),
+]
+
+
+def _qkv(B, H, KV, Sq, Sk, D, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, H, Sq, D), dtype=np.float32),
+            rng.standard_normal((B, KV, Sk, D), dtype=np.float32),
+            rng.standard_normal((B, KV, Sk, D), dtype=np.float32))
+
+
+@pytest.mark.parametrize("B,H,KV,S,D,causal,win,cap,dtype", ATTN_SWEEP)
+def test_plain_flash_matches_pallas_interpret(B, H, KV, S, D, causal, win,
+                                              cap, dtype):
+    q, k, v = _qkv(B, H, KV, S, S, D)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(a, dtype) for a in (q, k, v))
+    want = j_flash(jq, jk, jv, causal=causal, window=win, logit_softcap=cap,
+                   block_q=64, block_k=64, interpret=True)
+    tops.reset_launch_counts()
+    got = tfa.flash_attention(tq, tk, tv, causal=causal, window=win,
+                              logit_softcap=cap)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    assert tfa.LAUNCHES == {"flash_attention": 0}      # CPU: plain version
+    tol = 2e-2 if dtype == "bf16" else 2e-5
+    assert _rel_err(_np(got), _np(want)) < tol
+
+
+def test_plain_flash_right_aligned_and_ragged():
+    """Queries right-aligned into a longer KV (q_offset = Sk - Sq), and
+    sequence lengths that are not multiples of the 64-row tiles."""
+    for Sq, Sk, win in ((64, 256, 0), (40, 100, 0), (50, 130, 48)):
+        q, k, v = _qkv(2, 4, 2, Sq, Sk, 32, seed=Sq)
+        got = tfa.plain_flash_attention(torch.from_numpy(q),
+                                        torch.from_numpy(k),
+                                        torch.from_numpy(v), window=win)
+        want = jref.attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), window=win)
+        assert _rel_err(_np(got), _np(want)) < 2e-5
+        oracle = tref.attention_ref(torch.from_numpy(q), torch.from_numpy(k),
+                                    torch.from_numpy(v), window=win)
+        assert _rel_err(_np(oracle), _np(want)) < 2e-5
+
+
+@pytest.mark.parametrize("B,H,KV,S,D,causal,win,cap,dtype", ATTN_SWEEP[:6])
+def test_ops_attention_matches_jax_ops(B, H, KV, S, D, causal, win, cap,
+                                       dtype):
+    q, k, v = _qkv(B, H, KV, S, S, D, seed=1)
+    want = jops.attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                          causal=causal, window=win, logit_softcap=cap,
+                          impl="jnp")
+    # non-contiguous inputs, as the models hand them over
+    tq, tk, tv = (torch.from_numpy(a).transpose(1, 2).contiguous()
+                  .transpose(1, 2) for a in (q, k, v))
+    got = tops.attention(tq, tk, tv, causal=causal, window=win,
+                         logit_softcap=cap)
+    assert _rel_err(_np(got), _np(want)) < 1e-5
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("window,cap", [(0, 0.0), (8, 30.0)])
+def test_decode_attention_matches_jax(quant, window, cap):
+    rng = np.random.default_rng(2)
+    B, H, KV, Smax, D, n = 2, 8, 2, 32, 16, 21
+    q = rng.standard_normal((B, H, 1, D), dtype=np.float32)
+    kc = rng.standard_normal((B, KV, Smax, D), dtype=np.float32)
+    vc = rng.standard_normal((B, KV, Smax, D), dtype=np.float32)
+    if quant:
+        jk, jks = jops.quantize_kv(jnp.asarray(kc))
+        jv, jvs = jops.quantize_kv(jnp.asarray(vc))
+        tk, tks = tops.quantize_kv(torch.from_numpy(kc))
+        tv, tvs = tops.quantize_kv(torch.from_numpy(vc))
+        assert np.array_equal(np.asarray(jk), tk.numpy())
+        assert np.array_equal(np.asarray(jv), tv.numpy())
+        np.testing.assert_allclose(np.asarray(jks), tks.numpy(), rtol=1e-6)
+    else:
+        jk, jv, jks, jvs = jnp.asarray(kc), jnp.asarray(vc), None, None
+        tk, tv, tks, tvs = (torch.from_numpy(kc), torch.from_numpy(vc),
+                            None, None)
+    want = jops.decode_attention(jnp.asarray(q), jk, jv, jnp.asarray(n),
+                                 window=window, logit_softcap=cap,
+                                 k_scale=jks, v_scale=jvs)
+    got = tops.decode_attention(torch.from_numpy(q), tk, tv, n,
+                                window=window, logit_softcap=cap,
+                                k_scale=tks, v_scale=tvs)
+    assert got.shape == (B, H, 1, D)
+    assert _rel_err(_np(got), _np(want)) < 1e-5
+
+
+def test_quantize_kv_matches_jax_bf16():
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((2, 4, 9, 32), dtype=np.float32) * 3
+    jx, tx = _pair(x, "bf16")
+    jq, js = jops.quantize_kv(jx)
+    tq, ts = tops.quantize_kv(tx)
+    assert tq.dtype == torch.int8 and ts.dtype == torch.float32
+    assert ts.shape == (2, 4, 9, 1)
+    assert np.array_equal(np.asarray(jq), tq.numpy())
+    np.testing.assert_allclose(np.asarray(js), ts.numpy(), rtol=1e-6)
+
+
+def _ssd_inputs(B, S, H, P, N, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, S, H, P), dtype=np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((B, S, H),
+                                             dtype=np.float32) - 1))
+    a_log = (rng.standard_normal(H, dtype=np.float32) * 0.5).astype(
+        np.float32)
+    b = rng.standard_normal((B, S, N), dtype=np.float32) * 0.5
+    c = rng.standard_normal((B, S, N), dtype=np.float32) * 0.5
+    return x, dt.astype(np.float32), a_log, b, c
+
+
+INTRA_SWEEP = [
+    # B, H, NC, Lc, P, N, dtype
+    (1, 2, 2, 32, 16, 8, "f32"),
+    (2, 3, 1, 64, 32, 16, "f32"),
+    (1, 2, 2, 128, 64, 64, "f32"),
+    (2, 2, 2, 32, 16, 8, "bf16"),
+]
+
+
+@pytest.mark.parametrize("B,H,NC,Lc,P,N,dtype", INTRA_SWEEP)
+def test_plain_ssd_intra_matches_pallas_interpret(B, H, NC, Lc, P, N,
+                                                  dtype):
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((B, H, NC, Lc, P), dtype=np.float32)
+    dt = np.abs(rng.standard_normal((B, H, NC, Lc), dtype=np.float32)) * .1
+    acum = np.cumsum(-dt * 0.7, axis=-1).astype(np.float32)
+    b = rng.standard_normal((B, NC, Lc, N), dtype=np.float32) * 0.5
+    c = rng.standard_normal((B, NC, Lc, N), dtype=np.float32) * 0.5
+    jx, tx = _pair(x, dtype)
+    want = j_ssd_intra(jx, jnp.asarray(dt), jnp.asarray(acum),
+                       jnp.asarray(b), jnp.asarray(c), interpret=True)
+    tops.reset_launch_counts()
+    got = tssd.ssd_intra_chunk(tx, *(torch.from_numpy(a)
+                                     for a in (dt, acum, b, c)))
+    assert got.dtype == tx.dtype and got.shape == tx.shape
+    assert tssd.LAUNCHES == {"ssd_intra_chunk": 0}
+    tol = 2e-2 if dtype == "bf16" else 1e-5
+    assert _rel_err(_np(got), _np(want)) < tol
+
+
+def test_plain_ssd_intra_makes_no_nan_above_the_diagonal():
+    """Large decays overflow exp(acum_l - acum_m) above the diagonal; the
+    plain version never forms it there."""
+    Lc = 32
+    x = torch.ones((1, 1, 1, Lc, 4))
+    dt = torch.ones((1, 1, 1, Lc))
+    acum = torch.cumsum(-torch.full((1, 1, 1, Lc), 10.0), -1)
+    b = torch.zeros((1, 1, Lc, 2))
+    c = torch.zeros((1, 1, Lc, 2))
+    y = tssd.ssd_intra_chunk(x, dt, acum, b, c)
+    assert bool(torch.isfinite(y).all()) and float(y.abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk,dtype", [
+    (2, 64, 3, 16, 8, 16, "f32"),
+    (1, 256, 2, 32, 16, 128, "f32"),
+    (2, 32, 2, 16, 8, 32, "f32"),
+    (2, 64, 2, 16, 8, 16, "bf16"),
+])
+def test_ops_ssd_matches_jax_pallas_interpret(B, S, H, P, N, chunk, dtype):
+    x, dt, a_log, b, c = _ssd_inputs(B, S, H, P, N, seed=5)
+    jx, tx = _pair(x, dtype)
+    jy, jstate = jops.ssd(jx, jnp.asarray(dt), jnp.asarray(a_log),
+                          jnp.asarray(b), jnp.asarray(c), chunk=chunk,
+                          impl="pallas_interpret")
+    ty, tstate = tops.ssd(tx, *(torch.from_numpy(a)
+                                for a in (dt, a_log, b, c)), chunk=chunk)
+    assert ty.dtype == tx.dtype and ty.shape == (B, S, H, P)
+    tol = 2e-2 if dtype == "bf16" else 1e-5
+    assert _rel_err(_np(ty), _np(jy)) < tol
+    assert _rel_err(_np(tstate), _np(jstate)) < tol
+
+
+def test_ssd_decode_matches_jax():
+    rng = np.random.default_rng(6)
+    B, H, P, N = 2, 3, 8, 4
+    h = rng.standard_normal((B, H, P, N), dtype=np.float32)
+    x = rng.standard_normal((B, H, P), dtype=np.float32)
+    dt = np.abs(rng.standard_normal((B, H), dtype=np.float32))
+    a_log = rng.standard_normal(H, dtype=np.float32)
+    b = rng.standard_normal((B, N), dtype=np.float32)
+    c = rng.standard_normal((B, N), dtype=np.float32)
+    jh, jy = jops.ssd_decode(*(jnp.asarray(a) for a in (h, x, dt, a_log, b,
+                                                        c)))
+    th, ty = tops.ssd_decode(*(torch.from_numpy(a) for a in (h, x, dt,
+                                                             a_log, b, c)))
+    assert _rel_err(_np(th), _np(jh)) < 1e-5
+    assert _rel_err(_np(ty), _np(jy)) < 1e-5
+
+
+def test_ssd_ref_matches_jax_ref():
+    x, dt, a_log, b, c = _ssd_inputs(2, 24, 2, 8, 4, seed=7)
+    want = jref.ssd_ref(*(jnp.asarray(a) for a in (x, dt, a_log, b, c)))
+    got = tref.ssd_ref(*(torch.from_numpy(a) for a in (x, dt, a_log, b, c)))
+    assert _rel_err(_np(got), _np(want)) < 1e-5
+
+
+def test_wrappers_check_their_inputs():
+    q = torch.zeros((1, 4, 8, 16))
+    kv = torch.zeros((1, 2, 8, 16))
+    with pytest.raises(ValueError, match="multiple"):
+        tfa.flash_attention(q, torch.zeros((1, 3, 8, 16)),
+                            torch.zeros((1, 3, 8, 16)))
+    with pytest.raises(TypeError, match="dtype"):
+        tfa.flash_attention(q.double(), kv.double(), kv.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa.flash_attention(q.transpose(1, 2), kv, kv)
+    x = torch.zeros((1, 2, 1, 8, 4))
+    f = torch.zeros((1, 2, 1, 8))
+    bc = torch.zeros((1, 1, 8, 3))
+    with pytest.raises(ValueError, match="shape"):
+        tssd.ssd_intra_chunk(x, f, f, bc, torch.zeros((1, 1, 8, 2)))
+    with pytest.raises(TypeError, match="float32"):
+        tssd.ssd_intra_chunk(x, f.double(), f, bc, bc)
+    with pytest.raises(ValueError, match="multiple"):
+        tops.ssd(torch.zeros((1, 12, 2, 4)), torch.zeros((1, 12, 2)),
+                 torch.zeros(2), torch.zeros((1, 12, 3)),
+                 torch.zeros((1, 12, 3)), chunk=8)
