@@ -9,19 +9,35 @@ Phases, in order; any failure exits non-zero:
 
 1. build ``src/repro_torch/csrc/lower_kernels.cu`` and ``model_kernels.cu``
    for sm_90a, one nvcc each, both started together;
-2. hold each of the four network kernels (fc, conv, pool, eltwise) against
-   its plain PyTorch version on the card, at every distinct (kind, shape,
-   grid order) among the plans of ResNet-50 b64 and AlexNet b64 on the
-   16x16 Eyeriss template and AlexNet b64 on the 4x4 one: max rel error
-   <= 1e-5 (both float32, only the summation order differs); time the
-   kernel, the plain version and one PyTorch library call on the same
-   inputs;
+2. hold each of the five layer-tier kernels (fc, conv, pool, eltwise,
+   attention) against its plain PyTorch version on the card, at every
+   distinct (kind, shape, grid order) among the plans of ResNet-50 b64 and
+   AlexNet b64 on the 16x16 Eyeriss template and AlexNet b64 on the 4x4
+   one, and the attention plans: the Zamba2-1.2B shared block on both
+   templates, a 4096-token sequence whose plan puts C outermost, and every
+   attention plan of the full calibration sweep.  Max rel error <= 1e-5
+   (both float32, only the summation order differs); time the kernel, the
+   plain version and one PyTorch library call on the same inputs;
 3. ResNet-50 b64 end to end: solve -> lower_network -> network_runner on
    the card, with the launch counters set to 0 just before the run and
    read just after (each must equal the plan's layer count of its kind);
-   every layer within 1e-3 of the torch oracles; measure_network;
+   every layer within 1e-3 of the torch oracles; measure_network, its
+   predicted latency recorded as drift;
 4. the same for AlexNet b64;
-5. hold the two model-zoo kernels against their plain versions on the
+5. the calibration sweep on the card, 4x4 template: ``run_calibration``
+   (full sweep; every pair verified within 1e-3, >= 20 pairs, launches per
+   kind = (1 + iters) x its pairs, counters set to 0 just before and read
+   just after) and ``run_network_calibration`` (full: mlp b4,
+   transformer2 b8, lstm b64, alexnet b1; launches = 3 x each net's
+   layers of the kind); then the drift watchdog over the record and the
+   live ``latency_drift_ratio`` histogram.  The record's stored
+   ``spearman_calibrated`` must match its pairs (0.05); R^2, rank
+   correlation and drift quantiles are printed, not gated.  Records go to
+   ``chiprun_out/calibration_torch.json`` and
+   ``network_calibration_torch.json``;
+6. the solver flight recorder: AlexNet b64 solved with ``explain=True``
+   on the 16x16 template, its render's first lines printed;
+7. hold the two model-zoo kernels against their plain versions on the
    card: flash attention at the Qwen2.5-3B and Zamba2-1.2B serve prefill
    shapes (bf16), a Gemma2-like case (D=256, window, soft-cap), a
    right-aligned case (Sq < Sk) and a non-causal float32 case; the SSD
@@ -29,17 +45,17 @@ Phases, in order; any failure exits non-zero:
    within 1e-5 max rel error, bf16 within 8e-3 x max|plain| (one bf16
    ulp); time the kernel, the plain version and, where one PyTorch call
    computes the same function, ``F.scaled_dot_product_attention``;
-6. serve Qwen2.5-3B and Zamba2-1.2B at full width in bf16 (8 requests,
+8. serve Qwen2.5-3B and Zamba2-1.2B at full width in bf16 (8 requests,
    512-token prompts, 32 generated tokens) through ``serve``, with the
    launch counters set to 0 just before and read just after: flash 36 for
    Qwen; flash 6 and SSD 38 for Zamba2 (decode runs no kernel); finite
    logits, tokens [8, 32]; then one prefill and 8 decode steps under
    ``torch.profiler``;
-7. consistency, float32, full width, reduced depth (Qwen 4 layers, Zamba2
+9. consistency, float32, full width, reduced depth (Qwen 4 layers, Zamba2
    12): the prefill's last-token logits (through the kernels) against a
    replay of the prompt through ``decode_step`` (no kernel), max rel error
    <= 1e-3;
-8. print ``{"kernels": [...]}``, the card's name and power limit, and last
+10. print ``{"kernels": [...]}``, the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 
 Details go to ``chiprun_out/chip_smoke.json`` beside this script.
@@ -73,6 +89,17 @@ SERVE = {"qwen2.5-3b": {"flash_attention": 36, "ssd_intra_chunk": 0},
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_GEN = 8, 512, 32
 #: the consistency phase: arch -> depth
 CONSISTENCY = {"qwen2.5-3b": 4, "zamba2-1.2b": 12}
+#: attention plans held against the plain version besides the calibration
+#: sweep's: layer name, (batch, heads, sequence, head dim), template.  The
+#: first (the Zamba2-1.2B shared block on the 16x16 template) times the
+#: kernels line's attention entry.
+ATTENTION_CASES = [("zamba2.attn", (8, 32, 512, 64), "16x16"),
+                   ("zamba2.attn", (8, 32, 512, 64), "4x4"),
+                   ("long4k", (1, 8, 4096, 64), "4x4")]
+#: the calibration phase: the watchdog's limit on the stored vs recomputed
+#: rank correlation of a record, and the sweep's timed iterations
+STALE_TOL = 0.05
+CAL_ITERS = 2
 
 
 def peaks(name: str):
@@ -83,11 +110,109 @@ def log(*a) -> None:
     print(*a, flush=True)
 
 
+def calibration_phase(dev, out_dir: Path):
+    """Phase 5: both calibration sweeps on the card, then the watchdog."""
+    from repro_torch.core.solver import solve
+    from repro_torch.lower import calibrate as cal
+    from repro_torch.lower import exec as lx
+    from repro_torch.lower import lower_network
+    from repro_torch.obs import metrics, watch
+
+    t0 = time.perf_counter()
+    lx.reset_launch_counts()
+    rec = cal.run_calibration(quick=False, device=dev, iters=CAL_ITERS)
+    launches = dict(lx.LAUNCHES)
+    cal_s = time.perf_counter() - t0
+    numerics = [s for s in rec["skipped"] if "numerics" in s["reason"]]
+    if numerics or rec["n_pairs"] < 20 or rec["backend"] != "cuda":
+        raise AssertionError(f"calibration: {rec['n_pairs']} pairs, backend "
+                             f"{rec['backend']}, numerics skips {numerics}")
+    pairs = collections.Counter(p["kind"] for p in rec["pairs"])
+    for kind, count in launches.items():
+        if count != (1 + CAL_ITERS) * pairs.get(kind, 0):
+            raise AssertionError(f"calibration: {kind} launched {count} "
+                                 f"times for {pairs.get(kind, 0)} pairs")
+    worst = max(rec["pairs"], key=lambda p: p["rel_err"])
+    log(f"[calibrate] {rec['n_pairs']} pairs ({dict(pairs)}) on {rec['hw']} "
+        f"in {cal_s:.1f} s, launches {launches}, skipped {rec['skipped']}, "
+        f"worst rel err {worst['rel_err']:.2e} ({worst['layer']}), "
+        f"spearman raw {rec['spearman_raw']!r} calibrated "
+        f"{rec['spearman_calibrated']!r}, fit {rec['calibration']}")
+
+    t0 = time.perf_counter()
+    hw = cal.default_hw()
+    nets = cal.default_network_sweep(quick=False)
+    lx.reset_launch_counts()
+    net_rec = cal.run_network_calibration(quick=False, device=dev,
+                                          iters=CAL_ITERS)
+    net_launches = dict(lx.LAUNCHES)
+    net_s = time.perf_counter() - t0
+    if net_rec["skipped"] or net_rec["n_nets"] != len(nets):
+        raise AssertionError(f"network calibration: {net_rec['skipped']}")
+    expect = collections.Counter()
+    for net in nets:                         # solves are memoized
+        nplan = lower_network(solve(net, hw), net, hw)
+        for n in nplan.order:
+            expect[nplan.plans[n].kind] += 1 + CAL_ITERS
+    if net_launches != {k: expect.get(k, 0) for k in net_launches}:
+        raise AssertionError(f"network calibration: launches {net_launches}"
+                             f", plans {dict(expect)}")
+    log(f"[calibrate] network sweep {[e['net'] for e in net_rec['nets']]} "
+        f"in {net_s:.1f} s, launches {net_launches}, worst rel err "
+        f"{max(e['max_rel_err'] for e in net_rec['nets']):.2e}, "
+        f"spearman_network {net_rec.get('spearman_network')!r}, measured "
+        f"ms {[e['measured_seconds'] * 1e3 for e in net_rec['nets']]}")
+
+    report = watch.run_watch(calibrations=[("cuda", rec)],
+                             snapshot=metrics.REGISTRY.snapshot())
+    log("[watch] " + watch.render_report(report).replace("\n", "\n[watch] "))
+    health = report["calibration"]["cuda"]
+    if abs(health["stored_rank_corr"] - health["rank_corr"]) > STALE_TOL:
+        raise AssertionError(f"calibration record is malformed: stored "
+                             f"spearman {health['stored_rank_corr']} vs "
+                             f"recomputed {health['rank_corr']}")
+    out_dir.mkdir(exist_ok=True)
+    cal.save_record(rec, str(out_dir / "calibration_torch.json"))
+    cal.save_record(net_rec, str(out_dir / "network_calibration_torch.json"))
+    return {"seconds": cal_s, "network_seconds": net_s,
+            "n_pairs": rec["n_pairs"], "pairs_by_kind": dict(pairs),
+            "launches": launches, "network_launches": net_launches,
+            "spearman_raw": rec["spearman_raw"],
+            "spearman_calibrated": rec["spearman_calibrated"],
+            "calibration": rec["calibration"],
+            "spearman_network": net_rec.get("spearman_network"),
+            "watch": {"ok": report["ok"], "calibration": health,
+                      "drift": report.get("drift"),
+                      "samples": report.get("samples")}}
+
+
+def explain_phase():
+    """Phase 6: the solver flight recorder on AlexNet b64."""
+    from repro_torch.core.solver import solve
+    from repro_torch.hw.presets import eyeriss_multinode
+    from repro_torch.obs import explain
+    from repro_torch.workloads.nets import get_net
+
+    sched = solve(get_net("alexnet", batch=64), eyeriss_multinode(),
+                  explain=True)
+    if not sched.explain or not sched.explain.get("funnel"):
+        raise AssertionError("explain: no flight-recorder record")
+    lines = explain.render(sched.explain).splitlines()
+    for line in lines[:24]:
+        log(f"[explain] {line}")
+    return {"lines": len(lines), "segments": len(sched.explain["funnel"])}
+
+
 def work(plan):
     """(operations, bytes) the layer needs: each input read once, each
-    output written once; conv/fc count 2 per multiply-add."""
+    output written once; conv/fc count 2 per multiply-add, attention 4 per
+    (query, key, head-dim) point (Q K^T and P V)."""
     L = plan.layer
     d = {k: L.dim(k) for k in "NCKXY"}
+    if plan.kind == "attention":
+        return (4 * d["N"] * d["X"] * d["C"] * d["K"],
+                4 * (2 * d["N"] * d["X"] * d["K"] + 2 * d["N"] * d["C"]
+                     * d["K"]))
     if plan.kind == "fc":
         return (2 * d["N"] * d["C"] * d["K"],
                 4 * (d["N"] * d["C"] + d["C"] * d["K"] + d["N"] * d["K"]))
@@ -118,7 +243,8 @@ def device_profile(runner):
         if not us or "cuda" not in str(getattr(e, "device_type", "")).lower():
             continue
         k = e.key
-        group = next((f for f in ("fc", "conv", "pool", "eltwise")
+        group = next((f for f in ("fc", "conv", "pool", "eltwise",
+                                  "attention")
                       if f"{f}_kernel" in k), None)
         if group is None:
             group = "memcpy_dtoh" if "DtoH" in k else \
@@ -473,10 +599,12 @@ def main() -> int:
     from repro_torch.core.solver import solve
     from repro_torch.hw.presets import eyeriss_multinode
     from repro_torch.kernels import backend
+    from repro_torch.lower import calibrate as cal
     from repro_torch.lower import (compare_network, lower_network,
-                                   make_network_inputs, measure_network,
-                                   network_runner)
+                                   lower_scheme, make_network_inputs,
+                                   measure_network, network_runner)
     from repro_torch.lower import exec as lx
+    from repro_torch.workloads.layers import attention
     from repro_torch.workloads.nets import get_net
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -507,7 +635,7 @@ def main() -> int:
     configs = [("resnet", eyeriss_multinode()),
                ("alexnet", eyeriss_multinode()),
                ("alexnet", eyeriss_multinode(nodes=4, pe=8))]
-    nplans = {}
+    nplans, predicted = {}, {}
     for net_name, hw in configs:
         net = get_net(net_name, batch=64)
         t0 = time.perf_counter()
@@ -517,6 +645,8 @@ def main() -> int:
             raise RuntimeError(f"{net_name}/{hw.name}: "
                                f"{nplan.invalid_layers()}")
         nplans[(net_name, hw.name)] = nplan
+        predicted[(net_name, hw.name)] = sched.total_latency_cycles \
+            / hw.freq_hz
         log(f"[solve] {net_name} b64 on {hw.name}: "
             f"{time.perf_counter() - t0:.2f} s, {len(nplan.order)} layers, "
             f"{len(nplan.segments)} segments, "
@@ -540,19 +670,43 @@ def main() -> int:
                                     nplan.plans[n]))
             if net_name == "resnet":
                 resnet_uses[k] += 1
+    # attention: the named cases (the solver's plan) and every plan of the
+    # full calibration sweep (the plans run_calibration executes)
+    hws = {"16x16": eyeriss_multinode(), "4x4": cal.default_hw()}
+    attn = [(attention(n, *shape), hws[t], 0)
+            for n, shape, t in ATTENTION_CASES]
+    attn += [(layer, hws["4x4"], 3) for layer in cal.default_sweep(False)
+             if layer.kind == "attention"]
+    for layer, hw, n_variants in attn:
+        for vi, scheme in enumerate(cal.scheme_variants(layer, hw,
+                                                        n_variants)):
+            plan = lower_scheme(scheme, hw)
+            if not plan.valid:
+                raise RuntimeError(f"{layer.name}/{hw.name}: {plan.reason}")
+            distinct.setdefault(key(plan), (f"{layer.name}/{hw.name}/v{vi}",
+                                            plan))
+    zamba_key = next(k for k, (w, _) in distinct.items()
+                     if w == "zamba2.attn/eyeriss_16x16/v0")
 
     # 2. kernels vs plain versions ------------------------------------------
     run = {"fc": lambda p, i: lx.run_fc(p, i["I"], i["W"]),
            "conv": lambda p, i: lx.run_conv(p, i["I"], i["W"]),
            "pool": lambda p, i: lx.run_pool(p, i["I"]),
-           "eltwise": lambda p, i: lx.run_eltwise(p, [i["A"], i["B"]])}
+           "eltwise": lambda p, i: lx.run_eltwise(p, [i["A"], i["B"]]),
+           "attention": lambda p, i: lx.run_attention(p, i["Q"], i["K"],
+                                                      i["V"])}
     plain = {"fc": lambda p, i: lx.plain_fc(p, i["I"], i["W"]),
              "conv": lambda p, i: lx.plain_conv(p, i["I"], i["W"]),
              "pool": lambda p, i: lx.plain_pool(p, i["I"]),
-             "eltwise": lambda p, i: lx.plain_eltwise(p, [i["A"], i["B"]])}
+             "eltwise": lambda p, i: lx.plain_eltwise(p, [i["A"], i["B"]]),
+             "attention": lambda p, i: lx.plain_attention(p, i["Q"], i["K"],
+                                                          i["V"])}
 
     def library(p, i):
         L = p.layer
+        if p.kind == "attention":
+            return F.scaled_dot_product_attention(
+                i["Q"][:, None], i["K"][:, None], i["V"][:, None])[:, 0]
         if p.kind == "fc":
             return torch.matmul(i["I"], i["W"])
         if p.kind == "conv":
@@ -581,6 +735,10 @@ def main() -> int:
             raise AssertionError(f"{plan.kind} kernel disagrees with its "
                                  f"plain version on {plan.describe()}: "
                                  f"rel err {rel_err:.3e}")
+        lib_err = float((library(plan, inputs) - want).abs().max())
+        if lib_err > NETWORK_TOL * float(want.abs().max()):
+            raise AssertionError(f"{plan.describe()}: the library call does "
+                                 f"not compute the same function ({lib_err})")
         del want
         for _ in range(2):
             run[plan.kind](plan, inputs)
@@ -631,7 +789,9 @@ def main() -> int:
             if not bool(torch.isfinite(ex.outputs[n]).all()):
                 raise AssertionError(f"{net_name}: {n} has non-finite values")
         del ex
-        ms = measure_network(nplan, runner=runner, warmup=1, iters=3) * 1e3
+        ms = measure_network(nplan, runner=runner, warmup=1, iters=3,
+                             predicted_seconds=predicted[(net_name, hw_name)]
+                             ) * 1e3
         profile = device_profile(runner)
         log(f"[profile] {net_name}: {json.dumps(profile)}")
         e2e[net_name] = {"hw": hw_name, "launches": launches,
@@ -647,7 +807,12 @@ def main() -> int:
         torch.cuda.empty_cache()
     detail["e2e"] = e2e
 
-    # 5.-7. the model zoo ----------------------------------------------------
+    # 5./6. calibration, the watchdog, the flight recorder -------------------
+    out_dir = ROOT / "chiprun_out"
+    detail["calibration"] = calibration_phase(dev, out_dir)
+    detail["explain"] = explain_phase()
+
+    # 7.-9. the model zoo ----------------------------------------------------
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan
     t_phase = time.perf_counter()
@@ -659,7 +824,7 @@ def main() -> int:
     detail["serve"] = serve_res
     detail["consistency"] = consistency_phase(dev)
 
-    # 8. the kernels line ----------------------------------------------------
+    # 10. the kernels line ---------------------------------------------------
     kernels = []
     for kind in ("fc", "conv", "pool", "eltwise"):
         mine = [r for r in rows if r["kind"] == kind]
@@ -679,6 +844,20 @@ def main() -> int:
                             for r in res),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "library_ms": per_forward("library_ms")})
+    zamba = next(r for r in rows if r["plan"] == distinct[zamba_key][0])
+    kernels.append({
+        "name": "attention", "route": "cuda", "source": lx.SOURCE,
+        "replaces": lx.REPLACES["attention"],
+        "launches": detail["calibration"]["launches"]["attention"],
+        "max_abs_err": max(r["max_abs_err"] for r in rows
+                           if r["kind"] == "attention"),
+        "max_rel_err": max(r["max_rel_err"] for r in rows
+                           if r["kind"] == "attention"),
+        "ms": zamba["ms"], "plain_ms": zamba["plain_ms"],
+        "bound_ms": max(zamba["ops_ms"], zamba["bytes_ms"]),
+        "bound_by": "operations" if zamba["ops_ms"] >= zamba["bytes_ms"]
+        else "bytes",
+        "library_ms": zamba["library_ms"]})
     uses = {arch: counts["flash_attention"] for arch, counts in
             SERVE.items()}
     kernels.append(model_kernel_entry(
@@ -689,13 +868,14 @@ def main() -> int:
         {"zamba2-1.2b": SERVE["zamba2-1.2b"]["ssd_intra_chunk"]}, serve_res,
         ssd_scan.SOURCE, ssd_scan.REPLACES["ssd_intra_chunk"]))
     detail["kernels"] = kernels
-    out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
     log("(times of the kernels line: fc/conv/pool/eltwise per ResNet-50 b64 "
-        "forward, summed over its layers at their plans' shapes; "
-        "flash_attention and ssd_intra_chunk per serve prefill of "
-        "Qwen2.5-3B and Zamba2-1.2B together, summed over their launches)")
+        "forward, summed over its layers at their plans' shapes; attention "
+        "at the Zamba2-1.2B shared block's plan on the 16x16 template, "
+        "launches per full calibration sweep; flash_attention and "
+        "ssd_intra_chunk per serve prefill of Qwen2.5-3B and Zamba2-1.2B "
+        "together, summed over their launches)")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()

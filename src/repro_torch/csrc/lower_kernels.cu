@@ -1,12 +1,14 @@
-// Hand-written Hopper (sm_90a) kernels for the network tier of the lowering:
-// fc, conv, max pool and the n-ary eltwise sum.  Each runs one KernelPlan
-// (repro_torch/lower/plan.py): the plan's output-indexing grid axes become
-// the CUDA grid, and its reduction axis (C) becomes a loop inside the block,
-// walked tile by tile in the plan's order.  Every C tile accumulates into a
-// partial sum that is then added to the output accumulator, which is how the
-// Pallas kernels accumulate into an output block across revisits.
+// Hand-written Hopper (sm_90a) kernels for the layer and network tiers of the
+// lowering: fc, conv, max pool, the n-ary eltwise sum and attention.  Each
+// runs one KernelPlan (repro_torch/lower/plan.py): the plan's output-indexing
+// grid axes become the CUDA grid, and its reduction axis (C) becomes a loop
+// inside the block, walked tile by tile in the plan's order.  Every C tile
+// accumulates into a partial sum that is then added to the output
+// accumulator, which is how the Pallas kernels accumulate into an output
+// block across revisits (attention: every C tile is a step of the online
+// softmax, whose state stays in registers).
 //
-// All four take float32, accumulate in float32 with FMA on the CUDA cores (no
+// All five take float32, accumulate in float32 with FMA on the CUDA cores (no
 // tensor cores: TF32 would break the 1e-5 parity with the plain versions).
 // Launch geometry (sub-tile sizes, channel chunk, shared memory, grid) is
 // computed by the Python wrappers in repro_torch/lower/exec.py and passed in
@@ -16,8 +18,11 @@
 //        -Xcompiler -fPIC (repro_torch/kernels/backend.py does this).
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 #include <string.h>
+
+#include "online_softmax.cuh"
 
 namespace {
 
@@ -285,6 +290,83 @@ __global__ void eltwise_kernel(EltArgs a, float* __restrict__ O) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// attention: O[n] = softmax(Q[n] K[n]^T * D^-1/2) V[n], non-causal, per head
+// n; Q [N, X, D], K and V [N, C, D], float32.
+// Replaces src/repro/lower/exec.py _run_attention.  Bound: operations,
+// 4*N*X*C*D at 67 TFLOP/s FP32 (the bytes, each of Q, K, V read once and O
+// written once, take a sixth of that at D = 64).  A right, simple kernel is
+// all this version is: it runs on the CUDA cores; wgmma is later work.
+// Design: the Pallas kernel keeps (acc, m, l) in output buffers across
+// revisits of the grid, because its grid runs in order.  Here blocks run in
+// no order, so the plan's output axes (N, X) are the CUDA grid (one head per
+// block row; a plan tile of bx queries spans ceil(bx / 64) blocks of 64 query
+// rows) and the KV axis C, wherever it sits in the plan's grid, is a loop
+// inside the block over the plan's C tiles in plan order, each staged as
+// sub-tiles of 64 keys (masked at the tile's ragged edge).  Each sub-tile is
+// a step of the online-softmax tile that flash_kernel uses too
+// (online_softmax.cuh), so (acc, m, l) stay in registers and
+// acc / max(l, 1e-30) is the epilogue.  D is a template parameter.
+// ---------------------------------------------------------------------------
+
+struct AttnArgs {
+  int N, X, C, bx, bc, sub_x;
+  float scale;
+};
+
+template <int D>
+__global__ void __launch_bounds__(OS_THREADS)
+attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
+                 AttnArgs a) {
+  using Row = SoftmaxRow<D>;
+  extern __shared__ float4 smem4[];
+  float* qs = reinterpret_cast<float*>(smem4);
+  float* ks = qs + OS_BQ * Row::PITCH;
+  float* vs = ks + OS_BK * Row::PITCH;
+
+  const int n = blockIdx.y;
+  int x0, ax;
+  sub_tile(blockIdx.x, a.sub_x, a.bx, OS_BQ, x0, ax);
+  const int tid = threadIdx.x, row = tid >> 2, sub = tid & 3;
+  const int row_lane = (tid & 31) & ~3;
+  const float* kg = k + (size_t)n * a.C * D;
+  const float* vg = v + (size_t)n * a.C * D;
+
+  stage_rows<float, D, true>(qs, q + ((size_t)n * a.X + x0) * D, OS_BQ, ax,
+                             tid);
+  Row st;
+  st.init();
+  for (int ct = 0; ct < a.C / a.bc; ++ct) {              // plan C tiles
+    const int c_end = (ct + 1) * a.bc;
+    for (int c0 = ct * a.bc; c0 < c_end; c0 += OS_BK) {
+      const int nk = min(OS_BK, c_end - c0);
+      __syncthreads();  // the previous sub-tile's readers are done
+      stage_rows<float, D, true>(ks, kg + (size_t)c0 * D, OS_BK, nk, tid);
+      stage_rows<float, D, true>(vs, vg + (size_t)c0 * D, OS_BK, nk, tid);
+      __syncthreads();
+      // keys past the C tile's ragged edge get p = 0
+      st.step(qs + row * Row::PITCH, ks, vs, sub, row_lane, a.scale,
+              [nk](int j, float&) { return j < nk; });
+    }
+  }
+
+  if (row >= ax) return;
+  st.template store<float, true>(o + ((size_t)n * a.X + x0 + row) * D, sub);
+}
+
+template <int D>
+cudaError_t launch_attention(const float* Q, const float* K, const float* V,
+                             float* O, const AttnArgs& a, dim3 grid,
+                             size_t smem, cudaStream_t stream) {
+  static bool smem_set = false;
+  if (smem != online_softmax_smem<D>()) return cudaErrorInvalidValue;
+  const cudaError_t err = allow_smem(attention_kernel<D>, smem, smem_set);
+  if (err != cudaSuccess) return err;
+  attention_kernel<D><<<grid, OS_THREADS, smem, stream>>>(Q, K, V, O, a);
+  return cudaGetLastError();
+}
+
 unsigned grid_1d(size_t work, int threads) {
   const size_t blocks = (work + threads - 1) / threads;
   return (unsigned)(blocks < 65535u * 16u ? blocks : 65535u * 16u);
@@ -339,4 +421,22 @@ extern "C" int kapla_eltwise(const void* const* xs, float* O,
   eltwise_kernel<<<grid_1d((size_t)a.numel, 256), 256, 0,
                    (cudaStream_t)stream>>>(a, O);
   return (int)cudaGetLastError();
+}
+
+extern "C" int kapla_attention(const float* Q, const float* K, const float* V,
+                               float* O, const long long* p, void* stream) {
+  const int D = (int)p[3];
+  AttnArgs a{(int)p[0], (int)p[1], (int)p[2], (int)p[4], (int)p[5],
+             (int)p[6], (float)(1.0 / sqrt((double)D))};
+  const dim3 grid((unsigned)p[7], (unsigned)p[8]);
+  const size_t smem = (size_t)p[9];
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (D) {
+    case 16: return (int)launch_attention<16>(Q, K, V, O, a, grid, smem, st);
+    case 32: return (int)launch_attention<32>(Q, K, V, O, a, grid, smem, st);
+    case 64: return (int)launch_attention<64>(Q, K, V, O, a, grid, smem, st);
+    case 128: return (int)launch_attention<128>(Q, K, V, O, a, grid, smem, st);
+    case 256: return (int)launch_attention<256>(Q, K, V, O, a, grid, smem, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

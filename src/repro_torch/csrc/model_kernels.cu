@@ -18,38 +18,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "online_softmax.cuh"
+
 namespace {
-
-constexpr float NEG_INF = -1e30f;
-
-template <typename T>
-__device__ __forceinline__ float to_f32(T v);
-template <>
-__device__ __forceinline__ float to_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-// Opt a kernel into more than 48 KB of dynamic shared memory (once per
-// instantiation; the attribute stays set for the life of the context).
-template <typename F>
-cudaError_t allow_smem(F* kernel, size_t bytes, bool& done) {
-  if (done || bytes <= 48 * 1024) return cudaSuccess;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  done = err == cudaSuccess;
-  return err;
-}
 
 // ---------------------------------------------------------------------------
 // flash attention: o = softmax(mask(softcap(q k^T * scale))) v, per head,
@@ -58,178 +29,81 @@ cudaError_t allow_smem(F* kernel, size_t bytes, bool& done) {
 // Replaces src/repro/kernels/flash_attention.py flash_attention and
 // _flash_kernel.  Bound: in bf16 at the serve shapes, operations on the
 // tensor cores; this version runs on the CUDA cores, so it is far from that
-// bound.  Design: one block per (b*H + h, 64-query tile); 256 threads, four
-// per query row.  K and V tiles of 64 keys are staged through shared memory
-// as float32 (row pitch D + 4: float4-aligned, rows shift banks by 4).  Each
-// thread scores 16 keys of its row, the row's max and sum are reduced over
-// its four lanes with shuffles, and each thread keeps a quarter of the
-// row's float32 accumulator in registers, with m and l.  Tiles wholly above
-// the causal diagonal or left of the window are skipped (their p is 0, so
-// skipping is exact); p is zeroed by the mask, never by exp underflow, so a
-// row whose keys in a tile are all masked (m = -1e30) adds nothing.
+// bound.  Design: one block per (b*H + h, 64-query tile), looping over the
+// key tiles of 64 with the online-softmax tile of online_softmax.cuh (K and V
+// staged as float32, (acc, m, l) in registers).  Tiles wholly above the
+// causal diagonal or left of the window are skipped (their p is 0, so
+// skipping is exact); the mask zeroes p of the rest.
 // ---------------------------------------------------------------------------
-
-constexpr int FA_BQ = 64, FA_BK = 64, FA_THREADS = 256;
-constexpr int FA_KPT = FA_BK / 4;  // keys scored per thread
 
 struct FlashArgs {
   int B, H, KV, Sq, Sk, causal, window;
   float scale, softcap;
 };
 
-template <int D>
-constexpr size_t flash_smem() {
-  return (size_t)(FA_BQ + 2 * FA_BK) * (D + 4) * sizeof(float);
-}
-
 template <typename T, int D>
-__global__ void __launch_bounds__(FA_THREADS)
+__global__ void __launch_bounds__(OS_THREADS)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ o, FlashArgs a) {
-  static_assert(D % 16 == 0, "each thread owns D/16 float4 chunks");
-  constexpr int PITCH = D + 4;
-  constexpr int NCH = D / 16;
+  using Row = SoftmaxRow<D>;
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);
-  float* ks = qs + FA_BQ * PITCH;
-  float* vs = ks + FA_BK * PITCH;
+  float* ks = qs + OS_BQ * Row::PITCH;
+  float* vs = ks + OS_BK * Row::PITCH;
 
   const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
   const int hk = h / (a.H / a.KV);
   const int tid = threadIdx.x, row = tid >> 2, sub = tid & 3;
-  const int lane = tid & 31, row_lane = lane & ~3;
-  const int q0 = blockIdx.x * FA_BQ;
+  const int row_lane = (tid & 31) & ~3;
+  const int q0 = blockIdx.x * OS_BQ;
   const int q_offset = a.Sk - a.Sq;
   const T* qg = q + (size_t)bh * a.Sq * D;
   const T* kg = k + (size_t)(b * a.KV + hk) * a.Sk * D;
   const T* vg = v + (size_t)(b * a.KV + hk) * a.Sk * D;
 
-  for (int idx = tid; idx < FA_BQ * D; idx += FA_THREADS) {
-    const int r = idx / D, d = idx % D;
-    qs[r * PITCH + d] =
-        q0 + r < a.Sq ? to_f32(qg[(size_t)(q0 + r) * D + d]) : 0.f;
-  }
+  stage_rows<T, D, false>(qs, qg + (size_t)q0 * D, OS_BQ, a.Sq - q0, tid);
 
   // key tiles that can hold an unmasked key for some row of this block
   const int qlo = q0 + q_offset;
-  const int qhi = min(q0 + FA_BQ, a.Sq) - 1 + q_offset;
-  int kt_begin = 0, kt_end = (a.Sk + FA_BK - 1) / FA_BK;
-  if (a.causal) kt_end = min(kt_end, max(qhi, 0) / FA_BK + 1);
-  if (a.window > 0) kt_begin = max(0, qlo - a.window + 1) / FA_BK;
+  const int qhi = min(q0 + OS_BQ, a.Sq) - 1 + q_offset;
+  int kt_begin = 0, kt_end = (a.Sk + OS_BK - 1) / OS_BK;
+  if (a.causal) kt_end = min(kt_end, max(qhi, 0) / OS_BK + 1);
+  if (a.window > 0) kt_begin = max(0, qlo - a.window + 1) / OS_BK;
 
   const int qpos = q0 + row + q_offset;
-  float m = NEG_INF, l = 0.f;
-  float4 acc[NCH];
-#pragma unroll
-  for (int c = 0; c < NCH; ++c) acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
-
+  Row st;
+  st.init();
   for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * FA_BK;
+    const int k0 = kt * OS_BK;
     __syncthreads();  // the previous tile's readers are done
-    for (int idx = tid; idx < FA_BK * D; idx += FA_THREADS) {
-      const int r = idx / D, d = idx % D;
-      const bool in = k0 + r < a.Sk;
-      const size_t off = (size_t)(k0 + r) * D + d;
-      ks[r * PITCH + d] = in ? to_f32(kg[off]) : 0.f;
-      vs[r * PITCH + d] = in ? to_f32(vg[off]) : 0.f;
-    }
+    stage_rows<T, D, false>(ks, kg + (size_t)k0 * D, OS_BK, a.Sk - k0, tid);
+    stage_rows<T, D, false>(vs, vg + (size_t)k0 * D, OS_BK, a.Sk - k0, tid);
     __syncthreads();
-
-    // s[i]: this row's score against key k0 + sub + 4 i
-    float s[FA_KPT];
-#pragma unroll
-    for (int i = 0; i < FA_KPT; ++i) s[i] = 0.f;
-    const float* qrow = qs + row * PITCH;
-    for (int d = 0; d < D; d += 4) {
-      const float4 qv = *reinterpret_cast<const float4*>(qrow + d);
-#pragma unroll
-      for (int i = 0; i < FA_KPT; ++i) {
-        const float4 kv =
-            *reinterpret_cast<const float4*>(ks + (sub + 4 * i) * PITCH + d);
-        s[i] = fmaf(qv.x, kv.x, s[i]);
-        s[i] = fmaf(qv.y, kv.y, s[i]);
-        s[i] = fmaf(qv.z, kv.z, s[i]);
-        s[i] = fmaf(qv.w, kv.w, s[i]);
-      }
-    }
-
     // soft-cap, then the mask
-    unsigned keep = 0;
-    float mx = NEG_INF;
-#pragma unroll
-    for (int i = 0; i < FA_KPT; ++i) {
-      const int kpos = k0 + sub + 4 * i;
-      float x = s[i] * a.scale;
-      if (a.softcap > 0.f) x = tanhf(x / a.softcap) * a.softcap;
-      bool ok = kpos < a.Sk;
-      if (a.causal) ok = ok && kpos <= qpos;
-      if (a.window > 0) ok = ok && kpos > qpos - a.window;
-      s[i] = ok ? x : NEG_INF;
-      keep |= (unsigned)ok << i;
-      mx = fmaxf(mx, s[i]);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float m_new = fmaxf(m, mx);
-    const float alpha = expf(m - m_new);
-    float psum = 0.f;
-#pragma unroll
-    for (int i = 0; i < FA_KPT; ++i) {
-      s[i] = (keep >> i) & 1u ? expf(s[i] - m_new) : 0.f;
-      psum += s[i];
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    psum += __shfl_xor_sync(0xffffffffu, psum, 2);
-    l = l * alpha + psum;
-    m = m_new;
-
-    // acc = acc * alpha + p @ v; p of key j lives in lane (row, j % 4)
-#pragma unroll
-    for (int c = 0; c < NCH; ++c) {
-      acc[c].x *= alpha;
-      acc[c].y *= alpha;
-      acc[c].z *= alpha;
-      acc[c].w *= alpha;
-    }
-#pragma unroll
-    for (int j = 0; j < FA_BK; ++j) {
-      const float pj =
-          __shfl_sync(0xffffffffu, s[j / 4], row_lane | (j & 3));
-      const float* vrow = vs + j * PITCH;
-#pragma unroll
-      for (int c = 0; c < NCH; ++c) {
-        const float4 vv =
-            *reinterpret_cast<const float4*>(vrow + 4 * (sub + 4 * c));
-        acc[c].x = fmaf(pj, vv.x, acc[c].x);
-        acc[c].y = fmaf(pj, vv.y, acc[c].y);
-        acc[c].z = fmaf(pj, vv.z, acc[c].z);
-        acc[c].w = fmaf(pj, vv.w, acc[c].w);
-      }
-    }
+    st.step(qs + row * Row::PITCH, ks, vs, sub, row_lane, a.scale,
+            [&](int j, float& x) {
+              const int kpos = k0 + j;
+              if (a.softcap > 0.f) x = tanhf(x / a.softcap) * a.softcap;
+              bool ok = kpos < a.Sk;
+              if (a.causal) ok = ok && kpos <= qpos;
+              if (a.window > 0) ok = ok && kpos > qpos - a.window;
+              return ok;
+            });
   }
 
   if (q0 + row >= a.Sq) return;
-  const float denom = fmaxf(l, 1e-30f);
-  T* orow = o + ((size_t)bh * a.Sq + q0 + row) * D;
-#pragma unroll
-  for (int c = 0; c < NCH; ++c) {
-    const int d = 4 * (sub + 4 * c);
-    orow[d + 0] = from_f32<T>(acc[c].x / denom);
-    orow[d + 1] = from_f32<T>(acc[c].y / denom);
-    orow[d + 2] = from_f32<T>(acc[c].z / denom);
-    orow[d + 3] = from_f32<T>(acc[c].w / denom);
-  }
+  st.template store<T, false>(o + ((size_t)bh * a.Sq + q0 + row) * D, sub);
 }
 
 template <typename T, int D>
 cudaError_t launch_flash(const void* q, const void* k, const void* v,
                          void* o, const FlashArgs& a, cudaStream_t stream) {
   static bool smem_set = false;
-  constexpr size_t smem = flash_smem<D>();
+  constexpr size_t smem = online_softmax_smem<D>();
   cudaError_t err = allow_smem(flash_kernel<T, D>, smem, smem_set);
   if (err != cudaSuccess) return err;
-  dim3 grid((unsigned)((a.Sq + FA_BQ - 1) / FA_BQ), (unsigned)(a.B * a.H));
-  flash_kernel<T, D><<<grid, FA_THREADS, smem, stream>>>(
+  dim3 grid((unsigned)((a.Sq + OS_BQ - 1) / OS_BQ), (unsigned)(a.B * a.H));
+  flash_kernel<T, D><<<grid, OS_THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), a);
   return cudaGetLastError();

@@ -10,14 +10,15 @@ The one source of truth for the port's device choice:
     (the port's counterpart of Pallas interpret mode).
 
 The kernels live in two sources under ``repro_torch/csrc/``:
-``lower_kernels.cu`` (the network tier: fc, conv, pool, eltwise) and
+``lower_kernels.cu`` (the layer and network tiers: fc, conv, pool,
+eltwise, attention) and
 ``model_kernels.cu`` (the model zoo: flash attention, the SSD intra-chunk
 term).  Each is compiled at first use with ``nvcc`` for ``sm_90a`` into a
 shared library of its own with a plain C interface, loaded with ``ctypes``.
 A library goes into ``build/repro_torch/<hash>/`` under the repository root
-(``REPRO_TORCH_BUILD_DIR`` overrides it), keyed by the hash of its source
-and the flags, so an edit rebuilds only that source and an unchanged tree
-reuses the build.  A missing ``nvcc`` or a failed build raises with the
+(``REPRO_TORCH_BUILD_DIR`` overrides it), keyed by the hash of its source,
+the headers both include (``online_softmax.cuh``) and the flags, so an edit
+rebuilds only what it touches and an unchanged tree reuses the build.  A missing ``nvcc`` or a failed build raises with the
 compiler's message.
 """
 from __future__ import annotations
@@ -46,7 +47,7 @@ MODEL_SOURCE = CSRC / "model_kernels.cu"
 #: is a pointer (device buffers, the host parameter arrays, the stream)
 ENTRY_POINTS = {
     SOURCE.name: {"kapla_fc": 5, "kapla_conv": 5, "kapla_pool": 4,
-                  "kapla_eltwise": 4},
+                  "kapla_eltwise": 4, "kapla_attention": 6},
     MODEL_SOURCE.name: {"kapla_flash_attention": 7,
                         "kapla_ssd_intra_chunk": 8},
 }
@@ -98,10 +99,13 @@ def find_nvcc() -> str:
 
 
 def library_path(source: Path = SOURCE) -> Path:
-    """Where the build of ``source`` goes (keyed by the source and the
-    flags)."""
-    digest = hashlib.sha256(source.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """Where the build of ``source`` goes (keyed by the source, the
+    headers beside it that both sources share, and the flags)."""
+    h = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return build_dir() / digest[:16] / (source.stem + ".so")
 
 

@@ -1,5 +1,6 @@
-"""Lowering: compile solved dataflow schemes into executable plans and run
-them through the hand-written CUDA kernels, at two tiers:
+"""Lowering: compile solved dataflow schemes into executable plans, run
+them through the hand-written CUDA kernels, and calibrate the cost model
+against the measured times, at two tiers:
 
   layer tier
       solver (LayerScheme)
@@ -10,11 +11,14 @@ them through the hand-written CUDA kernels, at two tiers:
           -> netplan.lower_network                  (NetworkPlan: ordered
              kernel plans + segment buffer schedule w/ on-chip forwarding)
           -> netexec.network_runner / execute_network / verify_network /
-             measure_network
+             measure_network (drift: netexec.record_latency_drift)
+  calibration
+      calibrate.run_calibration          (per-kernel Spearman + fit,
+         backend "cuda" or "cpu")
+      calibrate.run_network_calibration  (end-to-end network Spearman)
 
 ``plan.py`` and ``netplan.py`` are byte-identical copies of ``repro``'s.
-The fused tier (``fuse.py``) and calibration (``calibrate.py``) are ported
-in later slices.
+The fused tier (``fuse.py``) is ported in a later slice.
 """
 from .plan import GridAxis, KernelPlan, lower_scheme, lower_schedule
 from .exec import (LAUNCHES, execute_plan, make_inputs, measure_plan,
@@ -25,8 +29,13 @@ from .netplan import (NetworkPlan, SegmentPlan, TensorPlacement,
 from .netexec import (NetworkExecution, NetworkVerification,
                       compare_network, execute_network,
                       from_reference_inputs, make_network_inputs,
-                      measure_network, network_runner, reference_network,
+                      measure_network, network_runner,
+                      record_latency_drift, reference_network,
                       verify_network)
+from .calibrate import (Calibration, default_hw, default_network_sweep,
+                        default_sweep, fit_calibration, load_record,
+                        run_calibration, run_network_calibration,
+                        save_record, scheme_variants, spearman)
 
 __all__ = [
     "GridAxis", "KernelPlan", "lower_scheme", "lower_schedule",
@@ -37,6 +46,9 @@ __all__ = [
     "lower_network",
     "NetworkExecution", "NetworkVerification", "compare_network",
     "execute_network", "from_reference_inputs", "make_network_inputs",
-    "measure_network", "network_runner", "reference_network",
-    "verify_network",
+    "measure_network", "network_runner", "record_latency_drift",
+    "reference_network", "verify_network",
+    "Calibration", "default_hw", "default_network_sweep", "default_sweep",
+    "fit_calibration", "load_record", "run_calibration",
+    "run_network_calibration", "save_record", "scheme_variants", "spearman",
 ]

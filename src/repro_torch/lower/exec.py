@@ -1,21 +1,21 @@
 """Execute ``KernelPlan``s through hand-written CUDA kernels.
 
-The port of ``repro/lower/exec.py``.  One kernel per layer family of the
-network tier (fc, conv, pool, eltwise), in ``csrc/lower_kernels.cu``, each
+The port of ``repro/lower/exec.py``.  One kernel per layer family (fc,
+conv, pool, eltwise, attention), in ``csrc/lower_kernels.cu``, each
 parameterized by the plan: the plan's grid axes that index the output become
 the CUDA grid (a plan output tile may span several CUDA blocks), and the
 grid axes that do not (the reduction, ``C``) become a loop inside the block,
-walked in the plan's order, each C tile accumulated into the output.  So
-every loop order the solver picks runs, including the reduction-outermost
-orders that compiled Pallas refuses (``repro/lower/exec.py:45-60``).
+walked in the plan's order, each C tile accumulated into the output (for
+attention: into the online softmax's ``(acc, m, l)``, kept in registers).
+So every loop order the solver picks runs, including the
+reduction-outermost orders that compiled Pallas refuses
+(``repro/lower/exec.py:45-60``).
 
 Beside each kernel sits its plain PyTorch version, which walks ``plan.grid``
 in order and accumulates into output blocks exactly as the Pallas kernel
 does: the port's counterpart of interpret mode.  A wrapper takes the plain
 version only for tensors on the CPU; for CUDA tensors it launches the kernel
 or raises.  ``LAUNCHES`` counts kernel launches per family.
-
-Attention plans (``_run_attention``) are ported in a later slice.
 """
 from __future__ import annotations
 
@@ -32,13 +32,15 @@ from ..kernels import backend, ref
 from .plan import KernelPlan
 
 #: kernel launches per family since the last ``reset_launch_counts()``
-LAUNCHES: Dict[str, int] = {"fc": 0, "conv": 0, "pool": 0, "eltwise": 0}
+LAUNCHES: Dict[str, int] = {"fc": 0, "conv": 0, "pool": 0, "eltwise": 0,
+                            "attention": 0}
 
 #: the TPU kernel each CUDA kernel replaces (file:line of its definition)
 REPLACES = {"fc": "src/repro/lower/exec.py:88",
             "conv": "src/repro/lower/exec.py:118",
             "pool": "src/repro/lower/exec.py:179",
-            "eltwise": "src/repro/lower/exec.py:230"}
+            "eltwise": "src/repro/lower/exec.py:230",
+            "attention": "src/repro/lower/exec.py:257"}
 
 SOURCE = "src/repro_torch/csrc/lower_kernels.cu"
 NEG_INF = -1e30
@@ -46,9 +48,11 @@ ELTWISE_MAX_OPS = 8
 CONV_THREADS = 256
 CONV_SMEM_BYTES = 48 * 1024
 FC_TILE = 64
+ATTN_TILE = 64                  # query rows per CUDA block, keys per stage
+ATTN_HEAD_DIMS = (16, 32, 64, 128, 256)
 
 _INPUT_NAMES = {"fc": ("I", "W"), "conv": ("I", "W"), "pool": ("I",),
-                "eltwise": ("A", "B")}
+                "eltwise": ("A", "B"), "attention": ("Q", "K", "V")}
 
 
 def reset_launch_counts() -> None:
@@ -57,11 +61,6 @@ def reset_launch_counts() -> None:
 
 
 def _check_kind(plan: KernelPlan) -> None:
-    if plan.kind == "attention":
-        raise NotImplementedError(
-            "attention plans are not ported yet: the attention kernel "
-            "(repro/lower/exec.py _run_attention) comes in a later slice "
-            "of repro_torch")
     if plan.kind not in _INPUT_NAMES:
         raise ValueError(f"unsupported kind {plan.kind!r}")
 
@@ -88,7 +87,7 @@ def _check_reduction(plan: KernelPlan) -> None:
     rel = plan.layer.tensors["O"]
     if {ax.dim for ax in plan.grid if ax.dim not in rel} - {"C"}:
         raise ValueError(f"{plan.describe()}: only C may be a reduction "
-                         "grid axis of an fc/conv plan")
+                         f"grid axis of a {plan.kind} plan")
 
 
 def _check(t: torch.Tensor, shape: Tuple[int, ...], what: str,
@@ -369,6 +368,92 @@ def run_eltwise(plan: KernelPlan,
 
 
 # ---------------------------------------------------------------------------
+# attention (non-causal, online softmax over the KV positions C)
+# ---------------------------------------------------------------------------
+
+def plain_attention(plan: KernelPlan, q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> torch.Tensor:
+    """``softmax(Q K^T * D^-1/2) V`` per head, walked over the plan's grid
+    step for step as the Pallas kernel runs: ``(acc, m, l)`` buffers
+    indexed like O, set on the first visit of an output block, updated by
+    one online-softmax step per (N, X, C) tile, then ``acc / max(l,
+    1e-30)``."""
+    ref.full_fp32(q)
+    L = plan.layer
+    N, X, D = L.dim("N"), L.dim("X"), L.dim("K")
+    scale = D ** -0.5
+    rel = L.tensors["O"]
+    acc = torch.empty((N, X, D), dtype=torch.float32, device=q.device)
+    m = torch.empty((N, X), dtype=torch.float32, device=q.device)
+    lsum = torch.empty((N, X), dtype=torch.float32, device=q.device)
+    for g in _walk(plan):
+        n, x, c = (_blk(plan, g, d) for d in "NXC")
+        if all(g[d] == 0 for d in g if d not in rel):     # first visit
+            acc[n, x] = 0.0
+            m[n, x] = NEG_INF
+            lsum[n, x] = 0.0
+        s = torch.einsum("nqd,nkd->nqk", q[n, x], k[n, c]) * scale
+        m_prev = m[n, x]
+        m_cur = torch.maximum(m_prev, s.amax(dim=-1))
+        alpha = torch.exp(m_prev - m_cur)
+        p = torch.exp(s - m_cur[..., None])
+        lsum[n, x] = lsum[n, x] * alpha + p.sum(dim=-1)
+        m[n, x] = m_cur
+        acc[n, x] = acc[n, x] * alpha[..., None] + \
+            torch.einsum("nqk,nkd->nqd", p, v[n, c])
+    return acc / lsum.clamp_min(1e-30)[..., None]
+
+
+def attention_launch(plan: KernelPlan) -> List[int]:
+    """Parameters of ``kapla_attention``: dims, the plan's X and C blocks,
+    64-row query sub-tiles per plan X tile, grid (query sub-tiles, heads)
+    and dynamic shared memory (Q, K and V tiles of 64 rows at a pitch of
+    D + 4 floats).  The kernel is instantiated for the head dims in
+    ``ATTN_HEAD_DIMS`` only."""
+    _check_reduction(plan)
+    L, b = plan.layer, plan.block
+    N, X, C, D = L.dim("N"), L.dim("X"), L.dim("C"), L.dim("K")
+    if D not in ATTN_HEAD_DIMS:
+        raise ValueError(f"{plan.describe()}: head dim {D}; the attention "
+                         f"kernel takes {ATTN_HEAD_DIMS}")
+    if b["K"] != D:
+        raise ValueError(f"{plan.describe()}: the head dim must be whole "
+                         "in a block")
+    sub_x = _ceil(b["X"], ATTN_TILE)
+    grid = ((X // b["X"]) * sub_x, N)
+    if grid[1] > 65535:
+        raise ValueError(f"{plan.describe()}: attention grid {grid} too "
+                         "large")
+    return [N, X, C, D, b["X"], b["C"], sub_x, *grid,
+            4 * 3 * ATTN_TILE * (D + 4)]
+
+
+def run_attention(plan: KernelPlan, q: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor) -> torch.Tensor:
+    """attention wrapper: the CUDA kernel on the card, ``plain_attention``
+    on the CPU.  Q ``[N,X,D]``, K and V ``[N,C,D]``, float32."""
+    L = plan.layer
+    N, X, C, D = L.dim("N"), L.dim("X"), L.dim("C"), L.dim("K")
+    _check(q, (N, X, D), "attention query Q[N,X,K]", q.device)
+    _check(k, (N, C, D), "attention keys K[N,C,K]", q.device)
+    _check(v, (N, C, D), "attention values V[N,C,K]", q.device)
+    if not _cuda_or_cpu(q, "attention"):
+        return plain_attention(plan, q, k, v)
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("attention: Q, K and V must be 16-byte aligned "
+                         "(the kernel loads float4)")
+    prm = _params(attention_launch(plan))
+    out = torch.empty((N, X, D), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        lib = backend.library()
+        backend.check_launch("kapla_attention", lib.kapla_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), prm,
+            torch.cuda.current_stream(q.device).cuda_stream))
+    LAUNCHES["attention"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Public API: inputs, execution, verification, measurement
 # ---------------------------------------------------------------------------
 
@@ -383,11 +468,15 @@ def input_extent(layer) -> Tuple[int, int]:
 
 def input_shapes(plan: KernelPlan) -> Dict[str, Tuple[int, ...]]:
     """The plan's canonical input layouts (fc: I[N,C] W[C,K]; conv:
-    I[N,C,XI,YI] W[K,C,R,S]; pool: I[N,C,XI,YI]; eltwise: A/B [N,C,X,Y])."""
+    I[N,C,XI,YI] W[K,C,R,S]; attention: Q[N,X,K] K/V[N,C,K]; pool:
+    I[N,C,XI,YI]; eltwise: A/B [N,C,X,Y])."""
     _check_kind(plan)
     L = plan.layer
     if plan.kind == "fc":
         return {"I": (L.dim("N"), L.dim("C")), "W": (L.dim("C"), L.dim("K"))}
+    if plan.kind == "attention":
+        kv = (L.dim("N"), L.dim("C"), L.dim("K"))
+        return {"Q": (L.dim("N"), L.dim("X"), L.dim("K")), "K": kv, "V": kv}
     if plan.kind == "eltwise":
         shape = tuple(L.dim(d) for d in "NCXY")
         return {"A": shape, "B": shape}
@@ -409,7 +498,8 @@ def as_tensor(v, device: torch.device) -> torch.Tensor:
 def make_inputs(plan: KernelPlan, seed: int = 0,
                 device=None) -> Dict[str, torch.Tensor]:
     """Deterministic float32 inputs in the plan's canonical layouts, drawn
-    with numpy's ``default_rng(seed)``; weights scaled by fan-in^-1/2."""
+    with numpy's ``default_rng(seed)``; weights scaled by fan-in^-1/2,
+    attention's Q, K and V unscaled."""
     dev = backend.resolve_device(device)
     rng = np.random.default_rng(seed)
     L = plan.layer
@@ -424,7 +514,8 @@ def make_inputs(plan: KernelPlan, seed: int = 0,
     return out
 
 
-_RUN = {"fc": run_fc, "conv": run_conv, "pool": run_pool}
+_RUN = {"fc": run_fc, "conv": run_conv, "pool": run_pool,
+        "attention": run_attention}
 
 
 def plan_runner(plan: KernelPlan, device=None) -> Callable[[Mapping],
@@ -464,6 +555,10 @@ def reference_output(plan: KernelPlan, inputs: Mapping) -> torch.Tensor:
     if plan.kind == "conv":
         return ref.conv2d_ref(inputs["I"], inputs["W"],
                               stride=int(L.meta["stride"]))
+    if plan.kind == "attention":
+        out = ref.attention_ref(inputs["Q"][:, None], inputs["K"][:, None],
+                                inputs["V"][:, None], causal=False)
+        return out[:, 0]
     if plan.kind == "pool":
         return ref.pool2d_ref(inputs["I"], int(L.meta["R"]),
                               int(L.meta["S"]), stride=int(L.meta["stride"]))

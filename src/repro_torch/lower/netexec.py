@@ -28,6 +28,7 @@ only, as in the reference.
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 import zlib
 from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
@@ -37,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import backend, ref
+from ..obs import metrics, trace, watch
 from ..workloads.layers import LayerSpec
 from .exec import (as_tensor, input_extent, input_shapes, rel_error,
                    run_conv, run_eltwise, run_fc, run_pool)
@@ -352,14 +354,55 @@ def verify_network(nplan: NetworkPlan, device=None, seed: int = 0,
                            inputs, tol)
 
 
+_m_drift = metrics.histogram(
+    "latency_drift_ratio",
+    "measured / predicted network latency of lowered plans",
+    ("source", "backend"), buckets=metrics.DRIFT_BUCKETS)
+
+
+def backend_label(device) -> str:
+    """The ``backend`` label of a run on ``device`` (a ``torch.device`` or
+    its name): ``"cuda"`` for the kernels on the card, ``"cpu"`` for the
+    plain versions.  The JAX package's labels (interpret, pallas,
+    compiled) are never reused, so a fit or a drift series of one never
+    prices the other."""
+    return "cuda" if torch.device(device).type == "cuda" else "cpu"
+
+
+def record_latency_drift(predicted_seconds: Optional[float],
+                         measured_seconds: float,
+                         source: str = "netexec",
+                         backend: str = "cuda") -> Optional[float]:
+    """Record one predicted-vs-measured latency pair into the
+    ``latency_drift_ratio{source, backend}`` histogram, the watchdog's
+    sample ring (``watch.note_sample``) and a ``netexec.latency_drift``
+    trace instant.  Returns the ratio, or None when either side is
+    unusable (zero or negative prediction, NaN or non-positive
+    measurement)."""
+    if not predicted_seconds or predicted_seconds <= 0.0:
+        return None
+    if not math.isfinite(measured_seconds) or measured_seconds <= 0.0:
+        return None
+    ratio = measured_seconds / predicted_seconds
+    _m_drift.observe(ratio, source=source, backend=backend)
+    watch.note_sample(predicted_seconds, measured_seconds,
+                      source=source, backend=backend)
+    trace.instant("netexec.latency_drift", source=source, backend=backend,
+                  ratio=round(ratio, 4))
+    return ratio
+
+
 def measure_network(nplan: NetworkPlan, inputs: Optional[Mapping] = None,
                     device=None, iters: int = 3, warmup: int = 1,
-                    runner: Optional[Callable[[], NetworkExecution]] = None
-                    ) -> float:
+                    runner: Optional[Callable[[], NetworkExecution]] = None,
+                    predicted_seconds: Optional[float] = None,
+                    drift_source: str = "netexec") -> float:
     """Wall-clock seconds of one end-to-end network execution: min over
     ``iters`` after ``warmup`` runs, host round-trips included.  Pass an
     existing ``network_runner`` (with ``warmup=0`` if it already ran) to
-    reuse it."""
+    reuse it.  With ``predicted_seconds`` the pair is recorded as drift
+    (``record_latency_drift``) under ``drift_source``, labelled with the
+    device the runs went to (``backend_label``)."""
     if runner is None:
         inputs = inputs if inputs is not None \
             else make_network_inputs(nplan, device=device)
@@ -367,11 +410,19 @@ def measure_network(nplan: NetworkPlan, inputs: Optional[Mapping] = None,
         warmup = max(1, warmup)
     for _ in range(warmup):
         runner()
-    return min(runner().seconds for _ in range(max(1, iters)))
+    best, dev = math.inf, None
+    for _ in range(max(1, iters)):
+        ex = runner()
+        best, dev = min(best, ex.seconds), ex.device
+        del ex      # free this run's outputs before the next one starts
+    if predicted_seconds is not None:
+        record_latency_drift(predicted_seconds, best, source=drift_source,
+                             backend=backend_label(dev))
+    return best
 
 
 __all__ = ["NetworkExecution", "NetworkVerification", "adapt_tensor",
-           "compare_network", "execute_network", "from_reference_inputs",
-           "make_network_inputs", "measure_network", "network_input_shapes",
-           "network_runner", "reference_network", "required_input_shape",
-           "verify_network"]
+           "backend_label", "compare_network", "execute_network",
+           "from_reference_inputs", "make_network_inputs", "measure_network",
+           "network_input_shapes", "network_runner", "record_latency_drift",
+           "reference_network", "required_input_shape", "verify_network"]

@@ -1,8 +1,9 @@
-"""Observability: spans (``obs.trace``) and the metrics registry
-(``obs.metrics``), the copies the solver needs.  ``explain`` and
-``watch`` are not ported yet, so a solve with ``explain=True`` raises
-``ImportError`` here."""
-from . import metrics, trace
+"""Observability: spans (``obs.trace``), the metrics registry
+(``obs.metrics``), the solver flight recorder (``obs.explain``) and the
+drift watchdog (``obs.watch``), all byte-identical copies of ``repro``'s.
+``python -m repro_torch.obs`` is the CLI (summarize, metrics, explain,
+watch)."""
+from . import explain, metrics, trace, watch
 from .metrics import (REGISTRY, Counter, CounterGroup, Gauge, Histogram,
                       Registry, counter, gauge, histogram)
 from .trace import Tracer, instant, span, tracing
@@ -19,6 +20,7 @@ def on() -> None:
     metrics.set_off(False)
 
 
-__all__ = ["metrics", "trace", "span", "instant", "tracing", "Tracer",
-           "REGISTRY", "Registry", "Counter", "Gauge", "Histogram",
-           "CounterGroup", "counter", "gauge", "histogram", "off", "on"]
+__all__ = ["metrics", "trace", "explain", "watch", "span", "instant",
+           "tracing", "Tracer", "REGISTRY", "Registry", "Counter",
+           "Gauge", "Histogram", "CounterGroup", "counter", "gauge",
+           "histogram", "off", "on"]

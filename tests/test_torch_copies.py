@@ -27,7 +27,7 @@ COPIES = [
     "hw/template.py", "hw/presets.py",
     "core/directives.py", "core/cost_model.py", "core/cost_batch.py",
     "core/estimate.py", "core/estimate_batch.py",
-    "obs/metrics.py", "obs/trace.py",
+    "obs/metrics.py", "obs/trace.py", "obs/watch.py", "obs/explain.py",
     "runtime/inject.py",
     "core/solver/memo.py", "core/solver/intralayer.py",
     "core/solver/interlayer.py", "core/solver/kapla.py",

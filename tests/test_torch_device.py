@@ -14,7 +14,7 @@ from repro_torch.lower import (LAUNCHES, lower_network, lower_scheme,
                                plan_runner, reset_launch_counts,
                                verify_network)
 from repro_torch.lower import exec as tex
-from repro_torch.workloads.layers import conv, eltwise, fc, pool
+from repro_torch.workloads.layers import attention, conv, eltwise, fc, pool
 from repro_torch.workloads.nets import get_net
 
 HW = eyeriss_multinode(nodes=4, pe=8)
@@ -70,11 +70,29 @@ def test_build_raises_clearly_without_nvcc(monkeypatch, tmp_path):
         not any((tmp_path / "build").rglob("*.so"))
 
 
+def test_build_key_covers_the_shared_header(monkeypatch, tmp_path):
+    """Both sources include csrc/online_softmax.cuh, so an edit there must
+    rebuild both libraries, and an edit to one source only that one."""
+    import shutil
+    csrc = tmp_path / "csrc"
+    shutil.copytree(backend.SOURCE.parent, csrc)
+    monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path / "build"))
+    lower, model = csrc / backend.SOURCE.name, csrc / backend.MODEL_SOURCE.name
+    before = (backend.library_path(lower), backend.library_path(model))
+    header = csrc / "online_softmax.cuh"
+    header.write_text(header.read_text() + "\n")
+    after = (backend.library_path(lower), backend.library_path(model))
+    assert after[0] != before[0] and after[1] != before[1]
+    lower.write_text(lower.read_text() + "\n")
+    assert backend.library_path(lower) != after[0]
+    assert backend.library_path(model) == after[1]
+
+
 def test_cpu_path_launches_no_kernel():
     reset_launch_counts()
     ver = verify_network(_mlp_plan(), device="cpu")
     assert ver.ok
-    assert set(LAUNCHES) == {"fc", "conv", "pool", "eltwise"}
+    assert set(LAUNCHES) == {"fc", "conv", "pool", "eltwise", "attention"}
     assert all(v == 0 for v in LAUNCHES.values()), LAUNCHES
 
 
@@ -126,7 +144,36 @@ def test_kernels_match_plain_versions_on_card():
                      plan, [inputs["A"], inputs["B"]])}[plan.kind]()
         torch.cuda.synchronize()
         assert tex.rel_error(out, plain) <= 1e-5, plan.describe()
-    assert LAUNCHES == {"fc": 2, "conv": 3, "pool": 1, "eltwise": 1}
+    assert LAUNCHES == {"fc": 2, "conv": 3, "pool": 1, "eltwise": 1,
+                        "attention": 0}
+
+
+#: attention plans the solver gives (layer, template): the Zamba2-1.2B shared
+#: block on both templates, and a long sequence whose plan puts C outermost
+ATTENTION_CASES = {
+    "zamba2-16x16": (attention("zamba2.attn", 8, 32, 512, 64), {}),
+    "zamba2-4x4": (attention("zamba2.attn", 8, 32, 512, 64),
+                   {"nodes": 4, "pe": 8}),
+    "long4k-4x4": (attention("long4k", 1, 8, 4096, 64), {"nodes": 4, "pe": 8}),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(ATTENTION_CASES))
+def test_attention_kernel_matches_plain_on_card(case):
+    dev = _card()
+    layer, hw_args = ATTENTION_CASES[case]
+    hw = eyeriss_multinode(**hw_args)
+    scheme, _ = solve_intra_layer(layer, hw, Constraints(nodes=hw.node_array))
+    plan = lower_scheme(scheme, hw)
+    assert plan.valid, plan.reason
+    inputs = tex.make_inputs(plan, device=dev)
+    reset_launch_counts()
+    out = tex.run_attention(plan, inputs["Q"], inputs["K"], inputs["V"])
+    want = tex.plain_attention(plan, inputs["Q"], inputs["K"], inputs["V"])
+    torch.cuda.synchronize()
+    assert LAUNCHES["attention"] == 1
+    assert _max_rel(out, want) <= 1e-5, plan.describe()
 
 
 def test_model_zoo_entry_points_raise_without_card():

@@ -7,23 +7,28 @@ sides are float32 and differ only in summation order, hence max rel error
 import numpy as np
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
 
 from repro.core.solver.intralayer import Constraints, solve_intra_layer
 from repro.lower import execute_plan, lower_scheme, make_inputs
 from repro.lower.calibrate import default_hw, scheme_variants
 from repro.workloads.layers import attention, conv, eltwise, fc, pool
 from repro_torch.core.directives import LayerScheme as TLayerScheme
+from repro_torch.core.solver.intralayer import Constraints as TConstraints
+from repro_torch.core.solver.intralayer import \
+    solve_intra_layer as t_solve_intra_layer
 from repro_torch.hw.presets import eyeriss_multinode as t_eyeriss
 from repro_torch.lower import exec as tex
 from repro_torch.lower import from_reference_inputs
 from repro_torch.lower import lower_scheme as t_lower_scheme
+from repro_torch.workloads.layers import attention as t_attention
 
 HW = default_hw()
 T_HW = t_eyeriss(nodes=4, pe=8)
 TOL = 1e-5
 
-# tests/test_lowering.py SWEEP, the kinds of the network tier
+# tests/test_lowering.py SWEEP, the kinds of the network tier (attention
+# below)
 SWEEP = [
     fc("t.fc.s", 32, 64, 64),
     fc("t.fc.m", 64, 512, 512),
@@ -115,11 +120,87 @@ def test_reference_inputs_are_checked():
                               tplan, device="cpu")
 
 
-def test_attention_plan_waits_for_its_slice():
-    layer = attention("t.attn.s", 2, 2, 128, 64)
-    scheme, cost = solve_intra_layer(layer, HW,
-                                     Constraints(nodes=HW.node_array))
-    tplan = t_lower_scheme(TLayerScheme.from_json(scheme.to_json()), T_HW)
-    assert tplan.valid
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tex.plan_runner(tplan, device="cpu")
+# attention cases: tests/test_lowering.py's SWEEP layers, a plan with C
+# outermost (grid C:2 x N:2 x X:8 on the 4x4 template), and the same scheme
+# with C forced between N and X
+ATTENTION = [
+    ("t.attn.s", attention("t.attn.s", 2, 2, 128, 64), None),
+    ("t.attn.m", attention("t.attn.m", 2, 4, 256, 64), None),
+    ("t.c1", attention("t.c1", 1, 2, 2048, 64), None),
+    ("t.c1.cmid", attention("t.c1", 1, 2, 2048, 64),
+     ("N", "C", "X", "K", "Y")),
+]
+
+
+@pytest.mark.parametrize("name,layer,order", ATTENTION,
+                         ids=[a[0] for a in ATTENTION])
+def test_attention_matches_interpret_mode(name, layer, order):
+    scheme = _best_scheme(layer)
+    if order:
+        scheme.levels[-1].order = order
+    tplan, err = _check_parity(scheme)
+    assert err <= TOL, f"{tplan.describe()}: rel err {err:.2e}"
+    dims = [a.dim for a in tplan.grid]
+    if name == "t.c1":
+        assert dims == ["C", "N", "X"], tplan.describe()
+    if order:
+        assert dims == ["N", "C", "X"], tplan.describe()
+    ok, oracle_err = tex.verify_plan(tplan, device="cpu")
+    assert ok, f"{tplan.describe()}: vs oracle {oracle_err:.2e}"
+
+
+def _port_plan(layer, **hw_args):
+    hw = t_eyeriss(**hw_args)
+    scheme, cost = t_solve_intra_layer(layer, hw,
+                                       TConstraints(nodes=hw.node_array))
+    plan = t_lower_scheme(scheme, hw)
+    assert plan.valid, plan.reason
+    return plan
+
+
+@pytest.mark.parametrize("layer,hw_args,grid", [
+    (t_attention("zamba2.attn", 8, 32, 512, 64), {}, (8, 256)),
+    (t_attention("zamba2.attn", 8, 32, 512, 64), {"nodes": 4, "pe": 8},
+     (8, 256)),
+    (t_attention("long4k", 1, 8, 4096, 64), {"nodes": 4, "pe": 8}, (64, 8)),
+], ids=["zamba2-16x16", "zamba2-4x4", "long4k-4x4"])
+def test_attention_launch_geometry(layer, hw_args, grid):
+    plan = _port_plan(layer, **hw_args)
+    N, X, C, D, bx, bc, sub_x, gx, gy, smem = tex.attention_launch(plan)
+    assert (N, X, C, D) == (layer.dim("N"), layer.dim("X"), layer.dim("C"),
+                            layer.dim("K"))
+    assert (bx, bc) == (plan.block["X"], plan.block["C"])
+    assert (gx, gy) == grid
+    assert sub_x * tex.ATTN_TILE >= bx > (sub_x - 1) * tex.ATTN_TILE
+    assert gx == (X // bx) * sub_x          # every query row in one block
+    assert smem == 4 * 3 * tex.ATTN_TILE * (D + 4)
+
+
+def test_attention_launch_refuses_other_head_dims():
+    plan = _port_plan(t_attention("t.d48", 1, 2, 128, 48), nodes=4, pe=8)
+    with pytest.raises(ValueError, match="head dim 48"):
+        tex.attention_launch(plan)
+    assert tex.attention_launch(_port_plan(
+        t_attention("t.d32", 1, 2, 128, 32), nodes=4, pe=8))[3] == 32
+
+
+def test_attention_wrapper_checks_its_inputs():
+    plan = _port_plan(t_attention("t.attn.s", 2, 2, 128, 64), nodes=4, pe=8)
+    assert tex.input_shapes(plan) == {"Q": (4, 128, 64), "K": (4, 128, 64),
+                                      "V": (4, 128, 64)}
+    inputs = tex.make_inputs(plan, device="cpu")
+    q, k, v = inputs["Q"], inputs["K"], inputs["V"]
+    assert all(t.dtype == torch.float32 for t in (q, k, v))
+    with pytest.raises(ValueError, match="shape"):
+        tex.run_attention(plan, q[:, :64], k, v)
+    with pytest.raises(ValueError, match="shape"):
+        tex.run_attention(plan, q, k, v[:, :, :32])
+    with pytest.raises(TypeError, match="float32"):
+        tex.run_attention(plan, q, k.double(), v)
+    with pytest.raises(ValueError, match="contiguous"):
+        tex.run_attention(plan, q, k.transpose(1, 2).contiguous()
+                          .transpose(1, 2), v)
+    out = tex.run_attention(plan, q, k, v)
+    assert out.shape == (4, 128, 64) and out.dtype == torch.float32
+    want = tex.reference_output(plan, inputs)
+    assert tex.rel_error(out, want) <= TOL

@@ -40,15 +40,19 @@ import sys
 sys.modules["jax"] = None
 sys.modules["repro"] = None
 import repro_torch
+import repro_torch.lower.calibrate
+import repro_torch.obs.__main__
 from repro_torch.core.solver import solve
 from repro_torch.hw.presets import eyeriss_multinode
 from repro_torch.lower import lower_network
+from repro_torch.obs import explain
 from repro_torch.workloads.nets import get_net
 net = get_net("alexnet", batch=1)
 hw = eyeriss_multinode()
-sched = solve(net, hw)
+sched = solve(net, hw, explain=True)
 nplan = lower_network(sched, net, hw)
 assert sched.valid and nplan.executable, nplan.invalid_layers()
+assert sched.explain["funnel"] and explain.render(sched.explain)
 print(sorted(m for m, v in sys.modules.items() if v is not None
              and (m.split(".")[0] == "repro" or m.startswith("jax"))))
 """
