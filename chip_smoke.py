@@ -8,7 +8,8 @@ Runs on one NVIDIA card, from the root of a checkout:
 Phases, in order; any failure exits non-zero:
 
 1. build ``src/repro_torch/csrc/lower_kernels.cu`` and ``model_kernels.cu``
-   for sm_90a, one nvcc each, both started together;
+   for sm_90a, one nvcc each, both started together; print ptxas's report
+   and each redesigned kernel's registers and spills (``[ptxas]``);
 2. hold each of the five layer-tier kernels (fc, conv, pool, eltwise,
    attention) against its plain PyTorch version on the card, at every
    distinct (kind, shape, grid order) among the plans of ResNet-50 b64 and
@@ -16,8 +17,9 @@ Phases, in order; any failure exits non-zero:
    one, and the attention plans: the Zamba2-1.2B shared block on both
    templates, a 4096-token sequence whose plan puts C outermost, and every
    attention plan of the full calibration sweep.  Max rel error <= 1e-5
-   (both float32, only the summation order differs); time the kernel, the
-   plain version and one PyTorch library call on the same inputs;
+   (both float32, only the summation order differs; fc in 3xTF32 on the
+   tensor cores holds the same limit); time the kernel, the plain version
+   and one PyTorch library call on the same inputs;
 3. ResNet-50 b64 end to end: solve -> lower_network -> network_runner on
    the card, with the launch counters set to 0 just before the run and
    read just after (each must equal the plan's layer count of its kind);
@@ -40,7 +42,8 @@ Phases, in order; any failure exits non-zero:
 7. hold the two model-zoo kernels against their plain versions on the
    card: flash attention at the Qwen2.5-3B and Zamba2-1.2B serve prefill
    shapes (bf16), a Gemma2-like case (D=256, window, soft-cap), a
-   right-aligned case (Sq < Sk) and a non-causal float32 case; the SSD
+   right-aligned case (Sq < Sk), all four on the tensor-core path, and a
+   non-causal float32 case on the FMA tile; the SSD
    intra-chunk term at the Mamba2-1.3B and Zamba2-1.2B shapes.  float32
    within 1e-5 max rel error, bf16 within 8e-3 x max|plain| (one bf16
    ulp); time the kernel, the plain version and, where one PyTorch call
@@ -48,7 +51,8 @@ Phases, in order; any failure exits non-zero:
 8. serve Qwen2.5-3B and Zamba2-1.2B at full width in bf16 (8 requests,
    512-token prompts, 32 generated tokens) through ``serve``, with the
    launch counters set to 0 just before and read just after: flash 36 for
-   Qwen; flash 6 and SSD 38 for Zamba2 (decode runs no kernel); finite
+   Qwen; flash 6 and SSD 38 for Zamba2, every flash launch on the
+   tensor-core path (decode runs no kernel); finite
    logits, tokens [8, 32]; then one prefill and 8 decode steps under
    ``torch.profiler``;
 9. consistency, float32, full width, reduced depth (Qwen 4 layers, Zamba2
@@ -58,13 +62,33 @@ Phases, in order; any failure exits non-zero:
 10. print ``{"kernels": [...]}``, the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 
+Every ``[kernel]`` line and ``kernels`` entry names the path that ran:
+``wgmma`` (flash attention's tensor-core kernel, bf16), ``mma-3xtf32`` (fc
+on the tensor cores) or ``fma`` (f32 FMA on the CUDA cores).  ``ms`` and
+``library_ms`` are ``stream_ms``: 20 calls back to back between two CUDA
+events, the median of 5 such means.  A layer-tier kernel and its library
+call cycle through copies of their inputs (``cold_copies``) that together
+pass twice the L2, so each call reads its operands from device memory, as a
+layer of a network forward finds its weights; the model-zoo kernels reuse
+one set, since in a prefill the operation just before writes q, k and v.
+``plain_ms`` is one call on the host clock.  The ``[kernel]`` summary lines
+of fc and flash attention also quote their time before the redesign, copied
+from PERF.md and not measured here.  A
+bound is read at the rate of the path: bf16 on the tensor cores for
+``wgmma``; for ``mma-3xtf32`` the TF32 rate over 3, since every
+multiply-add is three TF32 products (hi*hi + hi*lo + lo*hi) that keep the
+float32 contract; the FP32 rate of the CUDA cores for ``fma``; bytes at
+the device-memory rate for all.
+
 Details go to ``chiprun_out/chip_smoke.json`` beside this script.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -79,13 +103,28 @@ NETWORK_TOL = 1e-3
 CONSISTENCY_TOL = 1e-3
 
 #: published peaks (NVIDIA H100 data sheet, dense, no sparsity): FP32 on
-#: the CUDA cores, device-memory bandwidth, and bf16 on the tensor cores
-#: (989 TFLOP/s SXM, 756 TFLOP/s PCIe)
-PEAKS = {"PCIe": (51.2e12, 2.0e12, 756e12), "SXM": (67e12, 3.35e12, 989e12)}
+#: the CUDA cores, device-memory bandwidth, bf16 on the tensor cores
+#: (989 TFLOP/s SXM, 756 TFLOP/s PCIe) and TF32 on the tensor cores (495
+#: SXM, 378 PCIe)
+PEAKS = {"PCIe": (51.2e12, 2.0e12, 756e12, 378e12),
+         "SXM": (67e12, 3.35e12, 989e12, 495e12)}
+#: the path each kernel runs (flash: its serve path, bf16)
+PATHS = {"fc": "mma-3xtf32", "conv": "fma", "pool": "fma", "eltwise": "fma",
+         "attention": "fma", "flash_attention": "wgmma",
+         "ssd_intra_chunk": "fma"}
+#: the redesigned kernels' times before the redesign, per the kernels
+#: line's unit, one call between two CUDA events (copied from PERF.md's
+#: kernel table; NVIDIA H100 80GB HBM3, 700.00 W).  Logged beside this
+#: run's times, never put in the kernels line.
+EARLIER_MS = {"fc": 0.3468, "flash_attention": 38.72}
+#: the kernels whose ptxas registers and spills ``[ptxas]`` reports
+REDESIGNED = ("flash_wgmma_kernel", "fc_kernel", "fc_reduce_kernel")
 
 #: the serve phase: arch -> kernel launches per prefill
-SERVE = {"qwen2.5-3b": {"flash_attention": 36, "ssd_intra_chunk": 0},
-         "zamba2-1.2b": {"flash_attention": 6, "ssd_intra_chunk": 38}}
+SERVE = {"qwen2.5-3b": {"flash_attention": 36, "flash_attention_wgmma": 36,
+                        "ssd_intra_chunk": 0},
+         "zamba2-1.2b": {"flash_attention": 6, "flash_attention_wgmma": 6,
+                         "ssd_intra_chunk": 38}}
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_GEN = 8, 512, 32
 #: the consistency phase: arch -> depth
 CONSISTENCY = {"qwen2.5-3b": 4, "zamba2-1.2b": 12}
@@ -243,9 +282,9 @@ def device_profile(runner):
         if not us or "cuda" not in str(getattr(e, "device_type", "")).lower():
             continue
         k = e.key
-        group = next((f for f in ("fc", "conv", "pool", "eltwise",
-                                  "attention")
-                      if f"{f}_kernel" in k), None)
+        group = "fc" if "fc_reduce_kernel" in k else next(
+            (f for f in ("fc", "conv", "pool", "eltwise", "attention")
+             if f"{f}_kernel" in k), None)
         if group is None:
             group = "memcpy_dtoh" if "DtoH" in k else \
                 "memcpy_htod" if "HtoD" in k else "other"
@@ -257,19 +296,88 @@ def device_profile(runner):
             "idle_share": None if not busy else 1.0 - busy / wall_ms}
 
 
-def events_ms(fn, reps: int = 10) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn`` (ms)."""
+def host_ms(fn):
+    """``fn()`` and its time on the host clock, the card synchronised
+    before and after (ms)."""
     import torch
-    times = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def cold_copies(inputs: dict, max_copies: int = 64) -> list:
+    """``inputs`` and copies of it, as many as together pass twice the
+    card's L2 (at most ``max_copies``): cycled through, each call reads its
+    operands from device memory.  Below 1/32 of the L2 the copies may stay
+    cached, but there a read from device memory takes under a
+    microsecond."""
+    import torch
+    props = torch.cuda.get_device_properties(0)
+    l2 = getattr(props, "L2_cache_size", 50 << 20)
+    nbytes = sum(t.numel() * t.element_size() for t in inputs.values())
+    n = min(max_copies, max(1, -(-2 * l2 // nbytes)))
+    return [inputs] + [{k: v.clone() for k, v in inputs.items()}
+                       for _ in range(n - 1)]
+
+
+def stream_ms(fns, launches: int = 20, reps: int = 5) -> float:
+    """Median over ``reps`` of the mean time of ``launches`` back-to-back
+    calls between two CUDA events (ms), after a warm-up; ``fns`` is one
+    callable or a list of them, called in turn (one per set of
+    ``cold_copies``).  The queue stays full, so this is the card's time a
+    call where the card is slower than the host, else the host's time a
+    call."""
+    import torch
+    fns = fns if isinstance(fns, list) else [fns]
+    for i in range(3):
+        fns[i % len(fns)]()
+    times, i = [], 3
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(launches):
+            fns[i % len(fns)]()
+            i += 1
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / launches)
     return statistics.median(times)
+
+
+def _redesigned(mangled: str):
+    """The ``REDESIGNED`` kernel a mangled name is (with its head dim where
+    it is a template), or None."""
+    for k in REDESIGNED:
+        if f"{len(k)}{k}" in mangled:
+            d = re.search(f"{len(k)}{k}ILi(\\d+)E", mangled)
+            return f"{k}<{d.group(1)}>" if d else k
+    return None
+
+
+def ptxas_usage(report: str):
+    """Registers and spill bytes of each redesigned kernel in an ``nvcc
+    -Xptxas -v`` report."""
+    out, current = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            current = _redesigned(m.group(1))
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out.setdefault(current, {}).update(
+                spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(current, {})["registers"] = int(m.group(1))
+            current = None
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -302,9 +410,10 @@ def attention_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
     return n
 
 
-def kernel_row(name, out, want, ms, plain_ms, library_ms, ops, nbytes,
+def kernel_row(name, path, out, want, ms, plain_ms, library_ms, ops, nbytes,
                peak_ops, peak_bw, dtype):
-    """One checked and timed kernel case; raises past the tolerance."""
+    """One checked and timed kernel case on ``path``; raises past the
+    tolerance.  ``ms`` and ``library_ms`` are ``stream_ms``."""
     abs_err = float((out.float() - want.float()).abs().max())
     rel_err = abs_err / (float(want.float().abs().max()) + 1e-9)
     tol = KERNEL_TOL if dtype == "f32" else BF16_TOL
@@ -313,14 +422,15 @@ def kernel_row(name, out, want, ms, plain_ms, library_ms, ops, nbytes,
                              f"version: rel err {rel_err:.3e} > {tol} "
                              f"(shapes {tuple(out.shape)}, "
                              f"{tuple(want.shape)})")
-    row = {"case": name, "dtype": dtype, "max_abs_err": abs_err,
+    row = {"case": name, "path": path, "dtype": dtype,
+           "max_abs_err": abs_err,
            "max_rel_err": rel_err, "tol": tol, "ms": ms,
            "plain_ms": plain_ms, "library_ms": library_ms, "ops": ops,
            "bytes": nbytes, "ops_ms": ops / peak_ops * 1e3,
            "bytes_ms": nbytes / peak_bw * 1e3}
     row["bound_ms"] = max(row["ops_ms"], row["bytes_ms"])
     lib = "-" if library_ms is None else f"{library_ms:.4f} ms"
-    log(f"[kernel] {name:24s} {dtype} rel {rel_err:.2e} | kernel "
+    log(f"[kernel] {name:24s} {dtype} {path} rel {rel_err:.2e} | kernel "
         f"{ms:.4f} ms, plain {plain_ms:.3f} ms, library {lib}, bound "
         f"{row['bound_ms']:.4f} ms "
         f"({'operations' if row['ops_ms'] >= row['bytes_ms'] else 'bytes'})")
@@ -353,24 +463,23 @@ def model_kernel_phase(dev, peak_ops, peak_bw, peak_bf16):
         def library():
             return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
                                                   enable_gqa=True)
-        out, want = kern(), plain()
-        for _ in range(2):
-            kern()
-        ms, plain_ms = events_ms(kern), events_ms(plain)
+        out = kern()
+        want, plain_ms = host_ms(plain)
+        ms = stream_ms(kern)
         library_ms = None
         if has_lib:
             lib_err = float((library().float() - want.float()).abs().max())
             if lib_err > 0.05 * float(want.float().abs().max()):
                 raise AssertionError(f"{case}: SDPA does not compute the "
                                      f"same function (abs err {lib_err})")
-            library_ms = events_ms(library)
+            library_ms = stream_ms(library)
         elem = 2 if dtype == "bf16" else 4
         ops = 4 * B * H * D * attention_pairs(Sq, Sk, causal, window)
         nbytes = elem * (2 * B * H * Sq * D + 2 * B * KV * Sk * D)
+        path = fa.flash_path(t, D)
         flash.append(kernel_row(
-            f"flash {case}", out, want, ms, plain_ms, library_ms, ops,
-            nbytes, peak_bf16 if dtype == "bf16" else peak_ops, peak_bw,
-            dtype))
+            f"flash {case}", path, out, want, ms, plain_ms, library_ms, ops,
+            nbytes, peak_bf16 if path == "wgmma" else peak_ops, peak_bw, dtype))
         del q, k, v, out, want
     for case, B, S, H, P, N, Lc in SSD_CASES:
         NC = S // Lc
@@ -388,16 +497,15 @@ def model_kernel_phase(dev, peak_ops, peak_bw, peak_bf16):
 
         def plain():
             return ssd_scan.plain_ssd_intra_chunk(x, dt, acum, b, c)
-        out, want = kern(), plain()
-        for _ in range(2):
-            kern()
-        ms, plain_ms = events_ms(kern), events_ms(plain)
+        out = kern()
+        want, plain_ms = host_ms(plain)
+        ms = stream_ms(kern)
         tri = Lc * (Lc + 1) // 2             # pairs l >= m of one chunk
         ops = 2 * B * NC * tri * N + 2 * B * H * NC * tri * P
         nbytes = 2 * 2 * B * H * NC * Lc * P + 4 * 2 * B * H * NC * Lc \
             + 4 * 2 * B * NC * Lc * N
-        ssd.append(kernel_row(f"ssd {case}", out, want, ms, plain_ms, None,
-                              ops, nbytes, peak_ops, peak_bw, "bf16"))
+        ssd.append(kernel_row(f"ssd {case}", "fma", out, want, ms, plain_ms,
+                              None, ops, nbytes, peak_ops, peak_bw, "bf16"))
         del x, dt, acum, b, c, out, want
     torch.cuda.empty_cache()
     return {"flash_attention": flash, "ssd_intra_chunk": ssd}
@@ -405,7 +513,7 @@ def model_kernel_phase(dev, peak_ops, peak_bw, peak_bf16):
 
 def kernel_group(name: str) -> str:
     n = name.lower()
-    if "flash_kernel" in n:
+    if "flash_kernel" in n or "flash_wgmma_kernel" in n:
         return "flash_attention"
     if "ssd_intra_kernel" in n:
         return "ssd_intra_chunk"
@@ -573,9 +681,9 @@ def model_kernel_entry(name, rows, uses, serve_res, source, replaces):
         return sum(by_case[arch][field] * n for arch, n in uses.items())
     libs = [by_case[arch]["library_ms"] for arch in uses]
     ops_ms, bytes_ms = per_run("ops_ms"), per_run("bytes_ms")
-    return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": sum(launches.values()),
-            "launches_by_path": launches,
+    return {"name": name, "route": "cuda", "path": PATHS[name],
+            "source": source, "replaces": replaces,
+            "launches": sum(launches.values()), "launches_by_arch": launches,
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "max_rel_err": max(r["max_rel_err"] for r in rows),
             "ms": per_run("ms"), "plain_ms": per_run("plain_ms"),
@@ -611,11 +719,16 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
-    peak_ops, peak_bw, peak_bf16 = peaks(name)
+    peak_ops, peak_bw, peak_bf16, peak_tf32 = peaks(name)
+    #: each path's rate of the kernels' operations (3xTF32: three TF32
+    #: products a multiply-add)
+    path_ops = {"fma": peak_ops, "wgmma": peak_bf16,
+                "mma-3xtf32": peak_tf32 / 3}
     log(f"torch {torch.__version__} cuda {torch.version.cuda} | {name}")
     detail = {"device": name, "peaks": {"fp32_ops_s": peak_ops,
                                         "bytes_s": peak_bw,
-                                        "bf16_ops_s": peak_bf16}}
+                                        "bf16_ops_s": peak_bf16,
+                                        "tf32_ops_s": peak_tf32}}
 
     # 1. build: one nvcc per source, started together ------------------------
     t0 = time.perf_counter()
@@ -626,10 +739,16 @@ def main() -> int:
         backend.library(src)
     build_s = time.perf_counter() - t0
     log(f"[build] {', '.join(p.name for p in lib_paths)} in {build_s:.1f} s")
+    ptxas = {}
     for lib_path in lib_paths:
-        log(lib_path.with_name(lib_path.stem + ".ptxas.txt").read_text()
-            .strip())
+        report = lib_path.with_name(lib_path.stem + ".ptxas.txt").read_text()
+        log(report.strip())
+        ptxas.update(ptxas_usage(report))
+    for kern, use in sorted(ptxas.items()):
+        log(f"[ptxas] {kern}: {use['registers']} registers, spill stores "
+            f"{use['spill_stores']} B, spill loads {use['spill_loads']} B")
     detail["build_seconds"] = build_s
+    detail["ptxas"] = ptxas
 
     # solve + lower the three configurations --------------------------------
     configs = [("resnet", eyeriss_multinode()),
@@ -722,10 +841,7 @@ def main() -> int:
     for k, (where, plan) in distinct.items():
         inputs = lx.make_inputs(plan, seed=0, device=dev)
         out = run[plan.kind](plan, inputs)
-        t0 = time.perf_counter()
-        want = plain[plan.kind](plan, inputs)
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
+        want, plain_ms = host_ms(lambda: plain[plan.kind](plan, inputs))
         if out.shape != want.shape:
             raise AssertionError(f"{plan.describe()}: kernel shape "
                                  f"{tuple(out.shape)} vs {tuple(want.shape)}")
@@ -740,21 +856,24 @@ def main() -> int:
             raise AssertionError(f"{plan.describe()}: the library call does "
                                  f"not compute the same function ({lib_err})")
         del want
-        for _ in range(2):
-            run[plan.kind](plan, inputs)
-            library(plan, inputs)
-        ms = events_ms(lambda: run[plan.kind](plan, inputs), 10)
-        lib_ms = events_ms(lambda: library(plan, inputs), 10)
+        copies = cold_copies(inputs)
+        ms = stream_ms([functools.partial(run[plan.kind], plan, c)
+                        for c in copies])
+        lib_ms = stream_ms([functools.partial(library, plan, c)
+                            for c in copies])
+        del copies
         ops, nbytes = work(plan)
-        row = {"plan": where, "kind": plan.kind,
+        path = PATHS[plan.kind]
+        row = {"plan": where, "kind": plan.kind, "path": path,
                "describe": plan.describe(), "resnet_uses": resnet_uses[k],
                "max_abs_err": abs_err, "max_rel_err": rel_err, "ms": ms,
-               "plain_ms": plain_ms, "library_ms": lib_ms,
-               "ops": ops, "bytes": nbytes,
-               "ops_ms": ops / peak_ops * 1e3,
+               "plain_ms": plain_ms, "library_ms": lib_ms, "ops": ops,
+               "bytes": nbytes,
+               "ops_ms": ops / path_ops[path] * 1e3,
                "bytes_ms": nbytes / peak_bw * 1e3}
         rows.append(row)
-        log(f"[kernel] {plan.kind:7s} {where:32s} rel {rel_err:.2e} | "
+        log(f"[kernel] {plan.kind:7s} {path:10s} {where:32s} rel "
+            f"{rel_err:.2e} | "
             f"kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, library "
             f"{lib_ms:.4f} ms, bound "
             f"{max(row['ops_ms'], row['bytes_ms']):.4f} ms | "
@@ -834,20 +953,21 @@ def main() -> int:
             return sum(r[field] * r["resnet_uses"] for r in res)
         ops_ms, bytes_ms = per_forward("ops_ms"), per_forward("bytes_ms")
         kernels.append({
-            "name": kind, "route": "cuda", "source": lx.SOURCE,
-            "replaces": lx.REPLACES[kind],
+            "name": kind, "route": "cuda", "path": PATHS[kind],
+            "source": lx.SOURCE, "replaces": lx.REPLACES[kind],
             "launches": e2e["resnet"]["launches"][kind],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "max_rel_err": max(r["max_rel_err"] for r in mine),
-            "ms": per_forward("ms"), "plain_ms": per_forward("plain_ms"),
+            "ms": per_forward("ms"),
+            "plain_ms": per_forward("plain_ms"),
             "bound_ms": sum(max(r["ops_ms"], r["bytes_ms"]) * r["resnet_uses"]
                             for r in res),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "library_ms": per_forward("library_ms")})
     zamba = next(r for r in rows if r["plan"] == distinct[zamba_key][0])
     kernels.append({
-        "name": "attention", "route": "cuda", "source": lx.SOURCE,
-        "replaces": lx.REPLACES["attention"],
+        "name": "attention", "route": "cuda", "path": PATHS["attention"],
+        "source": lx.SOURCE, "replaces": lx.REPLACES["attention"],
         "launches": detail["calibration"]["launches"]["attention"],
         "max_abs_err": max(r["max_abs_err"] for r in rows
                            if r["kind"] == "attention"),
@@ -863,11 +983,22 @@ def main() -> int:
     kernels.append(model_kernel_entry(
         "flash_attention", model_rows["flash_attention"], uses, serve_res,
         fa.SOURCE, fa.REPLACES["flash_attention"]))
+    kernels[-1]["launches_wgmma"] = sum(
+        serve_res[arch]["launches"]["flash_attention_wgmma"] for arch in SERVE)
     kernels.append(model_kernel_entry(
         "ssd_intra_chunk", model_rows["ssd_intra_chunk"],
         {"zamba2-1.2b": SERVE["zamba2-1.2b"]["ssd_intra_chunk"]}, serve_res,
         ssd_scan.SOURCE, ssd_scan.REPLACES["ssd_intra_chunk"]))
     detail["kernels"] = kernels
+    for k in kernels:
+        if k["name"] in EARLIER_MS:
+            lib = "-" if k["library_ms"] is None else \
+                f"{k['library_ms']:.4f} ms"
+            log(f"[kernel] {k['name']} ({k['path']}), per the kernels line's "
+                f"unit: {k['ms']:.4f} ms, library {lib}, bound "
+                f"{k['bound_ms']:.4f} ms; before the redesign "
+                f"{EARLIER_MS[k['name']]} ms (one call a time, PERF.md, "
+                f"copied, not measured in this run)")
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
     log("(times of the kernels line: fc/conv/pool/eltwise per ResNet-50 b64 "

@@ -1,18 +1,25 @@
 // Hand-written Hopper (sm_90a) kernels for the layer and network tiers of the
-// lowering: fc, conv, max pool, the n-ary eltwise sum and attention.  Each
-// runs one KernelPlan (repro_torch/lower/plan.py): the plan's output-indexing
-// grid axes become the CUDA grid, and its reduction axis (C) becomes a loop
-// inside the block, walked tile by tile in the plan's order.  Every C tile
-// accumulates into a partial sum that is then added to the output
-// accumulator, which is how the Pallas kernels accumulate into an output
-// block across revisits (attention: every C tile is a step of the online
-// softmax, whose state stays in registers).
+// lowering: fc, conv, max pool, the n-ary eltwise sum and attention.  They
+// replace the five Pallas kernels of src/repro/lower/exec.py (_run_fc,
+// _run_conv, _run_pool, _run_eltwise, _run_attention).  Each runs one
+// KernelPlan (repro_torch/lower/plan.py): the plan's output-indexing grid
+// axes become the CUDA grid.  In conv and attention the reduction axis (C)
+// is a loop inside the block, walked tile by tile in the plan's order, each C
+// tile's partial sum added to the output accumulator, which is how the Pallas
+// kernels accumulate into an output block across revisits (attention: every
+// C tile is a step of the online softmax, whose state stays in registers).
+// fc splits C across blocks instead, and a second kernel adds the C tiles in
+// the plan's order.
 //
-// All five take float32, accumulate in float32 with FMA on the CUDA cores (no
-// tensor cores: TF32 would break the 1e-5 parity with the plain versions).
-// Launch geometry (sub-tile sizes, channel chunk, shared memory, grid) is
-// computed by the Python wrappers in repro_torch/lower/exec.py and passed in
-// an int64 parameter array; each entry point returns cudaGetLastError().
+// All five take float32 and accumulate in float32.  conv, pool, eltwise and
+// attention run FMA on the CUDA cores (attention through the FMA tile of
+// online_softmax.cuh); fc runs on the tensor cores in 3xTF32, three TF32
+// products per multiply-add, which keeps the 1e-5 parity with plain_fc that
+// a single TF32 product (about three decimal digits) would break.
+// Launch geometry (sub-tile sizes, channel chunk, C split, shared memory,
+// grid) is computed by the Python wrappers in repro_torch/lower/exec.py and
+// passed in an int64 parameter array; each entry point returns
+// cudaGetLastError().
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (repro_torch/kernels/backend.py does this).
@@ -22,6 +29,7 @@
 #include <stdint.h>
 #include <string.h>
 
+#include "hopper.cuh"
 #include "online_softmax.cuh"
 
 namespace {
@@ -38,78 +46,247 @@ __device__ __forceinline__ void sub_tile(int g, int sub, int block, int tile,
 
 // ---------------------------------------------------------------------------
 // fc: O[N,K] = I[N,C] @ W[C,K]
-// Replaces src/repro/lower/exec.py _run_fc.  Bound: operations for the large
-// layers (AlexNet fc6/fc7), bytes of W for batch 64 at small K.  Design: a
-// 64x64 output sub-tile per block, 4x4 per thread; the plan's C tiles are
-// walked in order, each staged through shared memory in 32-deep slabs.
+// Replaces src/repro/lower/exec.py _run_fc.  Bound: bytes of W at batch 64
+// (ResNet-50's fc: 8.2 MB of W against 0.26 GFLOP), operations for the large
+// AlexNet layers.  Design:
+// - Split C.  A block owns one output sub-tile (up to 64 x 64; fc_launch
+//   picks sub-tiles that divide the plan tile in widths that are multiples
+//   of 8) and one part of C: a slice of whole 32-deep slabs of one plan C
+//   tile, or, where a workspace of one part per C tile would pass its cap,
+//   every C tile in order (one part).  fc_launch sizes the slices so the grid
+//   reaches about two blocks per SM.  With one part the block writes O;
+//   otherwise each part goes to an f32 workspace [n_parts, N, K], and
+//   fc_reduce_kernel sums the slices of each C tile and adds the C tiles into
+//   O in the plan's order, the order of the Pallas kernel's o_ref += dot on
+//   each revisit.  No atomics: the result is the same on every run.
+// - A 4-stage ring of 16-byte cp.async copies (4-byte where C or K are not
+//   multiples of 4) stages the I and W slabs, so loads overlap the math;
+//   out-of-range rows and columns are zero-filled by the copy.
+// - Products on the tensor cores in 3xTF32: mma.sync m16n8k8 with each
+//   operand split as hi = tf32(x), lo = tf32(x - hi); the two small products
+//   lo*hi + hi*lo go to an accumulator of their own and hi*hi to another,
+//   added at the end of each C tile.  That keeps float32 accuracy (single
+//   TF32 keeps ~3 digits and would break the 1e-5 parity with plain_fc).
+//   Not wgmma: its tf32 form takes B only K-major, and W [C, K] is
+//   MN-major.  Four warps, each 16
+//   rows x the sub-tile's columns; the sub-tile's count of 8-column mma
+//   tiles (NT = tk / 8) is a template parameter, so the inner loop has no
+//   branch and the NT accumulator chains interleave.
 // ---------------------------------------------------------------------------
 
-constexpr int FC_TN = 64, FC_TK = 64, FC_SLAB = 32, FC_THREADS = 256;
+constexpr int FC_SLAB = 32, FC_STAGES = 4, FC_THREADS = 128;
+constexpr int FC_TN = 64, FC_TK = 64;
+constexpr int FC_IP = FC_SLAB + 4;  // I slab row pitch: conflict-free A reads
+constexpr int FC_WP = FC_TK + 8;    // W slab row pitch: conflict-free B reads
+constexpr int FC_STAGE = FC_TN * FC_IP + FC_SLAB * FC_WP;  // floats
+constexpr size_t FC_SMEM = (size_t)FC_STAGES * FC_STAGE * sizeof(float);
+// blocks an SM holds at FC_SMEM each; tells ptxas the registers it may use
+constexpr int FC_BLOCKS_PER_SM = 3;
 
 struct FcArgs {
-  int N, C, K, bn, bc, bk, sub_n, sub_k;
+  int N, C, K, bn, bc, bk, tn, tk, sub_n, sub_k;
+  int c_tiles, group, slices, slabs, vec, n_parts;
 };
 
-__global__ void __launch_bounds__(FC_THREADS)
-fc_kernel(const float* __restrict__ I, const float* __restrict__ W,
-          float* __restrict__ O, FcArgs a) {
-  __shared__ float xs[FC_SLAB][FC_TN + 1];               // I slab as [c][n]
-  __shared__ __align__(16) float ws[FC_SLAB][FC_TK];     // W slab as [c][k]
-  int n0, an, k0, ak;
-  sub_tile(blockIdx.y, a.sub_n, a.bn, FC_TN, n0, an);
-  sub_tile(blockIdx.x, a.sub_k, a.bk, FC_TK, k0, ak);
-  const int tid = threadIdx.x, kq = tid % 16, nq = tid / 16;
-  float acc[4][4], part[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = part[i][j] = 0.f;
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
-  for (int ct = 0; ct < a.C / a.bc; ++ct) {              // plan C tiles
-    const int c_end = (ct + 1) * a.bc;
-    for (int c0 = ct * a.bc; c0 < c_end; c0 += FC_SLAB) {
-      const int nc = min(FC_SLAB, c_end - c0);
-      for (int idx = tid; idx < FC_SLAB * FC_TN; idx += FC_THREADS) {
-        const int n = idx / FC_SLAB, c = idx % FC_SLAB;
-        xs[c][n] = (n < an && c < nc)
-                       ? I[(size_t)(n0 + n) * a.C + c0 + c] : 0.f;
-      }
-      for (int idx = tid; idx < FC_SLAB * FC_TK; idx += FC_THREADS) {
-        const int c = idx / FC_TK, k = idx % FC_TK;
-        ws[c][k] = (k < ak && c < nc)
-                       ? W[(size_t)(c0 + c) * a.K + k0 + k] : 0.f;
-      }
-      __syncthreads();
-      for (int c = 0; c < nc; ++c) {
-        const float4 w = *reinterpret_cast<const float4*>(&ws[c][kq * 4]);
+// x = hi + lo exactly: hi keeps TF32's 19 leading bits, lo = x - hi is the
+// rest, of which the tensor core reads the leading 19 bits as TF32 does.
+// Two full-rate ALU ops (cvt.rna.tf32 runs at a quarter rate and made the
+// split, not the products, the bottleneck).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Stage one slab: I rows [n0, n0 + an) x C [c0, c0 + nc) as [row][c] and W
+// rows [c0, c0 + nc) x K [k0, k0 + ak) as [c][k]; the rest of the stage's
+// tile is zero-filled.
+__device__ __forceinline__ void fc_load_slab(float* is, float* wsm,
+                                             const float* I, const float* W,
+                                             const FcArgs& a, int n0, int an,
+                                             int k0, int ak, int c0, int nc,
+                                             int tid) {
+  for (int idx = tid; idx < FC_TN * FC_SLAB / 4; idx += FC_THREADS) {
+    const int r = idx / (FC_SLAB / 4), c = 4 * (idx % (FC_SLAB / 4));
+    const int valid = r < an ? max(0, min(4, nc - c)) : 0;
+    const float* src = I + (size_t)(n0 + min(r, an - 1)) * a.C + c0 + c;
+    if (a.vec) {
+      cp_async16(is + r * FC_IP + c, valid ? src : I, 4 * valid);
+    } else {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float x = xs[c][nq + 16 * i];
-          part[i][0] = fmaf(x, w.x, part[i][0]);
-          part[i][1] = fmaf(x, w.y, part[i][1]);
-          part[i][2] = fmaf(x, w.z, part[i][2]);
-          part[i][3] = fmaf(x, w.w, part[i][3]);
+      for (int e = 0; e < 4; ++e)
+        cp_async4(is + r * FC_IP + c + e, e < valid ? src + e : I,
+                  e < valid ? 4 : 0);
+    }
+  }
+  for (int idx = tid; idx < FC_SLAB * FC_TK / 4; idx += FC_THREADS) {
+    const int r = idx / (FC_TK / 4), k = 4 * (idx % (FC_TK / 4));
+    const int valid = r < nc ? max(0, min(4, ak - k)) : 0;
+    const float* src = W + (size_t)(c0 + min(r, nc - 1)) * a.K + k0 + k;
+    if (a.vec) {
+      cp_async16(wsm + r * FC_WP + k, valid ? src : W, 4 * valid);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        cp_async4(wsm + r * FC_WP + k + e, e < valid ? src + e : W,
+                  e < valid ? 4 : 0);
+    }
+  }
+}
+
+template <int NT>
+__global__ void __launch_bounds__(FC_THREADS, FC_BLOCKS_PER_SM)
+fc_kernel(const float* __restrict__ I, const float* __restrict__ W,
+          float* __restrict__ O, float* __restrict__ ws, FcArgs a) {
+  extern __shared__ float4 fc_smem4[];
+  float* sm = reinterpret_cast<float*>(fc_smem4);
+  int n0, an, k0, ak;
+  sub_tile(blockIdx.y, a.sub_n, a.bn, a.tn, n0, an);
+  sub_tile(blockIdx.x, a.sub_k, a.bk, a.tk, k0, ak);
+  // this block's part of C: tiles [t_lo, t_hi), slabs [s_lo, s_hi) of each
+  const int part = blockIdx.z;
+  int t_lo, t_hi, s_lo, s_hi;
+  if (a.group == 1) {
+    const int j = part % a.slices;
+    t_lo = part / a.slices;
+    t_hi = t_lo + 1;
+    s_lo = j * a.slabs / a.slices;
+    s_hi = (j + 1) * a.slabs / a.slices;
+  } else {  // one part: every C tile
+    t_lo = 0;
+    t_hi = a.c_tiles;
+    s_lo = 0;
+    s_hi = a.slabs;
+  }
+  const int per = s_hi - s_lo, steps = (t_hi - t_lo) * per;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4, wrow = warp * 16;
+  auto stage_of = [&](int step, int buf) {
+    const int t = t_lo + step / per, sl = s_lo + step % per;
+    const int c0 = t * a.bc + sl * FC_SLAB;
+    const int nc = min(FC_SLAB, (t + 1) * a.bc - c0);
+    float* is = sm + buf * FC_STAGE;
+    fc_load_slab(is, is + FC_TN * FC_IP, I, W, a, n0, an, k0, ak, c0, nc,
+                 tid);
+  };
+
+  float acc[NT][4], prt[NT][4], cor[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = prt[j][e] = cor[j][e] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < FC_STAGES - 1; ++s) {
+    if (s < steps) stage_of(s, s);
+    cp_async_commit();
+  }
+  for (int step = 0; step < steps; ++step) {
+    cp_async_wait<FC_STAGES - 2>();
+    __syncthreads();  // this step's slab is in; the previous one is consumed
+    const int next = step + FC_STAGES - 1;
+    if (next < steps) stage_of(next, next % FC_STAGES);
+    cp_async_commit();
+
+    const float* is = sm + (step % FC_STAGES) * FC_STAGE;
+    const float* wsm = is + FC_TN * FC_IP;
+    if (wrow < an) {
+#pragma unroll
+      for (int kk = 0; kk < FC_SLAB; kk += 8) {
+        uint32_t ah[4], al[4];
+        const float* ar = is + (wrow + g) * FC_IP + kk + t4;
+        split_tf32(ar[0], ah[0], al[0]);
+        split_tf32(ar[8 * FC_IP], ah[1], al[1]);
+        split_tf32(ar[4], ah[2], al[2]);
+        split_tf32(ar[8 * FC_IP + 4], ah[3], al[3]);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          uint32_t bh[2], bl[2];
+          const float* br = wsm + (kk + t4) * FC_WP + 8 * j + g;
+          split_tf32(br[0], bh[0], bl[0]);
+          split_tf32(br[4 * FC_WP], bh[1], bl[1]);
+          mma_tf32(cor[j], al, bh);
+          mma_tf32(cor[j], ah, bl);
+          mma_tf32(prt[j], ah, bh);
         }
       }
-      __syncthreads();
     }
+    if (step % per == per - 1) {  // a C tile (or this slice of it) is done
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        acc[i][j] += part[i][j];
-        part[i][j] = 0.f;
-      }
+        for (int e = 0; e < 4; ++e) {
+          acc[j][e] += prt[j][e] + cor[j][e];
+          prt[j][e] = cor[j][e] = 0.f;
+        }
+    }
   }
+
+  float* dst = a.n_parts == 1 ? O : ws + (size_t)part * a.N * a.K;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int n = nq + 16 * i;
-    if (n >= an) continue;
+  for (int j = 0; j < NT; ++j)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int k = kq * 4 + j;
-      if (k < ak) O[(size_t)(n0 + n) * a.K + k0 + k] = acc[i][j];
+    for (int e = 0; e < 4; ++e) {
+      const int r = wrow + g + (e >= 2 ? 8 : 0), c = 8 * j + 2 * t4 + (e & 1);
+      if (r < an && c < ak) dst[(size_t)(n0 + r) * a.K + k0 + c] = acc[j][e];
     }
+}
+
+template <int NT>
+cudaError_t launch_fc(dim3 grid, cudaStream_t s, const float* I,
+                      const float* W, float* O, float* ws, const FcArgs& a) {
+  static bool smem_set = false;
+  cudaError_t err = allow_smem(fc_kernel<NT>, FC_SMEM, smem_set);
+  if (err != cudaSuccess) return err;
+  fc_kernel<NT><<<grid, FC_THREADS, FC_SMEM, s>>>(I, W, O, ws, a);
+  return cudaGetLastError();
+}
+
+// O = sum over C tiles in plan order of (the sum of the tile's slices)
+__global__ void fc_reduce_kernel(const float* __restrict__ ws,
+                                 float* __restrict__ O, FcArgs a) {
+  const size_t nk = (size_t)a.N * a.K;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < nk;
+       i += (size_t)gridDim.x * blockDim.x) {
+    float out = 0.f;
+    for (int t = 0; t < a.c_tiles; ++t) {
+      float tile = 0.f;
+      for (int j = 0; j < a.slices; ++j)
+        tile += ws[(size_t)(t * a.slices + j) * nk + i];
+      out += tile;
+    }
+    O[i] = out;
   }
 }
 
@@ -378,12 +555,36 @@ unsigned grid_1d(size_t work, int threads) {
 // C entry points (loaded with ctypes).  `p` is a host int64 array.
 // ---------------------------------------------------------------------------
 
-extern "C" int kapla_fc(const float* I, const float* W, float* O,
+// p: FcArgs (16 values), then the grid (x, y, z); ws: the workspace
+// [n_parts, N, K] when n_parts > 1, else unused
+extern "C" int kapla_fc(const float* I, const float* W, float* O, float* ws,
                         const long long* p, void* stream) {
-  FcArgs a{(int)p[0], (int)p[1], (int)p[2], (int)p[3],
-           (int)p[4], (int)p[5], (int)p[6], (int)p[7]};
-  dim3 grid((unsigned)p[8], (unsigned)p[9]);
-  fc_kernel<<<grid, FC_THREADS, 0, (cudaStream_t)stream>>>(I, W, O, a);
+  static_assert(sizeof(FcArgs) == 16 * sizeof(int), "FcArgs layout");
+  int v[16];
+  for (int i = 0; i < 16; ++i) v[i] = (int)p[i];
+  FcArgs a;
+  memcpy(&a, v, sizeof(a));
+  if (a.tk % 8 != 0 || a.tk < 8 || a.tk > FC_TK)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  dim3 grid((unsigned)p[16], (unsigned)p[17], (unsigned)p[18]);
+  cudaError_t err;
+  switch (a.tk / 8) {
+    case 1: err = launch_fc<1>(grid, s, I, W, O, ws, a); break;
+    case 2: err = launch_fc<2>(grid, s, I, W, O, ws, a); break;
+    case 3: err = launch_fc<3>(grid, s, I, W, O, ws, a); break;
+    case 4: err = launch_fc<4>(grid, s, I, W, O, ws, a); break;
+    case 5: err = launch_fc<5>(grid, s, I, W, O, ws, a); break;
+    case 6: err = launch_fc<6>(grid, s, I, W, O, ws, a); break;
+    case 7: err = launch_fc<7>(grid, s, I, W, O, ws, a); break;
+    default: err = launch_fc<8>(grid, s, I, W, O, ws, a); break;
+  }
+  if (err != cudaSuccess) return (int)err;
+  if (a.n_parts > 1) {
+    size_t blocks = ((size_t)a.N * a.K + 255) / 256;
+    if (blocks > 132 * 8) blocks = 132 * 8;
+    fc_reduce_kernel<<<(unsigned)blocks, 256, 0, s>>>(ws, O, a);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,12 @@
-// The online-softmax attention tile shared by flash_kernel (model_kernels.cu)
-// and attention_kernel (lower_kernels.cu).  Each kernel owns its grid, its
-// key range and its mask; this header holds what they do alike, so a later
-// redesign (wgmma, TMA) changes one place.
+// The online-softmax attention tile, f32 FMA on the CUDA cores, shared by
+// two kernels: attention_kernel (lower_kernels.cu, the layer tier; replaces
+// src/repro/lower/exec.py _run_attention) and flash_kernel (model_kernels.cu,
+// the FMA path of flash attention, which replaces src/repro/kernels/
+// flash_attention.py _flash_kernel for float32 at every head dim and bf16 at
+// 16 and 32; bf16 at 64, 128 and 256 runs flash_wgmma_kernel on the tensor
+// cores instead).  Bound: operations at the CUDA cores' FP32 rate (67 TFLOP/s
+// on the H100 SXM).  Each kernel owns its grid, its key range and its mask;
+// this header holds what they do alike.
 //
 // Layout: 256 threads for 64 query rows, four threads per row.  Q, K and V
 // tiles sit in dynamic shared memory as float32 at a row pitch of D + 4

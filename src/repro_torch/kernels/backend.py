@@ -17,8 +17,9 @@ term).  Each is compiled at first use with ``nvcc`` for ``sm_90a`` into a
 shared library of its own with a plain C interface, loaded with ``ctypes``.
 A library goes into ``build/repro_torch/<hash>/`` under the repository root
 (``REPRO_TORCH_BUILD_DIR`` overrides it), keyed by the hash of its source,
-the headers both include (``online_softmax.cuh``) and the flags, so an edit
-rebuilds only what it touches and an unchanged tree reuses the build.  A missing ``nvcc`` or a failed build raises with the
+the headers both include (``online_softmax.cuh``, ``hopper.cuh``) and the
+flags, so an edit rebuilds only what it touches and an unchanged tree
+reuses the build.  A missing ``nvcc`` or a failed build raises with the
 compiler's message.
 """
 from __future__ import annotations
@@ -46,7 +47,7 @@ MODEL_SOURCE = CSRC / "model_kernels.cu"
 #: C entry points of each source and their argument counts; every argument
 #: is a pointer (device buffers, the host parameter arrays, the stream)
 ENTRY_POINTS = {
-    SOURCE.name: {"kapla_fc": 5, "kapla_conv": 5, "kapla_pool": 4,
+    SOURCE.name: {"kapla_fc": 6, "kapla_conv": 5, "kapla_pool": 4,
                   "kapla_eltwise": 4, "kapla_attention": 6},
     MODEL_SOURCE.name: {"kapla_flash_attention": 7,
                         "kapla_ssd_intra_chunk": 8},
@@ -148,6 +149,13 @@ def library(source: Path = SOURCE) -> ctypes.CDLL:
         return lib
 
 
+def stream_handle(device: torch.device) -> int:
+    """The raw handle of ``device``'s current CUDA stream, for a C entry
+    point (``torch.cuda.current_stream(device).cuda_stream`` without
+    building a ``Stream`` object: a few microseconds a launch)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
 def check_launch(name: str, status: int) -> None:
     """Raise when a C entry point reports a CUDA error."""
     if status != 0:
@@ -155,4 +163,4 @@ def check_launch(name: str, status: int) -> None:
 
 __all__ = ["DTYPE_CODES", "ENTRY_POINTS", "MODEL_SOURCE", "SOURCE", "build",
            "build_dir", "check_launch", "find_nvcc", "library",
-           "library_path", "resolve_device"]
+           "library_path", "resolve_device", "stream_handle"]

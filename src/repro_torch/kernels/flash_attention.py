@@ -1,5 +1,5 @@
-"""Flash attention: the wrapper of the hand-written CUDA kernel
-(``csrc/model_kernels.cu`` ``flash_kernel``) and its plain PyTorch version.
+"""Flash attention: the wrapper of the hand-written CUDA kernels
+(``csrc/model_kernels.cu``) and their plain PyTorch version.
 
 The port of ``repro/kernels/flash_attention.py``.  Causal or non-causal GQA
 attention with an online softmax: GQA head ``h`` reads KV head
@@ -7,9 +7,13 @@ attention with an online softmax: GQA head ``h`` reads KV head
 (``q_offset = Sk - Sq``), with an optional sliding window and a tanh logit
 soft-cap (Gemma2).  f32 accumulation, output in q's dtype.
 
-``flash_attention`` launches the kernel for CUDA tensors (or raises) and
-takes ``plain_flash_attention`` for CPU tensors.  ``LAUNCHES`` counts kernel
-launches.
+``flash_attention`` launches a kernel for CUDA tensors (or raises) and
+takes ``plain_flash_attention`` for CPU tensors.  ``PATHS`` names the kernel
+each (dtype, head dim) runs: ``"wgmma"``, the tensor-core kernel
+(``flash_wgmma_kernel``: TMA, wgmma, bf16 P in P V), or ``"fma"``, the
+f32 FMA tile on the CUDA cores (``flash_kernel``).  ``LAUNCHES`` counts
+kernel launches: ``flash_attention`` all of them, ``flash_attention_wgmma``
+those of the tensor-core kernel.
 """
 from __future__ import annotations
 
@@ -20,8 +24,9 @@ import torch
 
 from . import backend, ref
 
-#: kernel launches since the last ``ops.reset_launch_counts()``
-LAUNCHES: Dict[str, int] = {"flash_attention": 0}
+#: kernel launches since the last ``ops.reset_launch_counts()``: all of
+#: them, and those of the tensor-core kernel
+LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_attention_wgmma": 0}
 
 #: the TPU kernel the CUDA kernel replaces (file:line of its definition)
 REPLACES = {"flash_attention": "src/repro/kernels/flash_attention.py:80"}
@@ -30,8 +35,27 @@ SOURCE = "src/repro_torch/csrc/model_kernels.cu"
 NEG_INF = -1e30
 #: tile sizes of the kernel, and of the plain version's walk
 BLOCK_Q = BLOCK_K = 64
-#: head dims the kernel is instantiated for
+#: head dims the kernels are instantiated for
 HEAD_DIMS = (16, 32, 64, 128, 256)
+#: the kernel each (dtype, head dim) runs on the card: the tensor-core
+#: kernel for bf16 at 64, 128 and 256, the FMA tile for the rest
+PATHS = {**{(torch.float32, d): "fma" for d in HEAD_DIMS},
+         (torch.bfloat16, 16): "fma", (torch.bfloat16, 32): "fma",
+         (torch.bfloat16, 64): "wgmma", (torch.bfloat16, 128): "wgmma",
+         (torch.bfloat16, 256): "wgmma"}
+#: path codes of ``kapla_flash_attention``
+_PATH_CODES = {"fma": 0, "wgmma": 1}
+
+
+def flash_path(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel ``flash_attention`` runs on the card for q of ``dtype``
+    and head dim ``head_dim``; raises for what neither kernel takes."""
+    path = PATHS.get((dtype, head_dim))
+    if path is None:
+        raise ValueError(f"flash_attention: no kernel for {dtype} at head "
+                         f"dim {head_dim}; the kernels take float32 and "
+                         f"bfloat16 at head dims {HEAD_DIMS}")
+    return path
 
 
 def _mask(q0: int, bq: int, k0: int, bk: int, q_offset: int, causal: bool,
@@ -138,21 +162,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     B, H, Sq, D = q.shape
     KV, Sk = k.shape[1], k.shape[2]
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {D} not in {HEAD_DIMS}")
-    scale = scale if scale is not None else D ** -0.5
-    prm = (ctypes.c_int64 * 9)(B, H, KV, Sq, Sk, D, int(bool(causal)),
-                               int(window), backend.DTYPE_CODES[q.dtype])
-    fprm = (ctypes.c_double * 2)(float(scale), float(logit_softcap))
+    path = flash_path(q.dtype, D)
     out = torch.empty_like(q)
+    if path == "wgmma" and any(t.data_ptr() % 16 for t in (q, k, v, out)):
+        raise ValueError("flash_attention: the tensor-core kernel's TMA "
+                         "needs 16-byte aligned q, k, v and output")
+    scale = scale if scale is not None else D ** -0.5
+    prm = (ctypes.c_int64 * 10)(B, H, KV, Sq, Sk, D, int(bool(causal)),
+                                int(window), backend.DTYPE_CODES[q.dtype],
+                                _PATH_CODES[path])
+    fprm = (ctypes.c_double * 2)(float(scale), float(logit_softcap))
     with torch.cuda.device(q.device):
         fn = backend.library(backend.MODEL_SOURCE).kapla_flash_attention
         backend.check_launch("kapla_flash_attention", fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), prm,
-            fprm, torch.cuda.current_stream(q.device).cuda_stream))
+            fprm, backend.stream_handle(q.device)))
     LAUNCHES["flash_attention"] += 1
+    if path == "wgmma":
+        LAUNCHES["flash_attention_wgmma"] += 1
     return out
 
 
-__all__ = ["BLOCK_K", "BLOCK_Q", "HEAD_DIMS", "LAUNCHES", "REPLACES",
-           "SOURCE", "flash_attention", "plain_flash_attention"]
+__all__ = ["BLOCK_K", "BLOCK_Q", "HEAD_DIMS", "LAUNCHES", "PATHS",
+           "REPLACES", "SOURCE", "flash_attention", "flash_path",
+           "plain_flash_attention"]

@@ -108,7 +108,7 @@ def ssd_intra_chunk(x: torch.Tensor, dt: torch.Tensor, acum: torch.Tensor,
         backend.check_launch("kapla_ssd_intra_chunk", fn(
             x.data_ptr(), dt.data_ptr(), acum.data_ptr(), b.data_ptr(),
             c.data_ptr(), out.data_ptr(), prm,
-            torch.cuda.current_stream(x.device).cuda_stream))
+            backend.stream_handle(x.device)))
     LAUNCHES["ssd_intra_chunk"] += 1
     return out
 

@@ -7,9 +7,10 @@ the CUDA grid (a plan output tile may span several CUDA blocks), and the
 grid axes that do not (the reduction, ``C``) become a loop inside the block,
 walked in the plan's order, each C tile accumulated into the output (for
 attention: into the online softmax's ``(acc, m, l)``, kept in registers).
-So every loop order the solver picks runs, including the
-reduction-outermost orders that compiled Pallas refuses
-(``repro/lower/exec.py:45-60``).
+fc instead splits each C tile across blocks (``fc_launch``) and adds the
+parts in the plan's order in a second kernel.  So every loop order the
+solver picks runs, including the reduction-outermost orders that compiled
+Pallas refuses (``repro/lower/exec.py:45-60``).
 
 Beside each kernel sits its plain PyTorch version, which walks ``plan.grid``
 in order and accumulates into output blocks exactly as the Pallas kernel
@@ -20,6 +21,8 @@ or raises.  ``LAUNCHES`` counts kernel launches per family.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import itertools
 import time
 from typing import Callable, Dict, Iterator, List, Mapping, Optional, \
@@ -47,7 +50,13 @@ NEG_INF = -1e30
 ELTWISE_MAX_OPS = 8
 CONV_THREADS = 256
 CONV_SMEM_BYTES = 48 * 1024
-FC_TILE = 64
+FC_TILE = 64                    # widest fc output sub-tile side
+FC_SLAB = 32                    # C depth of one staged fc slab
+#: blocks ``fc_launch`` aims the C split at: two for each of the H100's
+#: 132 SMs
+FC_TARGET_BLOCKS = 2 * 132
+#: the most the fc C split's float32 workspace may take
+FC_WORKSPACE_CAP = 64 << 20
 ATTN_TILE = 64                  # query rows per CUDA block, keys per stage
 ATTN_HEAD_DIMS = (16, 32, 64, 128, 256)
 
@@ -141,17 +150,124 @@ def plain_fc(plan: KernelPlan, x: torch.Tensor,
     return out
 
 
-def fc_launch(plan: KernelPlan) -> List[int]:
-    """Parameters of ``kapla_fc``: dims, plan block, 64x64 sub-tiles per
-    plan tile, grid."""
+def _sub_width(block: int) -> int:
+    """Width of the output sub-tiles of a plan tile ``block`` wide: the
+    widest multiple of 8 up to ``FC_TILE`` that divides it, else the
+    multiple of 8 that cuts it into the fewest sub-tiles (the last short)."""
+    for w in range(min(FC_TILE, block) // 8 * 8, 0, -8):
+        if block % w == 0:
+            return w
+    return 8 * _ceil(_ceil(block, _ceil(block, FC_TILE)), 8)
+
+
+@dataclasses.dataclass(frozen=True)
+class FcLaunch:
+    """Geometry of one ``kapla_fc`` call (``csrc/lower_kernels.cu``
+    ``fc_kernel``).  Block ``(x, y, z)`` owns K sub-tile ``x`` and N
+    sub-tile ``y`` (``sub_tile``) and part ``z`` of C (``part_range``): a
+    slice of whole ``FC_SLAB``-deep slabs of one plan C tile, or, where a
+    workspace would pass ``FC_WORKSPACE_CAP``, every C tile in plan order
+    (one part).  With more than one part each block writes its partial
+    product to a float32 workspace ``[n_parts, N, K]`` and a second kernel
+    adds the slices of each C tile, then the C tiles in plan order."""
+
+    N: int
+    C: int
+    K: int
+    bn: int
+    bc: int
+    bk: int
+    tn: int         # sub-tile rows
+    tk: int         # sub-tile columns
+    sub_n: int      # sub-tiles per plan tile along N
+    sub_k: int      # ... along K
+    c_tiles: int
+    group: int      # C tiles per part: 1, or all of them past the cap
+    slices: int     # parts per C tile (1 when group > 1)
+    slabs: int      # slabs per C tile
+    vec: bool       # 16-byte copies (C, K and the tiles multiples of 4)
+
+    @property
+    def n_parts(self) -> int:
+        return 1 if self.group > 1 else self.c_tiles * self.slices
+
+    @property
+    def grid(self) -> Tuple[int, int, int]:
+        return ((self.K // self.bk) * self.sub_k,
+                (self.N // self.bn) * self.sub_n, self.n_parts)
+
+    @property
+    def workspace_bytes(self) -> int:
+        return 4 * self.n_parts * self.N * self.K if self.n_parts > 1 else 0
+
+    def sub_tile(self, axis: str, g: int) -> Tuple[int, int]:
+        """(start, extent) of sub-tile ``g`` along ``axis`` ("N" or "K"),
+        as the kernel's ``sub_tile`` computes it."""
+        block, tile, sub = ((self.bn, self.tn, self.sub_n) if axis == "N"
+                            else (self.bk, self.tk, self.sub_k))
+        start = (g // sub) * block + (g % sub) * tile
+        return start, min(tile, (g // sub + 1) * block - start)
+
+    def part_range(self, part: int) -> List[Tuple[int, int, int]]:
+        """(C tile, c0, c1) of each C range part ``part`` walks, in order."""
+        if self.group == 1:
+            t, j = divmod(part, self.slices)
+            lo = j * self.slabs // self.slices
+            hi = (j + 1) * self.slabs // self.slices
+            return [(t, t * self.bc + lo * FC_SLAB,
+                     min(t * self.bc + hi * FC_SLAB, (t + 1) * self.bc))]
+        return [(t, t * self.bc, (t + 1) * self.bc)
+                for t in range(self.c_tiles)]
+
+    def params(self, vec: bool) -> List[int]:
+        """``kapla_fc``'s parameter array; ``vec`` is ``self.vec`` and the
+        16-byte alignment of the operands."""
+        return [self.N, self.C, self.K, self.bn, self.bc, self.bk, self.tn,
+                self.tk, self.sub_n, self.sub_k, self.c_tiles, self.group,
+                self.slices, self.slabs, int(vec), self.n_parts, *self.grid]
+
+
+def fc_launch(plan: KernelPlan) -> FcLaunch:
+    """The geometry of ``kapla_fc`` for ``plan``: sub-tiles that cover each
+    plan tile once, and each C tile split into as many slices as keep the
+    grid within ``FC_TARGET_BLOCKS`` blocks (an SM with a third block takes
+    half as long again as one with two) and the workspace within
+    ``FC_WORKSPACE_CAP`` bytes.  Where even one part per C tile would pass
+    the cap, one part walks every C tile and writes the output itself."""
     _check_reduction(plan)
     L, b = plan.layer, plan.block
-    N, C, K = L.dim("N"), L.dim("C"), L.dim("K")
-    sub_n, sub_k = _ceil(b["N"], FC_TILE), _ceil(b["K"], FC_TILE)
-    grid = ((K // b["K"]) * sub_k, (N // b["N"]) * sub_n)
-    if grid[1] > 65535:
-        raise ValueError(f"{plan.describe()}: fc grid {grid} too large")
-    return [N, C, K, b["N"], b["C"], b["K"], sub_n, sub_k, *grid]
+    launch = _fc_launch(L.dim("N"), L.dim("C"), L.dim("K"), b["N"], b["C"],
+                        b["K"], FC_WORKSPACE_CAP)
+    if max(launch.grid[1:]) > 65535:
+        raise ValueError(f"{plan.describe()}: fc grid {launch.grid} too "
+                         "large")
+    return launch
+
+
+@functools.lru_cache(maxsize=None)
+def _fc_launch(N: int, C: int, K: int, bn: int, bc: int, bk: int,
+               workspace_cap: int) -> FcLaunch:
+    tn, tk = _sub_width(bn), _sub_width(bk)
+    sub_n, sub_k = _ceil(bn, tn), _ceil(bk, tk)
+    c_tiles, slabs = C // bc, _ceil(bc, FC_SLAB)
+    out_blocks = (N // bn) * sub_n * (K // bk) * sub_k
+    part_bytes = 4 * N * K
+    slices = min(slabs, FC_TARGET_BLOCKS // (out_blocks * c_tiles),
+                 workspace_cap // (c_tiles * part_bytes))
+    slices = max(1, slices)
+    group = 1
+    if slices == 1 and c_tiles > 1 and c_tiles * part_bytes > workspace_cap:
+        group = c_tiles
+    vec = all(v % 4 == 0 for v in (C, K, bc, bk))
+    return FcLaunch(N, C, K, bn, bc, bk, tn, tk, sub_n, sub_k, c_tiles,
+                    group, slices, slabs, vec)
+
+
+@functools.lru_cache(maxsize=None)
+def _fc_params(launch: FcLaunch, vec: bool):
+    """``kapla_fc``'s parameter array (built once per geometry: the C side
+    only reads it)."""
+    return _params(launch.params(vec))
 
 
 def run_fc(plan: KernelPlan, x: torch.Tensor,
@@ -163,13 +279,17 @@ def run_fc(plan: KernelPlan, x: torch.Tensor,
     _check(w, (C, K), "fc weight W[C,K]", x.device)
     if not _cuda_or_cpu(x, "fc"):
         return plain_fc(plan, x, w)
-    prm = _params(fc_launch(plan))
+    launch = fc_launch(plan)
+    vec = launch.vec and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
     out = torch.empty((N, K), dtype=torch.float32, device=x.device)
+    ws = torch.empty((launch.n_parts, N, K), dtype=torch.float32,
+                     device=x.device) if launch.n_parts > 1 else None
     with torch.cuda.device(x.device):
         lib = backend.library()
         backend.check_launch("kapla_fc", lib.kapla_fc(
-            x.data_ptr(), w.data_ptr(), out.data_ptr(), prm,
-            torch.cuda.current_stream(x.device).cuda_stream))
+            x.data_ptr(), w.data_ptr(), out.data_ptr(),
+            None if ws is None else ws.data_ptr(), _fc_params(launch, vec),
+            backend.stream_handle(x.device)))
     LAUNCHES["fc"] += 1
     return out
 
@@ -273,7 +393,7 @@ def run_conv(plan: KernelPlan, x: torch.Tensor,
         lib = backend.library()
         backend.check_launch("kapla_conv", lib.kapla_conv(
             x.data_ptr(), w.data_ptr(), out.data_ptr(), prm,
-            torch.cuda.current_stream(x.device).cuda_stream))
+            backend.stream_handle(x.device)))
     LAUNCHES["conv"] += 1
     return out
 
@@ -319,7 +439,7 @@ def run_pool(plan: KernelPlan, x: torch.Tensor) -> torch.Tensor:
         lib = backend.library()
         backend.check_launch("kapla_pool", lib.kapla_pool(
             x.data_ptr(), out.data_ptr(), prm,
-            torch.cuda.current_stream(x.device).cuda_stream))
+            backend.stream_handle(x.device)))
     LAUNCHES["pool"] += 1
     return out
 
@@ -362,7 +482,7 @@ def run_eltwise(plan: KernelPlan,
     with torch.cuda.device(out.device):
         lib = backend.library()
         backend.check_launch("kapla_eltwise", lib.kapla_eltwise(
-            ptrs, out.data_ptr(), prm, torch.cuda.current_stream(out.device).cuda_stream))
+            ptrs, out.data_ptr(), prm, backend.stream_handle(out.device)))
     LAUNCHES["eltwise"] += 1
     return out
 
@@ -448,7 +568,7 @@ def run_attention(plan: KernelPlan, q: torch.Tensor, k: torch.Tensor,
         lib = backend.library()
         backend.check_launch("kapla_attention", lib.kapla_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), prm,
-            torch.cuda.current_stream(q.device).cuda_stream))
+            backend.stream_handle(q.device)))
     LAUNCHES["attention"] += 1
     return out
 

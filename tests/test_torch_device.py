@@ -219,9 +219,105 @@ def test_flash_kernel_matches_plain_on_card(dtype, H, KV, Sq, Sk, D, causal,
     out = fa.flash_attention(q, k, v, causal, window, cap)
     want = fa.plain_flash_attention(q, k, v, causal, window, cap)
     torch.cuda.synchronize()
-    assert fa.LAUNCHES == {"flash_attention": 1}
+    wgmma = int(fa.flash_path(dt, D) == "wgmma")
+    assert fa.LAUNCHES == {"flash_attention": 1,
+                           "flash_attention_wgmma": wgmma}
     assert out.dtype == dt
     assert _max_rel(out, want) <= (1e-5 if dtype == "f32" else 8e-3)
+
+
+#: the tensor-core path: GQA 8:1 and 1:1, causal, window + soft-cap,
+#: right-aligned queries (Sq < Sk), and Sq, Sk off the 128-query and
+#: 64/128-key tiles
+WGMMA_FLASH_CASES = [
+    # H, KV, Sq, Sk, causal, window, cap
+    (8, 1, 256, 256, True, 0, 0.0),
+    (4, 4, 200, 333, True, 0, 0.0),
+    (8, 1, 200, 333, False, 0, 0.0),
+    (4, 4, 333, 333, True, 96, 50.0),
+    (8, 1, 64, 333, True, 0, 0.0),
+    (4, 4, 130, 200, False, 100, 30.0),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("H,KV,Sq,Sk,causal,window,cap", WGMMA_FLASH_CASES)
+def test_flash_tensor_core_path_matches_plain_on_card(D, H, KV, Sq, Sk,
+                                                      causal, window, cap):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(D + Sq)
+    q = torch.randn((2, H, Sq, D), generator=g, device=dev).bfloat16()
+    k = torch.randn((2, KV, Sk, D), generator=g, device=dev).bfloat16()
+    v = torch.randn((2, KV, Sk, D), generator=g, device=dev).bfloat16()
+    ops.reset_launch_counts()
+    out = fa.flash_attention(q, k, v, causal, window, cap)
+    want = fa.plain_flash_attention(q, k, v, causal, window, cap)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == {"flash_attention": 1, "flash_attention_wgmma": 1}
+    assert out.dtype == torch.bfloat16 and out.shape == want.shape
+    assert _max_rel(out, want) <= 8e-3
+
+
+def _fc_plan(N, C, K, block, grid):
+    """An fc plan with the given block and grid order (outer -> inner)."""
+    from repro_torch.lower.plan import GridAxis, KernelPlan
+    layer = fc("g.fc.hand", N, C, K)
+    return KernelPlan(layer=layer, scheme=None, kind="fc",
+                      grid=tuple(GridAxis(d, s) for d, s in grid),
+                      block=block, valid=True)
+
+
+#: fc plans: a 200-wide K tile (5 sub-tiles of 40), C tiles that are not a
+#: whole number of 32-deep slabs (100, 72), C outermost, C in the middle,
+#: and K and C not multiples of 4 (4-byte copies)
+FC_CASES = {
+    "k200": (64, 2048, 1000, {"N": 64, "C": 2048, "K": 200}, [("K", 5)]),
+    "c100-outer": (64, 300, 400, {"N": 64, "C": 100, "K": 200},
+                   [("C", 3), ("K", 2)]),
+    "c72-middle": (128, 216, 256, {"N": 64, "C": 72, "K": 128},
+                   [("N", 2), ("C", 3), ("K", 2)]),
+    "ragged-k10": (4, 500, 10, {"N": 4, "C": 100, "K": 10}, [("C", 5)]),
+    "ragged-c30": (8, 90, 60, {"N": 8, "C": 30, "K": 12},
+                   [("C", 3), ("K", 5)]),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(FC_CASES))
+def test_fc_kernel_on_ragged_plans_on_card(case):
+    dev = _card()
+    N, C, K, block, grid = FC_CASES[case]
+    plan = _fc_plan(N, C, K, block, grid)
+    inputs = tex.make_inputs(plan, device=dev)
+    reset_launch_counts()
+    out = tex.run_fc(plan, inputs["I"], inputs["W"])
+    again = tex.run_fc(plan, inputs["I"], inputs["W"])
+    want = tex.plain_fc(plan, inputs["I"], inputs["W"])
+    torch.cuda.synchronize()
+    assert LAUNCHES["fc"] == 2
+    assert tex.rel_error(out, want) <= 1e-5, plan.describe()
+    assert torch.equal(out, again), "two launches differ"
+
+
+@pytest.mark.gpu
+def test_fc_kernel_walks_every_c_tile_past_the_workspace_cap_on_card(
+        monkeypatch):
+    """Where even one part per C tile would pass the workspace cap, one
+    part walks every C tile in order and writes the output."""
+    dev = _card()
+    monkeypatch.setattr(tex, "FC_WORKSPACE_CAP", 3 * 4 * 64 * 400)
+    plan = _fc_plan(64, 900, 400, {"N": 64, "C": 100, "K": 200},
+                    [("C", 9), ("K", 2)])
+    launch = tex.fc_launch(plan)
+    assert (launch.group, launch.n_parts) == (9, 1)
+    inputs = tex.make_inputs(plan, device=dev)
+    out = tex.run_fc(plan, inputs["I"], inputs["W"])
+    want = tex.plain_fc(plan, inputs["I"], inputs["W"])
+    torch.cuda.synchronize()
+    assert tex.rel_error(out, want) <= 1e-5, plan.describe()
 
 
 @pytest.mark.gpu

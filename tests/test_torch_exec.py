@@ -204,3 +204,197 @@ def test_attention_wrapper_checks_its_inputs():
     assert out.shape == (4, 128, 64) and out.dtype == torch.float32
     want = tex.reference_output(plan, inputs)
     assert tex.rel_error(out, want) <= TOL
+
+
+# ---------------------------------------------------------------------------
+# fc launch geometry (the CUDA kernel's C split, computed in Python)
+# ---------------------------------------------------------------------------
+
+#: the workspace cap the C split must respect: 64 MiB
+FC_CAP = 64 << 20
+
+
+def _hand_fc_plan(N, C, K, block, grid):
+    """An fc plan with the given block and grid order (outer -> inner)."""
+    from repro_torch.lower.plan import GridAxis, KernelPlan
+    from repro_torch.workloads.layers import fc as t_fc
+    return KernelPlan(layer=t_fc("t.fc.hand", N, C, K), scheme=None,
+                      kind="fc", grid=tuple(GridAxis(d, s) for d, s in grid),
+                      block=block, valid=True)
+
+
+def _fc_plans(source):
+    """Every fc plan of ``source``, lowered by the port."""
+    from repro_torch.core.solver import solve
+    from repro_torch.lower import calibrate as tcal
+    from repro_torch.lower import lower_network
+    from repro_torch.workloads.layers import fc as t_fc
+    from repro_torch.workloads.nets import get_net
+    if source in ("resnet-16x16", "alexnet-16x16", "alexnet-4x4"):
+        net_name, tmpl = source.split("-")
+        hw = t_eyeriss() if tmpl == "16x16" else t_eyeriss(nodes=4, pe=8)
+        net = get_net(net_name, batch=64)
+        nplan = lower_network(solve(net, hw), net, hw)
+        return [nplan.plans[n] for n in nplan.order
+                if nplan.plans[n].kind == "fc"]
+    if source == "calibration":
+        hw = tcal.default_hw()
+        plans = [t_lower_scheme(s, hw) for layer in tcal.default_sweep(False)
+                 if layer.kind == "fc"
+                 for s in tcal.scheme_variants(layer, hw, 3)]
+        for net in tcal.default_network_sweep(False):
+            nplan = lower_network(solve(net, hw), net, hw)
+            plans += [nplan.plans[n] for n in nplan.order
+                      if nplan.plans[n].kind == "fc"]
+        return plans
+    if source == "file":
+        layers = [t_fc(l.name, l.dim("N"), l.dim("C"), l.dim("K"))
+                  for l in SWEEP if l.kind == "fc"]
+        plans = [_port_plan(l, nodes=4, pe=8) for l in layers]
+        for order in (("C", "K", "N", "X", "Y"), ("K", "C", "N", "X", "Y")):
+            scheme, _ = t_solve_intra_layer(
+                t_fc("t.fc.cout", 128, 1024, 1024), T_HW,
+                TConstraints(nodes=T_HW.node_array))
+            scheme.levels[-1].order = order
+            plans.append(t_lower_scheme(scheme, T_HW))
+        return plans
+    assert source == "hand"
+    return [_hand_fc_plan(64, 2048, 1000, {"N": 64, "C": 2048, "K": 200},
+                          [("K", 5)]),
+            _hand_fc_plan(64, 300, 400, {"N": 64, "C": 100, "K": 200},
+                          [("C", 3), ("K", 2)]),
+            _hand_fc_plan(128, 216, 256, {"N": 64, "C": 72, "K": 128},
+                          [("N", 2), ("C", 3), ("K", 2)]),
+            _hand_fc_plan(4, 500, 10, {"N": 4, "C": 100, "K": 10},
+                          [("C", 5)]),
+            _hand_fc_plan(200, 90, 60, {"N": 200, "C": 30, "K": 12},
+                          [("C", 3), ("K", 5)])]
+
+
+FC_SOURCES = ["resnet-16x16", "alexnet-16x16", "alexnet-4x4", "calibration",
+              "file", "hand"]
+
+
+def _covers_once(pieces, lo, hi):
+    """``pieces`` of (start, end) tile [lo, hi) exactly, in any order."""
+    pieces = sorted(pieces)
+    return (pieces[0][0] == lo and pieces[-1][1] == hi
+            and all(a[1] == b[0] for a, b in zip(pieces, pieces[1:]))
+            and all(s < e for s, e in pieces))
+
+
+def _check_fc_launch(plan, launch, cap):
+    L, b = plan.layer, plan.block
+    N, C, K = L.dim("N"), L.dim("C"), L.dim("K")
+    # output sub-tiles: widths multiples of 8, each plan tile covered once
+    for axis, dim, tile, sub, grid_axis in (
+            ("N", N, launch.tn, launch.sub_n, 1),
+            ("K", K, launch.tk, launch.sub_k, 0)):
+        block = b[axis]
+        assert tile % 8 == 0 and 8 <= tile <= tex.FC_TILE
+        if any(block % w == 0 for w in range(8, tex.FC_TILE + 1, 8)):
+            assert block % tile == 0, (axis, block, tile)   # even division
+        assert launch.grid[grid_axis] == (dim // block) * sub
+        for t in range(dim // block):
+            pieces = [launch.sub_tile(axis, g)
+                      for g in range(t * sub, (t + 1) * sub)]
+            assert _covers_once([(s, s + e) for s, e in pieces],
+                                t * block, (t + 1) * block), (axis, pieces)
+    # C: parts partition every C tile in whole slabs, never straddling one
+    by_tile = {}
+    for part in range(launch.n_parts):
+        for t, c0, c1 in launch.part_range(part):
+            assert t * b["C"] <= c0 < c1 <= (t + 1) * b["C"]
+            assert (c0 - t * b["C"]) % tex.FC_SLAB == 0
+            by_tile.setdefault(t, []).append((c0, c1))
+    assert sorted(by_tile) == list(range(C // b["C"]))
+    for t, pieces in by_tile.items():
+        assert _covers_once(pieces, t * b["C"], (t + 1) * b["C"])
+    # grid size and workspace
+    assert launch.grid[2] == launch.n_parts
+    out_blocks = launch.grid[0] * launch.grid[1]
+    if launch.slices > 1:       # split only as far as the target
+        assert out_blocks * launch.n_parts <= tex.FC_TARGET_BLOCKS
+    if launch.group == 1 and launch.slices < launch.slabs \
+            and launch.c_tiles * (launch.slices + 1) * 4 * N * K <= cap:
+        # one more slice a tile would pass the target
+        assert out_blocks * launch.c_tiles * (launch.slices + 1) > \
+            tex.FC_TARGET_BLOCKS
+    assert launch.n_parts <= launch.c_tiles * launch.slabs
+    assert launch.workspace_bytes == (4 * launch.n_parts * N * K
+                                      if launch.n_parts > 1 else 0)
+    assert launch.workspace_bytes <= cap
+    assert len(launch.params(launch.vec)) == 19
+
+
+@pytest.mark.parametrize("source", FC_SOURCES)
+def test_fc_launch_geometry(source):
+    plans = _fc_plans(source)
+    assert plans and all(p.valid and p.kind == "fc" for p in plans)
+    if source == "file":        # C outermost and in the middle
+        assert any(p.grid and p.grid[0].dim == "C" for p in plans)
+    for plan in plans:
+        _check_fc_launch(plan, tex.fc_launch(plan), FC_CAP)
+    assert tex.FC_WORKSPACE_CAP == FC_CAP
+
+
+def test_fc_launch_geometry_of_the_resnet_plan():
+    (plan,) = _fc_plans("resnet-16x16")
+    launch = tex.fc_launch(plan)
+    assert (plan.block["N"], plan.block["C"], plan.block["K"]) == \
+        (64, 2048, 200)
+    assert (launch.tk, launch.sub_k) == (40, 5)     # no 8-wide remainder
+    assert launch.grid == (25, 1, 10) and launch.n_parts == 10
+    assert launch.workspace_bytes == 4 * 10 * 64 * 1000
+
+
+def _emulate_fc(plan, launch, x, w):
+    """The kernel's partition and order in torch, per plan output tile:
+    each part's partial product (a slice of a C tile, or its tiles in
+    order), then per C tile the sum of its slices, the C tiles added in
+    plan order."""
+    b = plan.block
+    out = torch.empty((x.shape[0], w.shape[1]))
+    for n0 in range(0, x.shape[0], b["N"]):
+        for k0 in range(0, w.shape[1], b["K"]):
+            xs, ws = x[n0:n0 + b["N"]], w[:, k0:k0 + b["K"]]
+            parts = []
+            for part in range(launch.n_parts):
+                acc = torch.zeros((xs.shape[0], ws.shape[1]))
+                for _, c0, c1 in launch.part_range(part):
+                    acc = acc + xs[:, c0:c1] @ ws[c0:c1]
+                parts.append(acc)
+            if launch.group > 1:        # one part wrote the output
+                (tile_out,) = parts
+            else:
+                tile_out = torch.zeros_like(parts[0])
+                for t in range(launch.c_tiles):
+                    tile = torch.zeros_like(tile_out)
+                    for j in range(launch.slices):
+                        tile = tile + parts[t * launch.slices + j]
+                    tile_out = tile_out + tile
+            out[n0:n0 + b["N"], k0:k0 + b["K"]] = tile_out
+    return out
+
+
+@pytest.mark.parametrize("source,cap", [(s, FC_CAP) for s in FC_SOURCES]
+                         + [("hand", 100_000), ("alexnet-4x4", 8 << 20)])
+def test_fc_split_emulation_matches_plain(source, cap, monkeypatch):
+    """Summing the slices of each C tile and adding the C tiles in plan
+    order computes plain_fc's function (float32, 1e-6); a small cap forces
+    one part that walks every C tile."""
+    monkeypatch.setattr(tex, "FC_WORKSPACE_CAP", cap)
+    grouped = False
+    for plan in _fc_plans(source):
+        launch = tex.fc_launch(plan)
+        _check_fc_launch(plan, launch, cap)
+        grouped |= launch.group > 1
+        if launch.group > 1:
+            assert (launch.group, launch.n_parts, launch.workspace_bytes) \
+                == (launch.c_tiles, 1, 0)
+        inputs = tex.make_inputs(plan, seed=1, device="cpu")
+        x, w = inputs["I"], inputs["W"]
+        got = _emulate_fc(plan, launch, x, w)
+        want = tex.plain_fc(plan, x, w)
+        assert tex.rel_error(got, want) <= 1e-6, plan.describe()
+    assert grouped == (cap != FC_CAP)

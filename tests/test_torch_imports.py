@@ -1,5 +1,5 @@
-"""The PyTorch/CUDA port (src/repro_torch) and chip_smoke.py import neither
-jax nor anything of the JAX package ``repro``."""
+"""The PyTorch/CUDA port (src/repro_torch), chip_smoke.py and the port's
+tools import neither jax nor anything of the JAX package ``repro``."""
 import ast
 import os
 import subprocess
@@ -12,7 +12,7 @@ pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"]
+    + [ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
 
 
 def _absolute_imports(path: Path):

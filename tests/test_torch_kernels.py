@@ -71,7 +71,8 @@ def test_plain_flash_matches_pallas_interpret(B, H, KV, S, D, causal, win,
     got = tfa.flash_attention(tq, tk, tv, causal=causal, window=win,
                               logit_softcap=cap)
     assert got.dtype == tq.dtype and got.shape == tq.shape
-    assert tfa.LAUNCHES == {"flash_attention": 0}      # CPU: plain version
+    assert tfa.LAUNCHES == {"flash_attention": 0,       # CPU: plain version
+                            "flash_attention_wgmma": 0}
     tol = 2e-2 if dtype == "bf16" else 2e-5
     assert _rel_err(_np(got), _np(want)) < tol
 
@@ -269,3 +270,106 @@ def test_wrappers_check_their_inputs():
         tops.ssd(torch.zeros((1, 12, 2, 4)), torch.zeros((1, 12, 2)),
                  torch.zeros(2), torch.zeros((1, 12, 3)),
                  torch.zeros((1, 12, 3)), chunk=8)
+
+
+# ---------------------------------------------------------------------------
+# flash attention's two kernels: the path table and the tensor-core
+# kernel's numerics (bf16 P in P V), emulated on the CPU
+# ---------------------------------------------------------------------------
+
+def _chip_smoke():
+    """chip_smoke.py (standard library at import) for its FLASH_CASES and
+    BF16_TOL."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_flash_path_table():
+    for d in tfa.HEAD_DIMS:
+        assert tfa.flash_path(torch.float32, d) == "fma"
+    assert [tfa.flash_path(torch.bfloat16, d) for d in tfa.HEAD_DIMS] == \
+        ["fma", "fma", "wgmma", "wgmma", "wgmma"]
+    assert set(tfa.PATHS.values()) == {"fma", "wgmma"}
+    for dtype, d in ((torch.float16, 64), (torch.bfloat16, 96),
+                     (torch.float32, 512), (torch.bfloat16, 8)):
+        with pytest.raises(ValueError, match="no kernel"):
+            tfa.flash_path(dtype, d)
+    # every bf16 case chip_smoke.py times runs on the tensor cores, the f32
+    # case on the FMA tile
+    for case in _chip_smoke().FLASH_CASES:
+        dtype, D = case[10], case[6]
+        want = "wgmma" if dtype == "bf16" else "fma"
+        assert tfa.flash_path({"bf16": torch.bfloat16,
+                               "f32": torch.float32}[dtype], D) == want
+
+
+def _wgmma_flash_emulation(q, k, v, causal, window, cap):
+    """flash_wgmma_kernel's arithmetic in torch: 64-row query tiles, key
+    tiles of 128 at D 64 and 64 otherwise, f32 scores in log2 units
+    (soft-capped, then masked to -inf), exp2 online softmax subtracting 0
+    while a row's max is -inf, P rounded to bf16 before P V (l from the
+    unrounded P), O / max(l, 1e-30) in bf16."""
+    B, H, Sq, D = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    bk = 128 if D == 64 else 64
+    scale, log2e = D ** -0.5, 1.4426950408889634
+    qg = q.float().reshape(B, KV, H // KV, Sq, D)
+    kf, vf = k.float()[:, :, None], v.float()[:, :, None]
+    out = torch.empty((B, KV, H // KV, Sq, D), dtype=q.dtype)
+    for q0 in range(0, Sq, 64):
+        qb = qg[:, :, :, q0:q0 + 64]
+        bq = qb.shape[3]
+        o = torch.zeros(qb.shape)
+        m = torch.full(qb.shape[:-1], -float("inf"))
+        l = torch.zeros(qb.shape[:-1])
+        for k0 in range(0, Sk, bk):
+            kb, vb = kf[:, :, :, k0:k0 + bk], vf[:, :, :, k0:k0 + bk]
+            s = qb @ kb.transpose(-1, -2)
+            s = torch.tanh(s * scale / cap) * cap * log2e if cap > 0 \
+                else s * (scale * log2e)
+            mask = tfa._mask(q0, bq, k0, kb.shape[3], Sk - Sq, causal,
+                             window, "cpu")
+            s = torch.where(mask, s, -float("inf"))
+            mn = torch.maximum(m, s.amax(-1))
+            base = torch.where(mn == -float("inf"), 0.0, mn)
+            alpha = torch.exp2(m - base)
+            p = torch.exp2(s - base[..., None])
+            l, m = l * alpha + p.sum(-1), mn
+            o = o * alpha[..., None] \
+                + p.to(torch.bfloat16).float() @ vb
+        out[:, :, :, q0:q0 + bq] = (
+            o / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+    return out.reshape(B, H, Sq, D)
+
+
+def _narrowed_bf16_flash_cases():
+    """Each bf16 row of chip_smoke.py's FLASH_CASES at batch 1, at most two
+    KV heads (the GQA ratio kept), a quarter of the sequence plus 5 (ragged
+    tiles) and half the window."""
+    cases = []
+    for (name, B, H, KV, Sq, Sk, D, causal, window, cap, dtype,
+         _) in _chip_smoke().FLASH_CASES:
+        if dtype == "bf16":
+            kv = min(KV, 2)
+            cases.append((name, kv * (H // KV), kv, Sq // 4 + 5, Sk // 4 + 5,
+                          D, causal, window // 2, cap))
+    return cases
+
+
+@pytest.mark.parametrize("case", range(4))
+def test_bf16_p_in_pv_stays_within_bf16_tol(case):
+    cases = _narrowed_bf16_flash_cases()
+    assert len(cases) == 4
+    name, H, KV, Sq, Sk, D, causal, window, cap = cases[case]
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _qkv(1, H, KV, Sq, Sk, D, seed=case))
+    want = tfa.plain_flash_attention(q, k, v, causal, window, cap)
+    got = _wgmma_flash_emulation(q, k, v, causal, window, cap)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    err = _rel_err(_np(got), _np(want))
+    assert err <= _chip_smoke().BF16_TOL, (name, err)
