@@ -3,7 +3,8 @@
 
 Runs on one NVIDIA card, from the root of a checkout:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py               # every phase below
+    python3 chip_smoke.py --check-only  # phases 1-2, untimed, then stop
 
 Phases, in order; any failure exits non-zero:
 
@@ -11,14 +12,15 @@ Phases, in order; any failure exits non-zero:
    for sm_90a, one nvcc each, both started together; print ptxas's report
    and each redesigned kernel's registers and spills (``[ptxas]``);
 2. hold each of the five layer-tier kernels (fc, conv, pool, eltwise,
-   attention) against its plain PyTorch version on the card, at every
-   distinct (kind, shape, grid order) among the plans of ResNet-50 b64 and
-   AlexNet b64 on the 16x16 Eyeriss template and AlexNet b64 on the 4x4
-   one, and the attention plans: the Zamba2-1.2B shared block on both
-   templates, a 4096-token sequence whose plan puts C outermost, and every
-   attention plan of the full calibration sweep.  Max rel error <= 1e-5
-   (both float32, only the summation order differs; fc in 3xTF32 on the
-   tensor cores holds the same limit); time the kernel, the plain version
+   attention, the last on both of its paths) against its plain PyTorch
+   version on the card, at every distinct (kind, shape, grid order) among
+   the plans of ResNet-50 b64 and AlexNet b64 on the 16x16 Eyeriss
+   template and the 4x4 one, and the attention plans: the Zamba2-1.2B
+   shared block on both templates, a 4096-token sequence whose plan puts C
+   outermost, head dims 16, 32, 128 and 256, and every attention plan of
+   the full calibration sweep.  Max rel error <= 1e-5 (both float32, only
+   the summation order differs; fc, conv and attention in 3xTF32 on the
+   tensor cores hold the same limit); time the kernel, the plain version
    and one PyTorch library call on the same inputs;
 3. ResNet-50 b64 end to end: solve -> lower_network -> network_runner on
    the card, with the launch counters set to 0 just before the run and
@@ -63,8 +65,9 @@ Phases, in order; any failure exits non-zero:
    ``{"ok": true, "device": {...}}``.
 
 Every ``[kernel]`` line and ``kernels`` entry names the path that ran:
-``wgmma`` (flash attention's tensor-core kernel, bf16), ``mma-3xtf32`` (fc
-on the tensor cores) or ``fma`` (f32 FMA on the CUDA cores).  ``ms`` and
+``wgmma`` (flash attention's tensor-core kernel, bf16), ``mma-3xtf32`` (fc,
+conv and attention at head dims up to 128 on the tensor cores) or ``fma``
+(f32 FMA on the CUDA cores; attention at head dim 256).  ``ms`` and
 ``library_ms`` are ``stream_ms``: 20 calls back to back between two CUDA
 events, the median of 5 such means.  A layer-tier kernel and its library
 call cycle through copies of their inputs (``cold_copies``) that together
@@ -72,8 +75,8 @@ pass twice the L2, so each call reads its operands from device memory, as a
 layer of a network forward finds its weights; the model-zoo kernels reuse
 one set, since in a prefill the operation just before writes q, k and v.
 ``plain_ms`` is one call on the host clock.  The ``[kernel]`` summary lines
-of fc and flash attention also quote their time before the redesign, copied
-from PERF.md and not measured here.  A
+of the redesigned kernels (fc, flash attention, conv, attention) also quote
+their time before the redesign, copied from PERF.md and not measured here.  A
 bound is read at the rate of the path: bf16 on the tensor cores for
 ``wgmma``; for ``mma-3xtf32`` the TF32 rate over 3, since every
 multiply-add is three TF32 products (hi*hi + hi*lo + lo*hi) that keep the
@@ -109,16 +112,21 @@ CONSISTENCY_TOL = 1e-3
 PEAKS = {"PCIe": (51.2e12, 2.0e12, 756e12, 378e12),
          "SXM": (67e12, 3.35e12, 989e12, 495e12)}
 #: the path each kernel runs (flash: its serve path, bf16)
-PATHS = {"fc": "mma-3xtf32", "conv": "fma", "pool": "fma", "eltwise": "fma",
-         "attention": "fma", "flash_attention": "wgmma",
-         "ssd_intra_chunk": "fma"}
+#: (attention: at the kernels line's case, head dim 64; the path by head
+#: dim is ``lower/exec.py`` ``ATTN_PATHS``)
+PATHS = {"fc": "mma-3xtf32", "conv": "mma-3xtf32", "pool": "fma",
+         "eltwise": "fma", "attention": "mma-3xtf32",
+         "flash_attention": "wgmma", "ssd_intra_chunk": "fma"}
 #: the redesigned kernels' times before the redesign, per the kernels
-#: line's unit, one call between two CUDA events (copied from PERF.md's
-#: kernel table; NVIDIA H100 80GB HBM3, 700.00 W).  Logged beside this
-#: run's times, never put in the kernels line.
-EARLIER_MS = {"fc": 0.3468, "flash_attention": 38.72}
+#: line's unit (copied from PERF.md's kernel table; NVIDIA H100 80GB HBM3,
+#: 700.00 W; fc and flash one call between two CUDA events, PR 13; conv and
+#: attention this script's method, PR 14).  Logged beside this run's times,
+#: never put in the kernels line.
+EARLIER_MS = {"fc": 0.3468, "flash_attention": 38.72, "conv": 91.81,
+              "attention": 1.1872}
 #: the kernels whose ptxas registers and spills ``[ptxas]`` reports
-REDESIGNED = ("flash_wgmma_kernel", "fc_kernel", "fc_reduce_kernel")
+REDESIGNED = ("flash_wgmma_kernel", "fc_kernel", "fc_reduce_kernel",
+              "conv_kernel", "attention_mma_kernel")
 
 #: the serve phase: arch -> kernel launches per prefill
 SERVE = {"qwen2.5-3b": {"flash_attention": 36, "flash_attention_wgmma": 36,
@@ -134,7 +142,11 @@ CONSISTENCY = {"qwen2.5-3b": 4, "zamba2-1.2b": 12}
 #: kernels line's attention entry.
 ATTENTION_CASES = [("zamba2.attn", (8, 32, 512, 64), "16x16"),
                    ("zamba2.attn", (8, 32, 512, 64), "4x4"),
-                   ("long4k", (1, 8, 4096, 64), "4x4")]
+                   ("long4k", (1, 8, 4096, 64), "4x4"),
+                   ("d16", (2, 8, 256, 16), "4x4"),
+                   ("d32", (2, 8, 256, 32), "4x4"),
+                   ("d128", (1, 4, 256, 128), "16x16"),
+                   ("d256", (1, 4, 256, 256), "16x16")]
 #: the calibration phase: the watchdog's limit on the stored vs recomputed
 #: rank correlation of a record, and the sweep's timed iterations
 STALE_TOL = 0.05
@@ -167,6 +179,11 @@ def calibration_phase(dev, out_dir: Path):
         raise AssertionError(f"calibration: {rec['n_pairs']} pairs, backend "
                              f"{rec['backend']}, numerics skips {numerics}")
     pairs = collections.Counter(p["kind"] for p in rec["pairs"])
+    head_dim = {layer.name: layer.dim("K")
+                for layer in cal.default_sweep(False)}
+    pairs["attention_mma"] = sum(
+        1 for p in rec["pairs"] if p["kind"] == "attention"
+        and lx.ATTN_PATHS[head_dim[p["layer"]]] == "mma-3xtf32")
     for kind, count in launches.items():
         if count != (1 + CAL_ITERS) * pairs.get(kind, 0):
             raise AssertionError(f"calibration: {kind} launched {count} "
@@ -192,7 +209,11 @@ def calibration_phase(dev, out_dir: Path):
     for net in nets:                         # solves are memoized
         nplan = lower_network(solve(net, hw), net, hw)
         for n in nplan.order:
-            expect[nplan.plans[n].kind] += 1 + CAL_ITERS
+            plan = nplan.plans[n]
+            expect[plan.kind] += 1 + CAL_ITERS
+            if plan.kind == "attention" and lx.ATTN_PATHS[
+                    plan.layer.dim("K")] == "mma-3xtf32":
+                expect["attention_mma"] += 1 + CAL_ITERS
     if net_launches != {k: expect.get(k, 0) for k in net_launches}:
         raise AssertionError(f"network calibration: launches {net_launches}"
                              f", plans {dict(expect)}")
@@ -242,6 +263,16 @@ def explain_phase():
     return {"lines": len(lines), "segments": len(sched.explain["funnel"])}
 
 
+def plan_key(plan):
+    """What makes two plans the same kernel case: kind, dims, meta, grid
+    order and block."""
+    L = plan.layer
+    return (plan.kind, tuple(L.dim(d) for d in "NCKXY"),
+            tuple(sorted(L.meta.items())),
+            tuple((a.dim, a.steps) for a in plan.grid),
+            tuple(sorted(plan.block.items())))
+
+
 def work(plan):
     """(operations, bytes) the layer needs: each input read once, each
     output written once; conv/fc count 2 per multiply-add, attention 4 per
@@ -282,9 +313,10 @@ def device_profile(runner):
         if not us or "cuda" not in str(getattr(e, "device_type", "")).lower():
             continue
         k = e.key
-        group = "fc" if "fc_reduce_kernel" in k else next(
-            (f for f in ("fc", "conv", "pool", "eltwise", "attention")
-             if f"{f}_kernel" in k), None)
+        group = "fc" if "fc_reduce_kernel" in k else \
+            "attention" if "attention_mma_kernel" in k else next(
+                (f for f in ("fc", "conv", "pool", "eltwise", "attention")
+                 if f"{f}_kernel" in k), None)
         if group is None:
             group = "memcpy_dtoh" if "DtoH" in k else \
                 "memcpy_htod" if "HtoD" in k else "other"
@@ -348,12 +380,15 @@ def stream_ms(fns, launches: int = 20, reps: int = 5) -> float:
 
 
 def _redesigned(mangled: str):
-    """The ``REDESIGNED`` kernel a mangled name is (with its head dim where
-    it is a template), or None."""
+    """The ``REDESIGNED`` kernel a mangled name is (with its template
+    arguments, e.g. the head dim, where it is a template), or None."""
     for k in REDESIGNED:
         if f"{len(k)}{k}" in mangled:
-            d = re.search(f"{len(k)}{k}ILi(\\d+)E", mangled)
-            return f"{k}<{d.group(1)}>" if d else k
+            t = re.search(f"{len(k)}{k}I((?:Li\\d+E)+)E", mangled)
+            if not t:
+                return k
+            args = re.findall(r"Li(\d+)E", t.group(1))
+            return f"{k}<{','.join(args)}>"
     return None
 
 
@@ -692,7 +727,17 @@ def model_kernel_entry(name, rows, uses, serve_res, source, replaces):
             "library_ms": None if None in libs else per_run("library_ms")}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description="Chip smoke test of the "
+                                 "PyTorch/CUDA port (see the module "
+                                 "docstring).")
+    ap.add_argument("--check-only", action="store_true",
+                    help="build, print ptxas's report, hold every "
+                    "layer-tier kernel against its plain version once per "
+                    "distinct plan (phases 1-2, untimed) and stop without "
+                    "a result line")
+    args = ap.parse_args(argv)
     if not (ROOT / "src" / "repro_torch" / "csrc"
             / "lower_kernels.cu").is_file():
         print("chip_smoke.py: src/repro_torch is missing; run it from the "
@@ -753,6 +798,7 @@ def main() -> int:
     # solve + lower the three configurations --------------------------------
     configs = [("resnet", eyeriss_multinode()),
                ("alexnet", eyeriss_multinode()),
+               ("resnet", eyeriss_multinode(nodes=4, pe=8)),
                ("alexnet", eyeriss_multinode(nodes=4, pe=8))]
     nplans, predicted = {}, {}
     for net_name, hw in configs:
@@ -773,21 +819,14 @@ def main() -> int:
             f"{sched.total_energy_pj!r} pJ, latency "
             f"{sched.total_latency_cycles!r} cycles")
 
-    def key(plan):
-        L = plan.layer
-        return (plan.kind, tuple(L.dim(d) for d in "NCKXY"),
-                tuple(sorted(L.meta.items())),
-                tuple((a.dim, a.steps) for a in plan.grid),
-                tuple(sorted(plan.block.items())))
-
     distinct = {}
     resnet_uses = collections.Counter()
     for (net_name, hw_name), nplan in nplans.items():
         for n in nplan.order:
-            k = key(nplan.plans[n])
+            k = plan_key(nplan.plans[n])
             distinct.setdefault(k, (f"{net_name}/{hw_name}/{n}",
                                     nplan.plans[n]))
-            if net_name == "resnet":
+            if (net_name, hw_name) == ("resnet", "eyeriss_16x16"):
                 resnet_uses[k] += 1
     # attention: the named cases (the solver's plan) and every plan of the
     # full calibration sweep (the plans run_calibration executes)
@@ -802,8 +841,8 @@ def main() -> int:
             plan = lower_scheme(scheme, hw)
             if not plan.valid:
                 raise RuntimeError(f"{layer.name}/{hw.name}: {plan.reason}")
-            distinct.setdefault(key(plan), (f"{layer.name}/{hw.name}/v{vi}",
-                                            plan))
+            distinct.setdefault(plan_key(plan),
+                                (f"{layer.name}/{hw.name}/v{vi}", plan))
     zamba_key = next(k for k, (w, _) in distinct.items()
                      if w == "zamba2.attn/eyeriss_16x16/v0")
 
@@ -856,6 +895,11 @@ def main() -> int:
             raise AssertionError(f"{plan.describe()}: the library call does "
                                  f"not compute the same function ({lib_err})")
         del want
+        if args.check_only:
+            log(f"[check] {plan.kind:9s} {where:32s} rel {rel_err:.2e} | "
+                f"{plan.describe()}")
+            rows.append(rel_err)
+            continue
         copies = cold_copies(inputs)
         ms = stream_ms([functools.partial(run[plan.kind], plan, c)
                         for c in copies])
@@ -863,7 +907,8 @@ def main() -> int:
                             for c in copies])
         del copies
         ops, nbytes = work(plan)
-        path = PATHS[plan.kind]
+        path = lx.ATTN_PATHS[plan.layer.dim("K")] \
+            if plan.kind == "attention" else PATHS[plan.kind]
         row = {"plan": where, "kind": plan.kind, "path": path,
                "describe": plan.describe(), "resnet_uses": resnet_uses[k],
                "max_abs_err": abs_err, "max_rel_err": rel_err, "ms": ms,
@@ -881,6 +926,9 @@ def main() -> int:
         del inputs, out
     log(f"[kernels] {len(rows)} distinct plans checked in "
         f"{time.perf_counter() - t_phase:.1f} s")
+    if args.check_only:
+        log(f"[check] worst rel err {max(rows):.2e}; stopping (--check-only)")
+        return 0
     detail["plans"] = rows
 
     # 3./4. end to end -------------------------------------------------------
@@ -965,10 +1013,13 @@ def main() -> int:
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "library_ms": per_forward("library_ms")})
     zamba = next(r for r in rows if r["plan"] == distinct[zamba_key][0])
+    cal_launches = detail["calibration"]["launches"]
     kernels.append({
-        "name": "attention", "route": "cuda", "path": PATHS["attention"],
+        "name": "attention", "route": "cuda", "path": zamba["path"],
+        "paths_by_head_dim": {str(d): p for d, p in lx.ATTN_PATHS.items()},
+        "launches_mma": cal_launches["attention_mma"],
         "source": lx.SOURCE, "replaces": lx.REPLACES["attention"],
-        "launches": detail["calibration"]["launches"]["attention"],
+        "launches": cal_launches["attention"],
         "max_abs_err": max(r["max_abs_err"] for r in rows
                            if r["kind"] == "attention"),
         "max_rel_err": max(r["max_rel_err"] for r in rows
@@ -997,7 +1048,7 @@ def main() -> int:
             log(f"[kernel] {k['name']} ({k['path']}), per the kernels line's "
                 f"unit: {k['ms']:.4f} ms, library {lib}, bound "
                 f"{k['bound_ms']:.4f} ms; before the redesign "
-                f"{EARLIER_MS[k['name']]} ms (one call a time, PERF.md, "
+                f"{EARLIER_MS[k['name']]} ms (PERF.md's kernel table, "
                 f"copied, not measured in this run)")
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(detail, indent=1))

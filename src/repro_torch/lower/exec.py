@@ -35,8 +35,10 @@ from ..kernels import backend, ref
 from .plan import KernelPlan
 
 #: kernel launches per family since the last ``reset_launch_counts()``
+#: (``attention`` counts both attention paths, ``attention_mma`` the
+#: tensor-core one)
 LAUNCHES: Dict[str, int] = {"fc": 0, "conv": 0, "pool": 0, "eltwise": 0,
-                            "attention": 0}
+                            "attention": 0, "attention_mma": 0}
 
 #: the TPU kernel each CUDA kernel replaces (file:line of its definition)
 REPLACES = {"fc": "src/repro/lower/exec.py:88",
@@ -48,8 +50,28 @@ REPLACES = {"fc": "src/repro/lower/exec.py:88",
 SOURCE = "src/repro_torch/csrc/lower_kernels.cu"
 NEG_INF = -1e30
 ELTWISE_MAX_OPS = 8
-CONV_THREADS = 256
-CONV_SMEM_BYTES = 48 * 1024
+#: the H100's SMs, over which the conv model spreads blocks
+SMS = 132
+CONV_THREADS = 128
+CONV_WARPS = CONV_THREADS // 32
+CONV_STAGES = 3                 # the conv kernel's ring of cp.async stages
+#: the most dynamic shared memory a block may opt into (227 KB), and the
+#: caps conv_launch sizes chunks for (four, two and one block an SM)
+CONV_SMEM_MAX = 232448
+CONV_SMEM_CAPS = (56 * 1024, 113 * 1024, CONV_SMEM_MAX)
+#: the deepest reduction a conv chunk stages, unless one channel's R*S is
+#: deeper
+CONV_DEPTH = 80
+#: the conv warp tiles: (mt, nt, wm, wn), each warp 16 mt positions x 8 nt
+#: channels, the four warps wm x wn
+CONV_TILES = tuple((mt, nt, wm, CONV_WARPS // wm) for mt in (1, 2)
+                   for nt in (1, 2, 3, 4) for wm in (1, 2, 4))
+#: registers a thread of each conv warp tile (mt, nt) takes (ptxas for
+#: sm_90a, CUDA 12.8), and the cycles a block waits for its first stages:
+#: the conv model's occupancy and fill
+CONV_REGS = {(1, 1): 89, (1, 2): 108, (1, 3): 127, (1, 4): 147,
+             (2, 1): 116, (2, 2): 151, (2, 3): 187, (2, 4): 227}
+CONV_FILL = 10000
 FC_TILE = 64                    # widest fc output sub-tile side
 FC_SLAB = 32                    # C depth of one staged fc slab
 #: blocks ``fc_launch`` aims the C split at: two for each of the H100's
@@ -58,7 +80,14 @@ FC_TARGET_BLOCKS = 2 * 132
 #: the most the fc C split's float32 workspace may take
 FC_WORKSPACE_CAP = 64 << 20
 ATTN_TILE = 64                  # query rows per CUDA block, keys per stage
-ATTN_HEAD_DIMS = (16, 32, 64, 128, 256)
+#: the attention kernel's path by head dim: ``mma-3xtf32``
+#: (``attention_mma_kernel``, the tensor cores in 3xTF32) where its tiles
+#: fit, else ``fma`` (``attention_kernel``, the FMA tile of
+#: ``online_softmax.cuh``): at D = 256 its Q and 64-key K/V ring would take
+#: 333 KB of shared memory (227 KB a block) and O half a thread's registers
+ATTN_PATHS = {16: "mma-3xtf32", 32: "mma-3xtf32", 64: "mma-3xtf32",
+              128: "mma-3xtf32", 256: "fma"}
+ATTN_HEAD_DIMS = tuple(ATTN_PATHS)
 
 _INPUT_NAMES = {"fc": ("I", "W"), "conv": ("I", "W"), "pool": ("I",),
                 "eltwise": ("A", "B"), "attention": ("Q", "K", "V")}
@@ -324,54 +353,284 @@ def plain_conv(plan: KernelPlan, x: torch.Tensor,
     return out
 
 
-def conv_launch(plan: KernelPlan, XI: int, YI: int) -> List[int]:
-    """Parameters of ``kapla_conv``: the CUDA sub-tile of a plan tile (tk
-    output channels x tn images x tx rows x ty cols), the channel chunk
-    staged per step, threads, shared memory and grid.  Shared memory stays
-    within 48 KB, so no opt-in is needed."""
+def _round8(v: int) -> int:
+    return -(-v // 8) * 8
+
+
+def _even(block: int, tile: int) -> int:
+    """The sub-tile width that cuts ``block`` into as many pieces as
+    ``tile`` does, balanced (the last piece at most one short of the
+    others' share)."""
+    return _ceil(block, _ceil(block, tile))
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvLaunch:
+    """Geometry of one ``kapla_conv`` call (``csrc/lower_kernels.cu``
+    ``conv_kernel<mt, nt>``, an implicit GEMM in 3xTF32).  Block ``(x, y,
+    z)`` owns one output sub-tile of one plan tile: X/Y sub-tile ``x``
+    (``x // ny``, ``x % ny``), K sub-tile ``y`` and N sub-tile ``z``
+    (``sub_tile``): ``tn`` images x ``tx`` rows x ``ty`` cols of positions
+    by ``tk`` channels.  Its ``wm x wn`` warps each compute ``16 mt``
+    positions x ``8 nt`` channels.  The reduction walks the plan's C tiles
+    in order, each in chunks of ``cc`` channels (``chunks``) whose depth
+    ``nc * R * S`` is padded to a multiple of 8; a stage holds the chunk's
+    weights (``bnw`` rows at pitch ``ldw``) and input window (``cc``
+    channels at pitch ``cpitch``)."""
+
+    N: int
+    C: int
+    K: int
+    XI: int
+    YI: int
+    XO: int
+    YO: int
+    R: int
+    S: int
+    stride: int
+    bn: int
+    bc: int
+    bk: int
+    bx: int
+    by: int
+    tn: int
+    tx: int
+    ty: int
+    tk: int
+    cc: int
+    mt: int         # 16-row mma tiles a warp (positions)
+    nt: int         # 8-column mma tiles a warp (channels)
+    wm: int         # warps along positions
+    wn: int         # warps along channels
+    vec: bool       # 16-byte weight copies (rows 16-byte aligned)
+
+    @property
+    def sub(self) -> Dict[str, int]:
+        """Sub-tiles per plan tile along each axis."""
+        return {d: _ceil(b, t) for d, b, t in
+                (("N", self.bn, self.tn), ("K", self.bk, self.tk),
+                 ("X", self.bx, self.tx), ("Y", self.by, self.ty))}
+
+    @property
+    def grid(self) -> Tuple[int, int, int]:
+        sub = self.sub
+        return ((self.XO // self.bx) * sub["X"] * (self.YO // self.by)
+                * sub["Y"], (self.K // self.bk) * sub["K"],
+                (self.N // self.bn) * sub["N"])
+
+    @property
+    def bm(self) -> int:
+        """Positions the block's warps cover."""
+        return self.wm * 16 * self.mt
+
+    @property
+    def bnw(self) -> int:
+        """Channels the block's warps cover (weight rows staged)."""
+        return self.wn * 8 * self.nt
+
+    @property
+    def jpad(self) -> int:
+        """Reduction depth of a full chunk, padded to a multiple of 8."""
+        return _round8(self.cc * self.R * self.S)
+
+    @property
+    def ldw(self) -> int:
+        """Weight row pitch: 4 mod 8 floats, conflict-free B fragments."""
+        return self.jpad + 4
+
+    @property
+    def spmax(self) -> int:
+        """Input window elements of one channel of the largest sub-tile."""
+        return self.tn * ((self.tx - 1) * self.stride + self.R) \
+            * ((self.ty - 1) * self.stride + self.S)
+
+    @property
+    def cpitch(self) -> int:
+        """Window channel pitch: 8 mod 32 floats, so the four channels of a
+        1x1 layer's A fragment fall in distinct banks."""
+        return self.spmax + (8 - self.spmax) % 32
+
+    @property
+    def stage(self) -> int:
+        """Floats of one stage of the ring."""
+        return self.bnw * self.ldw + self.cc * self.cpitch
+
+    @property
+    def smem(self) -> int:
+        """Dynamic shared memory: the ring, the reduction offset table and
+        the window offset table."""
+        return 4 * (CONV_STAGES * self.stage + self.jpad + self.spmax)
+
+    def sub_tile(self, axis: str, g: int) -> Tuple[int, int]:
+        """(start, extent) of sub-tile ``g`` along ``axis`` (N, K, X or
+        Y), as the kernel's ``sub_tile`` computes it."""
+        block, tile = {"N": (self.bn, self.tn), "K": (self.bk, self.tk),
+                       "X": (self.bx, self.tx),
+                       "Y": (self.by, self.ty)}[axis]
+        sub = self.sub[axis]
+        start = (g // sub) * block + (g % sub) * tile
+        return start, min(tile, (g // sub + 1) * block - start)
+
+    def chunks(self) -> List[Tuple[int, int, int]]:
+        """(C tile, c0, channels) of each chunk, in the kernel's order."""
+        out = []
+        for t in range(self.C // self.bc):
+            for c0 in range(t * self.bc, (t + 1) * self.bc, self.cc):
+                out.append((t, c0, min(self.cc, (t + 1) * self.bc - c0)))
+        return out
+
+    def params(self, vec: bool) -> List[int]:
+        """``kapla_conv``'s parameter array; ``vec`` is ``self.vec`` and
+        the 16-byte alignment of W."""
+        return [self.N, self.C, self.K, self.XI, self.YI, self.XO, self.YO,
+                self.R, self.S, self.stride, self.bn, self.bc, self.bk,
+                self.bx, self.by, self.tn, self.tx, self.ty, self.tk,
+                self.cc, *(self.sub[d] for d in "NKXY"), self.wm, self.wn,
+                self.jpad, self.ldw, self.cpitch, self.stage, self.spmax,
+                int(vec), *self.grid, self.smem, self.mt, self.nt]
+
+
+def _conv_box(bn: int, bx: int, by: int, bm: int) -> Tuple[int, int, int]:
+    """The (images, rows, cols) box of at most ``bm`` positions that cuts
+    a plan tile into the fewest sub-tiles, whole rows of the tile first."""
+    ty = _even(by, min(by, bm))
+    tx = _even(bx, min(bx, bm // ty))
+    tn = _even(bn, min(bn, bm // (tx * ty)))
+    return tn, tx, ty
+
+
+def _conv_chunk(bc: int, RS: int,
+                fits: Callable[[int], bool]) -> Optional[int]:
+    """The channel chunk: the fewest padded reduction steps over a C tile
+    (a chunk costs about 16 more for its stage), within ``CONV_DEPTH``
+    (or one channel, where R*S is deeper) and ``fits``; None when one
+    channel does not fit."""
+    cap = max(CONV_DEPTH, _round8(RS))
+    best = None
+    for cc in range(1, bc + 1):
+        if _round8(cc * RS) > cap or not fits(cc):
+            break
+        n = _ceil(bc, cc)
+        cost = (n - 1) * _round8(cc * RS) \
+            + _round8((bc - (n - 1) * cc) * RS) + 16 * n
+        if best is None or cost < best[0]:
+            best = (cost, cc)
+    return None if best is None else best[1]
+
+
+def _conv_time(launch: ConvLaunch) -> float:
+    """A model of the kernel's time, in SM cycles: per block, the
+    k-steps (8 deep) of every chunk at the larger of the busy warps' mma
+    products (3 m16n8k8 a multiply-add tile, at half of one a cycle) and
+    their shared-memory fragment reads (one warp's a cycle), plus a
+    quarter cycle per 32-byte sector the chunks stage (a window row of w
+    floats touches (w + 7) / 8), and a fill of ``CONV_FILL`` cycles shared
+    by the blocks an SM holds (registers, ``CONV_REGS``, and shared
+    memory); blocks spread over the SMs.  Its weights come from timing
+    every candidate on every ResNet-50 and AlexNet b64 plan on the card
+    (``tools/conv_tiles.py``): over a ResNet-50 forward its picks came
+    within 3% of the fastest candidates'."""
+    L = launch
+    warps = CONV_WARPS - _conv_idle_warps(L)
+    mma = warps * 3 * L.mt * L.nt * 2
+    lds = warps * (4 * L.mt + 2 * L.nt + 2)
+    chunks = L.chunks()
+    ksteps = sum(_round8(nc * L.R * L.S) // 8 for _, _, nc in chunks)
+    winx = (L.tx - 1) * L.stride + L.R
+    winy = (L.ty - 1) * L.stride + L.S
+    sectors = len(chunks) * (L.cc * L.tn * winx * (winy + 7) / 8
+                             + L.bnw * L.jpad / 8)
+    per_block = max(mma, lds) * ksteps + sectors / 4
+    occupancy = max(1, min(65536 // (CONV_REGS[L.mt, L.nt] * CONV_THREADS),
+                           CONV_SMEM_MAX // (L.smem + 1024)))
+    blocks = L.grid[0] * L.grid[1] * L.grid[2]
+    return blocks * (per_block + CONV_FILL / occupancy) / SMS
+
+
+def _conv_idle_warps(launch: ConvLaunch) -> int:
+    """Warps of a full sub-tile's block that have no position or no
+    channel to compute."""
+    L = launch
+    busy = min(L.wm, _ceil(L.tn * L.tx * L.ty, 16 * L.mt)) \
+        * min(L.wn, _ceil(L.tk, 8 * L.nt))
+    return CONV_WARPS - busy
+
+
+def conv_launch(plan: KernelPlan, XI: int, YI: int) -> ConvLaunch:
+    """The geometry of ``kapla_conv`` for ``plan``: of the warp tiles in
+    ``CONV_TILES``, each with its chunks sized for every cap of
+    ``CONV_SMEM_CAPS``, of those with the fewest idle warps the one that
+    the model ``_conv_time`` finds quickest (then the largest, then the
+    least shared memory).  Sub-tiles cover each plan tile once; chunks
+    never straddle a plan C tile."""
     _check_reduction(plan)
     L, b = plan.layer, plan.block
     N, C, K, XO, YO = (L.dim(d) for d in "NCKXY")
     R, S, st = (int(L.meta[k]) for k in ("R", "S", "stride"))
+    if N * C * XI * YI >= 1 << 31:
+        raise ValueError(f"{plan.describe()}: input of {N * C * XI * YI} "
+                         "elements; the kernel's window offsets are 32-bit")
+    launch = _conv_launch(N, C, K, XI, YI, XO, YO, R, S, st, b["N"],
+                          b["C"], b["K"], b["X"], b["Y"])
+    if launch is None:
+        raise ValueError(f"{plan.describe()}: one channel of the conv "
+                         "window does not fit in shared memory")
+    if launch.grid[0] >= 1 << 31 or max(launch.grid[1:]) > 65535:
+        raise ValueError(f"{plan.describe()}: conv grid {launch.grid} too "
+                         "large")
+    return launch
+
+
+@functools.lru_cache(maxsize=None)
+def _conv_launch(N, C, K, XI, YI, XO, YO, R, S, st, bn, bc, bk, bx, by):
+    found = [f for cap in CONV_SMEM_CAPS for f in conv_candidates(
+        N, C, K, XI, YI, XO, YO, R, S, st, bn, bc, bk, bx, by, cap)]
+    if not found:
+        return None
+    return min(found, key=lambda f: f[0])[1]
+
+
+def conv_candidates(N, C, K, XI, YI, XO, YO, R, S, st, bn, bc, bk, bx, by,
+                    cap):
+    """(key, launch) for every warp tile of ``CONV_TILES`` whose stage fits
+    ``cap`` bytes of shared memory: its sub-tile box, width and channel
+    chunk, and ``key`` = (idle warps, ``_conv_time``, -tile size, shared
+    memory), which ``conv_launch`` minimizes."""
     RS = R * S
-    tk = min(64, max(4, 1 << (b["K"] - 1).bit_length()))
-    kthr = tk // 4
-    tp = 4 * (CONV_THREADS // kthr)          # positions a block can hold
-    ty = min(b["Y"], 8)
-    tx = min(b["X"], max(1, tp // ty), 8)
-    tn = min(b["N"], max(1, tp // (tx * ty)))
+    vec = (C * RS) % 4 == 0 and (bc * RS) % 4 == 0
+    found = []
+    for mt, nt, wm, wn in CONV_TILES:
+        tn, tx, ty = _conv_box(bn, bx, by, wm * 16 * mt)
+        tk = _even(bk, min(bk, wn * 8 * nt))
+        while True:
+            base = ConvLaunch(N, C, K, XI, YI, XO, YO, R, S, st, bn, bc, bk,
+                              bx, by, tn, tx, ty, tk, 1, mt, nt, wm, wn,
+                              False)
 
-    def ldw(cc: int) -> int:                 # odd pitch: fewer bank conflicts
-        return cc * RS + (1 - (cc * RS) % 2)
+            def fits(cc, base=base):
+                return dataclasses.replace(base, cc=cc).smem <= cap
+            cc = _conv_chunk(bc, RS, fits)
+            if cc is not None or (tn, tx, ty) == (1, 1, 1):
+                break
+            if tn > 1:          # shrink the window until a channel fits
+                tn = _ceil(tn, 2)
+            elif tx > 1:
+                tx = _ceil(tx, 2)
+            else:
+                ty = _ceil(ty, 2)
+        if cc is None:
+            continue
+        launch = dataclasses.replace(base, cc=cc,
+                                     vec=vec and cc * RS % 4 == 0)
+        found.append(((_conv_idle_warps(launch), _conv_time(launch),
+                       -launch.bm * launch.bnw, launch.smem), launch))
+    return found
 
-    def smem(cc: int) -> int:
-        win = ((tx - 1) * st + R) * ((ty - 1) * st + S)
-        return 4 * (tk * ldw(cc) + cc * tn * win)
 
-    while smem(1) > CONV_SMEM_BYTES:
-        if tn > 1:
-            tn = _ceil(tn, 2)
-        elif tx > 1:
-            tx = _ceil(tx, 2)
-        elif ty > 1:
-            ty = _ceil(ty, 2)
-        else:
-            raise ValueError(f"{plan.describe()}: one channel of the conv "
-                             "window does not fit in shared memory")
-    cc = 1
-    while cc < b["C"] and smem(cc + 1) <= CONV_SMEM_BYTES:
-        cc += 1
-    pthr = _ceil(tn * tx * ty, 4)
-    sub = {d: _ceil(b[d], t) for d, t in
-           (("N", tn), ("K", tk), ("X", tx), ("Y", ty))}
-    grid = ((XO // b["X"]) * sub["X"] * (YO // b["Y"]) * sub["Y"],
-            (K // b["K"]) * sub["K"], (N // b["N"]) * sub["N"])
-    if grid[1] > 65535 or grid[2] > 65535:
-        raise ValueError(f"{plan.describe()}: conv grid {grid} too large")
-    return [N, C, K, XI, YI, XO, YO, R, S, st,
-            b["N"], b["C"], b["K"], b["X"], b["Y"],
-            tn, tx, ty, tk, cc, sub["N"], sub["K"], sub["X"], sub["Y"],
-            kthr, pthr, ldw(cc), *grid, kthr * pthr, smem(cc)]
+@functools.lru_cache(maxsize=None)
+def _conv_params(launch: ConvLaunch, vec: bool):
+    """``kapla_conv``'s parameter array (built once per geometry)."""
+    return _params(launch.params(vec))
 
 
 def run_conv(plan: KernelPlan, x: torch.Tensor,
@@ -386,7 +645,8 @@ def run_conv(plan: KernelPlan, x: torch.Tensor,
     _check(w, (K, C, R, S), "conv weight W[K,C,R,S]", x.device)
     if not _cuda_or_cpu(x, "conv"):
         return plain_conv(plan, x, w)
-    prm = _params(conv_launch(plan, XI, YI))
+    launch = conv_launch(plan, XI, YI)
+    prm = _conv_params(launch, launch.vec and w.data_ptr() % 16 == 0)
     out = torch.empty((N, K, L.dim("X"), L.dim("Y")), dtype=torch.float32,
                       device=x.device)
     with torch.cuda.device(x.device):
@@ -526,16 +786,18 @@ def plain_attention(plan: KernelPlan, q: torch.Tensor, k: torch.Tensor,
 
 def attention_launch(plan: KernelPlan) -> List[int]:
     """Parameters of ``kapla_attention``: dims, the plan's X and C blocks,
-    64-row query sub-tiles per plan X tile, grid (query sub-tiles, heads)
-    and dynamic shared memory (Q, K and V tiles of 64 rows at a pitch of
-    D + 4 floats).  The kernel is instantiated for the head dims in
-    ``ATTN_HEAD_DIMS`` only."""
+    64-row query sub-tiles per plan X tile, grid (query sub-tiles, heads),
+    dynamic shared memory and the path (1: ``attention_mma_kernel``, Q and
+    two stages of 64-key K and V tiles; 0: ``attention_kernel``, Q, K and V
+    tiles of 64 rows; rows at a pitch of D + 4 floats).  The kernels are
+    instantiated for the head dims in ``ATTN_HEAD_DIMS`` only."""
     _check_reduction(plan)
     L, b = plan.layer, plan.block
     N, X, C, D = L.dim("N"), L.dim("X"), L.dim("C"), L.dim("K")
-    if D not in ATTN_HEAD_DIMS:
+    if D not in ATTN_PATHS:
         raise ValueError(f"{plan.describe()}: head dim {D}; the attention "
                          f"kernel takes {ATTN_HEAD_DIMS}")
+    mma = ATTN_PATHS[D] == "mma-3xtf32"
     if b["K"] != D:
         raise ValueError(f"{plan.describe()}: the head dim must be whole "
                          "in a block")
@@ -544,8 +806,9 @@ def attention_launch(plan: KernelPlan) -> List[int]:
     if grid[1] > 65535:
         raise ValueError(f"{plan.describe()}: attention grid {grid} too "
                          "large")
-    return [N, X, C, D, b["X"], b["C"], sub_x, *grid,
-            4 * 3 * ATTN_TILE * (D + 4)]
+    rows = (1 + 2 * 2) * ATTN_TILE if mma else 3 * ATTN_TILE
+    return [N, X, C, D, b["X"], b["C"], sub_x, *grid, 4 * rows * (D + 4),
+            int(mma)]
 
 
 def run_attention(plan: KernelPlan, q: torch.Tensor, k: torch.Tensor,
@@ -562,7 +825,8 @@ def run_attention(plan: KernelPlan, q: torch.Tensor, k: torch.Tensor,
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("attention: Q, K and V must be 16-byte aligned "
                          "(the kernel loads float4)")
-    prm = _params(attention_launch(plan))
+    launch = attention_launch(plan)
+    prm = _params(launch)
     out = torch.empty((N, X, D), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         lib = backend.library()
@@ -570,6 +834,7 @@ def run_attention(plan: KernelPlan, q: torch.Tensor, k: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), prm,
             backend.stream_handle(q.device)))
     LAUNCHES["attention"] += 1
+    LAUNCHES["attention_mma"] += launch[-1]
     return out
 
 

@@ -92,7 +92,8 @@ def test_cpu_path_launches_no_kernel():
     reset_launch_counts()
     ver = verify_network(_mlp_plan(), device="cpu")
     assert ver.ok
-    assert set(LAUNCHES) == {"fc", "conv", "pool", "eltwise", "attention"}
+    assert set(LAUNCHES) == {"fc", "conv", "pool", "eltwise", "attention",
+                             "attention_mma"}
     assert all(v == 0 for v in LAUNCHES.values()), LAUNCHES
 
 
@@ -145,7 +146,7 @@ def test_kernels_match_plain_versions_on_card():
         torch.cuda.synchronize()
         assert tex.rel_error(out, plain) <= 1e-5, plan.describe()
     assert LAUNCHES == {"fc": 2, "conv": 3, "pool": 1, "eltwise": 1,
-                        "attention": 0}
+                        "attention": 0, "attention_mma": 0}
 
 
 #: attention plans the solver gives (layer, template): the Zamba2-1.2B shared
@@ -341,3 +342,81 @@ def test_ssd_kernel_matches_plain_on_card(dtype, H, NC, Lc, P, N):
     assert ssd_scan.LAUNCHES == {"ssd_intra_chunk": 1}
     assert out.dtype == dt_
     assert _max_rel(out, want) <= (1e-5 if dtype == "f32" else 8e-3)
+
+
+def _hand_plan(layer, block, grid):
+    """A plan of ``layer`` with the given block and grid order (outer ->
+    inner)."""
+    from repro_torch.lower.plan import GridAxis, KernelPlan
+    return KernelPlan(layer=layer, scheme=None, kind=layer.kind,
+                      grid=tuple(GridAxis(d, s) for d, s in grid),
+                      block=block, valid=True)
+
+
+#: conv plans on the tensor-core kernel: (N, C, K, X, Y, R, stride), block,
+#: grid.  C outermost over K and X; a 16-position tile (N=16, X=Y=1) at
+#: stride 2; a K = 8 tile; conv1's C = 3 at 7x7 stride 2 and 11x11 stride
+#: 4; a ragged X = 7 tile with C outermost and a ragged channel chunk
+CONV_CASES = {
+    "c-outermost": ((2, 48, 16, 4, 4, 3, 1),
+                    {"N": 2, "C": 16, "K": 8, "X": 2, "Y": 4},
+                    [("C", 3), ("K", 2), ("X", 2)]),
+    "m16-1x1-s2": ((32, 64, 128, 2, 2, 1, 2),
+                   {"N": 16, "C": 64, "K": 128, "X": 1, "Y": 1},
+                   [("N", 2), ("X", 2), ("Y", 2)]),
+    "k8": ((8, 24, 16, 3, 3, 3, 1),
+           {"N": 8, "C": 24, "K": 8, "X": 1, "Y": 1},
+           [("X", 3), ("Y", 3), ("K", 2)]),
+    "c3-7x7-s2": ((8, 3, 64, 16, 16, 7, 2),
+                  {"N": 8, "C": 3, "K": 64, "X": 8, "Y": 4},
+                  [("X", 2), ("Y", 4)]),
+    "c3-11x11-s4": ((4, 3, 96, 11, 11, 11, 4),
+                    {"N": 4, "C": 3, "K": 96, "X": 11, "Y": 1},
+                    [("Y", 11)]),
+    "ragged-x7": ((8, 40, 24, 7, 7, 3, 1),
+                  {"N": 8, "C": 20, "K": 24, "X": 7, "Y": 1},
+                  [("C", 2), ("Y", 7)]),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(CONV_CASES))
+def test_conv_kernel_on_plans_on_card(case):
+    """The implicit-GEMM conv in 3xTF32 within 1e-5 of plain_conv, and two
+    launches bit for bit equal."""
+    dev = _card()
+    (N, C, K, X, Y, R, st), block, grid = CONV_CASES[case]
+    plan = _hand_plan(conv("g.conv.hand", N, C, K, X, Y, R, R, stride=st),
+                      block, grid)
+    inputs = tex.make_inputs(plan, device=dev)
+    reset_launch_counts()
+    out = tex.run_conv(plan, inputs["I"], inputs["W"])
+    again = tex.run_conv(plan, inputs["I"], inputs["W"])
+    want = tex.plain_conv(plan, inputs["I"], inputs["W"])
+    torch.cuda.synchronize()
+    assert LAUNCHES["conv"] == 2
+    assert tex.rel_error(out, want) <= 1e-5, plan.describe()
+    assert torch.equal(out, again), "two launches differ"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [16, 32, 64, 128, 256])
+def test_attention_kernel_paths_on_card(D):
+    """Every head dim on its path (``ATTN_PATHS``: the tensor cores up to
+    128, the FMA tile at 256), with C outermost, ragged C tiles (100 keys:
+    64 + 36) and ragged X tiles (50 queries of a 64-row block)."""
+    dev = _card()
+    plan = _hand_plan(attention("g.attn", 1, 3, 100, D, seq_kv=200),
+                      {"N": 1, "X": 50, "C": 100, "K": D},
+                      [("C", 2), ("N", 3), ("X", 2)])
+    inputs = tex.make_inputs(plan, device=dev)
+    reset_launch_counts()
+    out = tex.run_attention(plan, inputs["Q"], inputs["K"], inputs["V"])
+    again = tex.run_attention(plan, inputs["Q"], inputs["K"], inputs["V"])
+    want = tex.plain_attention(plan, inputs["Q"], inputs["K"], inputs["V"])
+    torch.cuda.synchronize()
+    mma = int(tex.ATTN_PATHS[D] == "mma-3xtf32")
+    assert LAUNCHES["attention"] == 2 and LAUNCHES["attention_mma"] == 2 * mma
+    assert mma == (D != 256)
+    assert _max_rel(out, want) <= 1e-5, plan.describe()
+    assert torch.equal(out, again), "two launches differ"

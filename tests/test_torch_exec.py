@@ -4,6 +4,8 @@ interpret=True)`` and ``repro_torch.lower.execute_plan(..., device="cpu")``
 (the plain PyTorch versions, which walk the plan's grid in order).  Both
 sides are float32 and differ only in summation order, hence max rel error
 <= 1e-5.  Schemes cross from the reference through ``LayerScheme`` JSON."""
+import itertools
+
 import numpy as np
 import pytest
 
@@ -166,14 +168,16 @@ def _port_plan(layer, **hw_args):
 ], ids=["zamba2-16x16", "zamba2-4x4", "long4k-4x4"])
 def test_attention_launch_geometry(layer, hw_args, grid):
     plan = _port_plan(layer, **hw_args)
-    N, X, C, D, bx, bc, sub_x, gx, gy, smem = tex.attention_launch(plan)
+    N, X, C, D, bx, bc, sub_x, gx, gy, smem, mma = tex.attention_launch(plan)
     assert (N, X, C, D) == (layer.dim("N"), layer.dim("X"), layer.dim("C"),
                             layer.dim("K"))
     assert (bx, bc) == (plan.block["X"], plan.block["C"])
     assert (gx, gy) == grid
     assert sub_x * tex.ATTN_TILE >= bx > (sub_x - 1) * tex.ATTN_TILE
     assert gx == (X // bx) * sub_x          # every query row in one block
-    assert smem == 4 * 3 * tex.ATTN_TILE * (D + 4)
+    # D = 64 takes the tensor-core path: Q and two stages of K and V tiles
+    assert mma == 1 and tex.ATTN_PATHS[D] == "mma-3xtf32"
+    assert smem == 4 * 5 * tex.ATTN_TILE * (D + 4) <= 227 * 1024
 
 
 def test_attention_launch_refuses_other_head_dims():
@@ -398,3 +402,230 @@ def test_fc_split_emulation_matches_plain(source, cap, monkeypatch):
         want = tex.plain_fc(plan, x, w)
         assert tex.rel_error(got, want) <= 1e-6, plan.describe()
     assert grouped == (cap != FC_CAP)
+
+
+# ---------------------------------------------------------------------------
+# conv launch geometry (the implicit-GEMM kernel's sub-tiles, warp tiles and
+# channel chunks, computed in Python) and an emulation of its addressing
+# ---------------------------------------------------------------------------
+
+def _hand_conv_plan(N, C, K, X, Y, R, stride, block, grid):
+    """A conv plan with the given block and grid order (outer -> inner)."""
+    from repro_torch.lower.plan import GridAxis, KernelPlan
+    from repro_torch.workloads.layers import conv as t_conv
+    return KernelPlan(layer=t_conv("t.conv.hand", N, C, K, X, Y, R, R,
+                                   stride=stride),
+                      scheme=None, kind="conv",
+                      grid=tuple(GridAxis(d, s) for d, s in grid),
+                      block=block, valid=True)
+
+
+#: hand-made conv plans: a 16-position tile (N=16, X=Y=1) at stride 2, a K=8
+#: tile, conv1's C=3 at 7x7 stride 2 and 11x11 stride 4, a ragged X=7 tile
+#: with C outermost and a ragged chunk (C tile 10), C outermost over K
+CONV_HAND = {
+    "m16-1x1-s2": (32, 64, 128, 2, 2, 1, 2,
+                   {"N": 16, "C": 64, "K": 128, "X": 1, "Y": 1},
+                   [("N", 2), ("X", 2), ("Y", 2)]),
+    "k8-3x3": (8, 24, 16, 3, 3, 3, 1,
+               {"N": 8, "C": 24, "K": 8, "X": 1, "Y": 1},
+               [("X", 3), ("Y", 3), ("K", 2)]),
+    "c3-7x7-s2": (2, 3, 16, 6, 4, 7, 2,
+                  {"N": 2, "C": 3, "K": 16, "X": 3, "Y": 4}, [("X", 2)]),
+    "c3-11x11-s4": (2, 3, 8, 5, 3, 11, 4,
+                    {"N": 2, "C": 3, "K": 8, "X": 5, "Y": 1}, [("Y", 3)]),
+    "ragged-x7-cout": (4, 20, 12, 7, 7, 3, 1,
+                       {"N": 4, "C": 10, "K": 12, "X": 7, "Y": 1},
+                       [("C", 2), ("Y", 7)]),
+    "cout-over-k": (2, 48, 16, 4, 4, 3, 1,
+                    {"N": 2, "C": 16, "K": 8, "X": 2, "Y": 4},
+                    [("C", 3), ("K", 2), ("X", 2)]),
+}
+
+
+def _conv_plans(source):
+    """Every conv plan of ``source``, lowered by the port (or made by
+    hand)."""
+    from repro_torch.core.solver import solve
+    from repro_torch.lower import lower_network
+    from repro_torch.workloads.layers import conv as t_conv
+    from repro_torch.workloads.nets import get_net
+    if source in ("resnet-16x16", "alexnet-16x16", "alexnet-4x4"):
+        net_name, tmpl = source.split("-")
+        hw = t_eyeriss() if tmpl == "16x16" else t_eyeriss(nodes=4, pe=8)
+        net = get_net(net_name, batch=64)
+        nplan = lower_network(solve(net, hw), net, hw)
+        return [nplan.plans[n] for n in nplan.order
+                if nplan.plans[n].kind == "conv"]
+    if source == "file":        # the SWEEP's convs, and C outermost
+        plans = [_port_plan(t_conv(l.name, *(l.dim(d) for d in "NCKXY"),
+                                   int(l.meta["R"]), int(l.meta["S"]),
+                                   stride=int(l.meta["stride"])),
+                            nodes=4, pe=8)
+                 for l in SWEEP if l.kind == "conv"]
+        scheme, _ = t_solve_intra_layer(
+            t_conv("t.conv.cout", 2, 64, 64, 28, 28, 3, 3), T_HW,
+            TConstraints(nodes=T_HW.node_array))
+        top = scheme.levels[-1]
+        if top.tf("C") == 1:
+            inner = next(lv for lv in scheme.levels[-2::-1]
+                         if lv.tf("C") % 2 == 0)
+            inner.t["C"] = inner.tf("C") // 2
+            top.t["C"] = 2
+        top.order = ("C", "K", "N", "X", "Y")
+        plans.append(t_lower_scheme(scheme, T_HW))
+        return plans
+    return [_hand_conv_plan(*CONV_HAND[source])]
+
+
+CONV_SOURCES = ["resnet-16x16", "alexnet-16x16", "alexnet-4x4", "file",
+                *CONV_HAND]
+
+
+def _check_conv_launch(plan, launch):
+    L, b = plan.layer, plan.block
+    N, C, K, XO, YO = (L.dim(d) for d in "NCKXY")
+    RS = int(L.meta["R"]) * int(L.meta["S"])
+    # warps: four, each 16 mt positions x 8 nt channels; the sub-tile fits
+    assert launch.wm * launch.wn == tex.CONV_WARPS
+    assert (launch.mt, launch.nt, launch.wm, launch.wn) in tex.CONV_TILES
+    assert launch.tn * launch.tx * launch.ty <= launch.bm
+    assert launch.tk <= launch.bnw
+    # sub-tiles cover each plan tile exactly once along every axis
+    sub = launch.sub
+    for axis, dim in (("N", N), ("K", K), ("X", XO), ("Y", YO)):
+        for t in range(dim // b[axis]):
+            pieces = [launch.sub_tile(axis, g)
+                      for g in range(t * sub[axis], (t + 1) * sub[axis])]
+            assert _covers_once([(s, s + e) for s, e in pieces],
+                                t * b[axis], (t + 1) * b[axis]), \
+                (axis, pieces)
+    assert launch.grid == ((XO // b["X"]) * sub["X"] * (YO // b["Y"])
+                           * sub["Y"], (K // b["K"]) * sub["K"],
+                           (N // b["N"]) * sub["N"])
+    # chunks: within one plan C tile each, the tiles in plan order, every
+    # channel once
+    chunks = launch.chunks()
+    assert [t for t, _, _ in chunks] == sorted(t for t, _, _ in chunks)
+    for t in range(C // b["C"]):
+        mine = [(c0, c0 + nc) for tt, c0, nc in chunks if tt == t]
+        assert all(t * b["C"] <= c0 < c1 <= (t + 1) * b["C"]
+                   for c0, c1 in mine)
+        assert _covers_once(mine, t * b["C"], (t + 1) * b["C"])
+    assert all(0 < nc <= launch.cc for _, _, nc in chunks)
+    # padded reduction depth, pitches, shared memory, grid limits
+    assert launch.jpad % 8 == 0 and launch.jpad >= launch.cc * RS
+    assert launch.jpad - launch.cc * RS < 8
+    assert launch.jpad <= max(tex.CONV_DEPTH, tex._round8(RS))
+    assert launch.ldw % 8 == 4 and launch.cpitch % 32 == 8
+    assert launch.cpitch >= launch.spmax and launch.stage % 4 == 0
+    assert launch.smem <= tex.CONV_SMEM_MAX <= 227 * 1024
+    assert launch.grid[0] < 2 ** 31 and max(launch.grid[1:]) <= 65535
+    assert N * C * launch.XI * launch.YI < 2 ** 31
+    if launch.vec:              # 16-byte weight copies: aligned rows
+        assert (C * RS) % 4 == 0 and (b["C"] * RS) % 4 == 0 \
+            and (launch.cc * RS) % 4 == 0
+    assert len(launch.params(launch.vec)) == 38
+
+
+@pytest.mark.parametrize("source", CONV_SOURCES)
+def test_conv_launch_geometry(source):
+    plans = _conv_plans(source)
+    assert plans and all(p.valid and p.kind == "conv" for p in plans)
+    for plan in plans:
+        XI, YI = tex.input_extent(plan.layer)
+        launch = tex.conv_launch(plan, XI, YI)
+        _check_conv_launch(plan, launch)
+        if source in ("resnet-16x16", "alexnet-16x16", "alexnet-4x4"):
+            assert tex._conv_idle_warps(launch) == 0, plan.describe()
+
+
+def test_conv_launch_fits_the_narrow_plan_tiles():
+    """ResNet-50's 16-position tile runs one warp row of four warp
+    columns; AlexNet's K = 8 tile on the 4x4 template one 8-wide warp
+    column of four warp rows; C outermost keeps the C tile in chunks."""
+    by_name = {p.layer.name: p for p in _conv_plans("resnet-16x16")}
+    plan = by_name["r5a.p"]
+    launch = tex.conv_launch(plan, *tex.input_extent(plan.layer))
+    assert (plan.block["N"], plan.block["X"], plan.block["Y"]) == (16, 1, 1)
+    assert (launch.bm, launch.wm, launch.wn) == (16, 1, 4)
+    assert tex._conv_idle_warps(launch) == 0
+    by_name = {p.layer.name: p for p in _conv_plans("alexnet-4x4")}
+    plan = by_name["conv5"]
+    launch = tex.conv_launch(plan, *tex.input_extent(plan.layer))
+    assert plan.block["K"] == 8
+    assert (launch.tk, launch.nt, launch.wn, launch.wm) == (8, 1, 1, 4)
+    assert tex._conv_idle_warps(launch) == 0
+    plan = by_name["conv2"]
+    assert plan.grid[0].dim == "C"
+    launch = tex.conv_launch(plan, *tex.input_extent(plan.layer))
+    assert len(launch.chunks()) == (plan.layer.dim("C") // plan.block["C"]) \
+        * tex._ceil(plan.block["C"], launch.cc)
+
+
+def _emulate_conv(launch, x, w):
+    """The kernel's addressing and reduction order in torch: per block, the
+    window staged per chunk at channel pitch ``cpitch`` through the window
+    offset table, A rows gathered at ``pbase[p] + off[j]``, the chunk's
+    reduction padded with zero weights, partial sums per plan C tile added
+    in plan order.  Every output element is written exactly once."""
+    L = launch
+    RS, st = L.R * L.S, L.stride
+    xf, wf = x.reshape(-1), w.reshape(L.K, -1)
+    plane = L.XI * L.YI
+    out = torch.zeros((L.N, L.K, L.XO, L.YO))
+    writes = torch.zeros(out.shape, dtype=torch.int32)
+    j = torch.arange(L.jpad)
+    c, rs = j // RS, j % RS
+    chunks = L.chunks()
+    ny = (L.YO // L.by) * L.sub["Y"]
+    gx, gy, gz = L.grid
+    for bxy, bk, bn in itertools.product(range(gx), range(gy), range(gz)):
+        x0, ax = L.sub_tile("X", bxy // ny)
+        y0, ay = L.sub_tile("Y", bxy % ny)
+        k0, ak = L.sub_tile("K", bk)
+        n0, an = L.sub_tile("N", bn)
+        winx, winy = (ax - 1) * st + L.R, (ay - 1) * st + L.S
+        off = torch.where(c < L.cc, c * L.cpitch + (rs // L.S) * winy
+                          + rs % L.S, torch.zeros_like(j))
+        s = torch.arange(an * winx * winy)
+        spo = (s // (winx * winy)) * L.C * plane \
+            + ((s % (winx * winy)) // winy) * L.YI + s % winy
+        base = n0 * L.C * plane + x0 * st * L.YI + y0 * st
+        p = torch.arange(an * ax * ay)
+        pn, px, py = p // (ax * ay), (p % (ax * ay)) // ay, p % ay
+        pb = (pn * winx + px * st) * winy + py * st
+        acc = torch.zeros((len(p), ak))
+        prt = torch.zeros_like(acc)
+        for i, (t, c0, nc) in enumerate(chunks):
+            buf = torch.zeros(L.cc * L.cpitch)
+            for cc in range(nc):
+                buf[cc * L.cpitch:cc * L.cpitch + len(s)] = \
+                    xf[base + (c0 + cc) * plane + spo]
+            depth = tex._round8(nc * RS)
+            a = buf[pb[:, None] + off[None, :depth]]
+            bmat = torch.zeros((ak, depth))
+            bmat[:, :nc * RS] = wf[k0:k0 + ak, c0 * RS:(c0 + nc) * RS]
+            prt = prt + a @ bmat.T
+            if i + 1 == len(chunks) or chunks[i + 1][0] != t:
+                acc, prt = acc + prt, torch.zeros_like(prt)
+        out[n0 + pn, k0:k0 + ak, x0 + px, y0 + py] = acc
+        writes[n0 + pn, k0:k0 + ak, x0 + px, y0 + py] += 1
+    assert bool((writes == 1).all()), "an output element written " \
+        f"{int(writes.min())}..{int(writes.max())} times"
+    return out
+
+
+@pytest.mark.parametrize("source", ["file", *CONV_HAND])
+def test_conv_kernel_emulation_matches_plain(source):
+    """The kernel's sub-tiles, window and weight addressing, padded chunks
+    and plan-order C tiles compute plain_conv's function (float32,
+    1e-5)."""
+    for plan in _conv_plans(source):
+        XI, YI = tex.input_extent(plan.layer)
+        launch = tex.conv_launch(plan, XI, YI)
+        _check_conv_launch(plan, launch)
+        inputs = tex.make_inputs(plan, seed=2, device="cpu")
+        got = _emulate_conv(launch, inputs["I"], inputs["W"])
+        want = tex.plain_conv(plan, inputs["I"], inputs["W"])
+        assert tex.rel_error(got, want) <= TOL, plan.describe()

@@ -1,24 +1,31 @@
 #!/usr/bin/env python3
-"""Time the two kernels redesigned for the H100, and the bf16 prefills that
-run flash attention, for the ``repro_torch`` package of any source tree,
-with ``chip_smoke.py``'s methods, so that two trees compare on one card:
+"""Time the kernels redesigned for the H100, and the bf16 prefills that run
+flash attention, for the ``repro_torch`` package of any source tree, with
+``chip_smoke.py``'s methods, so that two trees compare on one card:
 
     python3 tools/time_redesigned.py --src OTHER_CHECKOUT/src --label before
     python3 tools/time_redesigned.py --src src --label after
 
-Run them as A, B, B, A on the same card.  Each run measures fc at ResNet-50
-b64's plan (16x16 Eyeriss template; ``cold_copies`` of its inputs, so the
-weights come from device memory as in a network forward) beside
-``torch.matmul``; flash attention at the Qwen2.5-3B and Zamba2-1.2B prefill
-shapes (bf16, causal) beside ``F.scaled_dot_product_attention``, and per
-serve prefill of both (36 and 6 launches); and the wall time of one prefill
-of each model at full width (8 x 512 tokens, random weights from seed 0),
-the median of 3 after one warm-up, without a profiler.  Prints one JSON
-line.  Needs a card.
+Run them as A, B, B, A on the same card.  Each run measures, with
+``cold_copies`` of the inputs (the weights come from device memory as in a
+network forward) and 20 calls back to back (``stream_ms``):
+- conv per ResNet-50 b64 forward (16x16 Eyeriss template): every distinct
+  conv plan, its time times its uses summed, beside ``F.conv2d`` (TF32
+  off); each plan's time is in ``conv_plans``;
+- layer-tier attention at the Zamba2-1.2B shared block's plan (16x16)
+  beside ``F.scaled_dot_product_attention`` in float32;
+- fc at ResNet-50 b64's plan beside ``torch.matmul``;
+- flash attention at the Qwen2.5-3B and Zamba2-1.2B prefill shapes (bf16,
+  causal) beside SDPA, and per serve prefill of both (36 and 6 launches);
+- the wall time of one prefill of each model at full width (8 x 512
+  tokens, random weights from seed 0), the median of 3 after one warm-up,
+  without a profiler (skipped with ``--no-prefill``).
+Prints one JSON line.  Needs a card.
 """
 from __future__ import annotations
 
 import argparse
+import collections
 import functools
 import json
 import statistics
@@ -33,6 +40,8 @@ def main(argv=None) -> int:
     ap.add_argument("--src", required=True,
                     help="the src/ directory that holds repro_torch")
     ap.add_argument("--label", default="")
+    ap.add_argument("--no-prefill", action="store_true",
+                    help="skip the two model prefills")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -48,17 +57,57 @@ def main(argv=None) -> int:
     from repro_torch.core.solver import solve
     from repro_torch.hw.presets import eyeriss_multinode
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.lower import calibrate as cal
     from repro_torch.lower import exec as lx
-    from repro_torch.lower import lower_network
+    from repro_torch.lower import lower_network, lower_scheme
     from repro_torch.models.api import build_model
+    from repro_torch.workloads.layers import attention
     from repro_torch.workloads.nets import get_net
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     res = {"label": args.label, "device": torch.cuda.get_device_name(0)}
 
     hw, net = eyeriss_multinode(), get_net("resnet", batch=64)
     nplan = lower_network(solve(net, hw), net, hw)
+
+    # conv, per ResNet-50 b64 forward
+    uses, plans = collections.Counter(), {}
+    for n in nplan.order:
+        plan = nplan.plans[n]
+        if plan.kind == "conv":
+            k = cs.plan_key(plan)
+            uses[k] += 1
+            plans.setdefault(k, (n, plan))
+    per_plan, fwd = {}, {"conv": 0.0, "conv2d": 0.0}
+    for k, (n, plan) in plans.items():
+        stride = int(plan.layer.meta["stride"])
+        copies = cs.cold_copies(lx.make_inputs(plan, seed=0, device=dev))
+        ms = {"conv": cs.stream_ms([functools.partial(
+            lx.run_conv, plan, c["I"], c["W"]) for c in copies]),
+              "conv2d": cs.stream_ms([functools.partial(
+                  F.conv2d, c["I"], c["W"], stride=stride) for c in copies])}
+        del copies
+        per_plan[n] = {**ms, "uses": uses[k]}
+        for what, t in ms.items():
+            fwd[what] += t * uses[k]
+    res["conv_per_forward_ms"] = fwd["conv"]
+    res["conv2d_per_forward_ms"] = fwd["conv2d"]
+    res["conv_plans"] = per_plan
+
+    # layer-tier attention at the Zamba2-1.2B plan, 16x16 template
+    plan = lower_scheme(cal.scheme_variants(
+        attention("zamba2.attn", 8, 32, 512, 64), hw, 0)[0], hw)
+    copies = cs.cold_copies(lx.make_inputs(plan, seed=0, device=dev))
+    res["attention_ms"] = cs.stream_ms([functools.partial(
+        lx.run_attention, plan, c["Q"], c["K"], c["V"]) for c in copies])
+    res["attention_sdpa_ms"] = cs.stream_ms([functools.partial(
+        lambda c: F.scaled_dot_product_attention(
+            c["Q"][:, None], c["K"][:, None], c["V"][:, None]), c)
+        for c in copies])
+    del copies
+
     (plan,) = [nplan.plans[n] for n in nplan.order
                if nplan.plans[n].kind == "fc"]
     copies = cs.cold_copies(lx.make_inputs(plan, seed=0, device=dev))
@@ -85,7 +134,7 @@ def main(argv=None) -> int:
         res[f"{what}_per_prefill_ms"] = t
     del q, k, v
 
-    for arch in cs.SERVE:
+    for arch in () if args.no_prefill else cs.SERVE:
         cfg = get_config(arch)
         api = build_model(cfg, device=dev)
         prompts = torch.from_numpy(np.random.default_rng(0).integers(
