@@ -20,8 +20,9 @@ Phases, in order; any failure exits non-zero:
    outermost, head dims 16, 32, 128 and 256, and every attention plan of
    the full calibration sweep.  Max rel error <= 1e-5 (both float32, only
    the summation order differs; fc, conv and attention in 3xTF32 on the
-   tensor cores hold the same limit); time the kernel, the plain version
-   and one PyTorch library call on the same inputs;
+   tensor cores hold the same limit; eltwise bit for bit, at two operands
+   and at ``ELTWISE_MANY`` (chained launches)); time the kernel, the plain
+   version and one PyTorch library call on the same inputs;
 3. ResNet-50 b64 end to end: solve -> lower_network -> network_runner on
    the card, with the launch counters set to 0 just before the run and
    read just after (each must equal the plan's layer count of its kind);
@@ -46,7 +47,9 @@ Phases, in order; any failure exits non-zero:
    shapes (bf16), a Gemma2-like case (D=256, window, soft-cap), a
    right-aligned case (Sq < Sk), all four on the tensor-core path, and a
    non-causal float32 case on the FMA tile; the SSD
-   intra-chunk term at the Mamba2-1.3B and Zamba2-1.2B shapes.  float32
+   intra-chunk term (tensor cores, 3xTF32) at the Mamba2-1.3B and
+   Zamba2-1.2B shapes in bf16, Zamba2-1.2B's in float32, and a chunk of
+   256 with head dim 128 in float32.  float32
    within 1e-5 max rel error, bf16 within 8e-3 x max|plain| (one bf16
    ulp); time the kernel, the plain version and, where one PyTorch call
    computes the same function, ``F.scaled_dot_product_attention``;
@@ -66,8 +69,9 @@ Phases, in order; any failure exits non-zero:
 
 Every ``[kernel]`` line and ``kernels`` entry names the path that ran:
 ``wgmma`` (flash attention's tensor-core kernel, bf16), ``mma-3xtf32`` (fc,
-conv and attention at head dims up to 128 on the tensor cores) or ``fma``
-(f32 FMA on the CUDA cores; attention at head dim 256).  ``ms`` and
+conv, attention at head dims up to 128 and the SSD intra-chunk term on the
+tensor cores) or ``fma`` (the CUDA cores: pool, eltwise, attention at head
+dim 256).  ``ms`` and
 ``library_ms`` are ``stream_ms``: 20 calls back to back between two CUDA
 events, the median of 5 such means.  A layer-tier kernel and its library
 call cycle through copies of their inputs (``cold_copies``) that together
@@ -75,9 +79,9 @@ pass twice the L2, so each call reads its operands from device memory, as a
 layer of a network forward finds its weights; the model-zoo kernels reuse
 one set, since in a prefill the operation just before writes q, k and v.
 ``plain_ms`` is one call on the host clock.  The ``[kernel]`` summary lines
-of the redesigned kernels (fc, flash attention, conv, attention) also quote
-their time before the redesign, copied from PERF.md and not measured here.  A
-bound is read at the rate of the path: bf16 on the tensor cores for
+of the redesigned kernels (fc, flash, conv, attention, eltwise, SSD) quote
+their time before the redesign, copied from PERF.md and not measured here.
+A bound is read at the rate of the path: bf16 on the tensor cores for
 ``wgmma``; for ``mma-3xtf32`` the TF32 rate over 3, since every
 multiply-add is three TF32 products (hi*hi + hi*lo + lo*hi) that keep the
 float32 contract; the FP32 rate of the CUDA cores for ``fma``; bytes at
@@ -116,17 +120,21 @@ PEAKS = {"PCIe": (51.2e12, 2.0e12, 756e12, 378e12),
 #: dim is ``lower/exec.py`` ``ATTN_PATHS``)
 PATHS = {"fc": "mma-3xtf32", "conv": "mma-3xtf32", "pool": "fma",
          "eltwise": "fma", "attention": "mma-3xtf32",
-         "flash_attention": "wgmma", "ssd_intra_chunk": "fma"}
+         "flash_attention": "wgmma", "ssd_intra_chunk": "mma-3xtf32"}
 #: the redesigned kernels' times before the redesign, per the kernels
-#: line's unit (copied from PERF.md's kernel table; NVIDIA H100 80GB HBM3,
-#: 700.00 W; fc and flash one call between two CUDA events, PR 13; conv and
-#: attention this script's method, PR 14).  Logged beside this run's times,
-#: never put in the kernels line.
+#: line's unit (copied from PERF.md's kernel table, "earlier ms"; NVIDIA
+#: H100 80GB HBM3, 700.00 W; fc and flash one call between two CUDA events,
+#: the others this script's method).  Logged beside this run's times, never
+#: put in the kernels line.
 EARLIER_MS = {"fc": 0.3468, "flash_attention": 38.72, "conv": 91.81,
-              "attention": 1.1872}
+              "attention": 1.1872, "eltwise": 1.823,
+              "ssd_intra_chunk": 14.25}
 #: the kernels whose ptxas registers and spills ``[ptxas]`` reports
 REDESIGNED = ("flash_wgmma_kernel", "fc_kernel", "fc_reduce_kernel",
-              "conv_kernel", "attention_mma_kernel")
+              "conv_kernel", "attention_mma_kernel", "eltwise_kernel",
+              "ssd_intra_kernel")
+#: the eltwise case past one launch's operands (chained launches)
+ELTWISE_MANY = 9
 
 #: the serve phase: arch -> kernel launches per prefill
 SERVE = {"qwen2.5-3b": {"flash_attention": 36, "flash_attention_wgmma": 36,
@@ -183,7 +191,8 @@ def calibration_phase(dev, out_dir: Path):
                 for layer in cal.default_sweep(False)}
     pairs["attention_mma"] = sum(
         1 for p in rec["pairs"] if p["kind"] == "attention"
-        and lx.ATTN_PATHS[head_dim[p["layer"]]] == "mma-3xtf32")
+        and lx.ATTN_PATHS[lx.attention_head_dim(head_dim[p["layer"]])]
+        == "mma-3xtf32")
     for kind, count in launches.items():
         if count != (1 + CAL_ITERS) * pairs.get(kind, 0):
             raise AssertionError(f"calibration: {kind} launched {count} "
@@ -212,7 +221,8 @@ def calibration_phase(dev, out_dir: Path):
             plan = nplan.plans[n]
             expect[plan.kind] += 1 + CAL_ITERS
             if plan.kind == "attention" and lx.ATTN_PATHS[
-                    plan.layer.dim("K")] == "mma-3xtf32":
+                    lx.attention_head_dim(plan.layer.dim("K"))] \
+                    == "mma-3xtf32":
                 expect["attention_mma"] += 1 + CAL_ITERS
     if net_launches != {k: expect.get(k, 0) for k in net_launches}:
         raise AssertionError(f"network calibration: launches {net_launches}"
@@ -379,16 +389,30 @@ def stream_ms(fns, launches: int = 20, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+#: mangled template arguments: an int, a bool, float, __nv_bfloat16
+_TEMPLATE_ARG = re.compile(r"Li(\d+)E|Lb([01])E|(f)|13(__nv_bfloat16)")
+
+
 def _redesigned(mangled: str):
     """The ``REDESIGNED`` kernel a mangled name is (with its template
-    arguments, e.g. the head dim, where it is a template), or None."""
+    arguments, e.g. the head dim or the element type, where it is a
+    template), or None."""
     for k in REDESIGNED:
-        if f"{len(k)}{k}" in mangled:
-            t = re.search(f"{len(k)}{k}I((?:Li\\d+E)+)E", mangled)
-            if not t:
+        at = mangled.find(f"{len(k)}{k}")
+        if at < 0:
+            continue
+        rest = mangled[at + len(str(len(k))) + len(k):]
+        if not rest.startswith("I"):
+            return k
+        args, i = [], 1
+        while i < len(rest) and rest[i] != "E":
+            m = _TEMPLATE_ARG.match(rest, i)
+            if not m:
                 return k
-            args = re.findall(r"Li(\d+)E", t.group(1))
-            return f"{k}<{','.join(args)}>"
+            arg = next(v for v in m.groups() if v is not None)
+            args.append("float" if arg == "f" else arg)
+            i = m.end()
+        return f"{k}<{','.join(args)}>"
     return None
 
 
@@ -415,6 +439,43 @@ def ptxas_usage(report: str):
     return out
 
 
+def eltwise_many_case(plan, dev, timed: bool):
+    """eltwise at ``ELTWISE_MANY`` operands (chained launches, the running
+    sum as operand 0 of the second) against plain_eltwise, bit for bit;
+    timed beside the same sum as a chain of ``torch.add``."""
+    import torch
+    from repro_torch.lower import exec as lx
+    shape = tuple(plan.layer.dim(d) for d in "NCXY")
+    g = torch.Generator(device=dev).manual_seed(ELTWISE_MANY)
+    xs = [torch.randn(shape, generator=g, device=dev)
+          for _ in range(ELTWISE_MANY)]
+    lx.reset_launch_counts()
+    out = lx.run_eltwise(plan, xs)
+    launches = lx.LAUNCHES["eltwise"]
+    chain = len(lx.eltwise_chain(ELTWISE_MANY))
+    if launches != chain:
+        raise AssertionError(f"eltwise at {ELTWISE_MANY} operands counted "
+                             f"{launches} launches, its chain has {chain}")
+    want, plain_ms = host_ms(lambda: lx.plain_eltwise(plan, xs))
+    if not torch.equal(out, want):
+        raise AssertionError(f"eltwise at {ELTWISE_MANY} operands is not "
+                             f"bit for bit its plain version on "
+                             f"{plan.describe()}")
+    res = {"plan": plan.describe(), "operands": ELTWISE_MANY,
+           "launches": launches, "bitwise": True, "plain_ms": plain_ms}
+    if timed:
+        def library():
+            acc = xs[0]
+            for x in xs[1:]:
+                acc = torch.add(acc, x)
+            return acc
+        res["ms"] = stream_ms(lambda: lx.run_eltwise(plan, xs))
+        res["library_ms"] = stream_ms(library)
+    log(f"[kernel] eltwise {ELTWISE_MANY} operands ({res['launches']} "
+        f"launches) bitwise equal to plain | {json.dumps(res)}")
+    return res
+
+
 # ---------------------------------------------------------------------------
 # the model zoo: kernels, serving, consistency
 # ---------------------------------------------------------------------------
@@ -428,9 +489,13 @@ FLASH_CASES = [
     ("right-aligned", 8, 16, 2, 128, 512, 128, True, 0, 0.0, "bf16", False),
     ("non-causal-f32", 8, 16, 2, 512, 512, 128, False, 0, 0.0, "f32", True),
 ]
-#: SSD cases: name, B, S, H, P, N, chunk
-SSD_CASES = [("mamba2-1.3b", 8, 512, 64, 64, 128, 128),
-             ("zamba2-1.2b", 8, 512, 64, 64, 64, 128)]
+#: SSD cases: name, B, S, H, P, N, chunk, dtype (the first two are the
+#: serve prefills' shapes; then Zamba2-1.2B's in float32, and a chunk of 256
+#: with head dim 128: two row tiles, two P tiles)
+SSD_CASES = [("mamba2-1.3b", 8, 512, 64, 64, 128, 128, "bf16"),
+             ("zamba2-1.2b", 8, 512, 64, 64, 64, 128, "bf16"),
+             ("zamba2-1.2b-f32", 8, 512, 64, 64, 64, 128, "f32"),
+             ("lc256-p128", 4, 1024, 32, 128, 64, 256, "f32")]
 
 
 def attention_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
@@ -472,8 +537,9 @@ def kernel_row(name, path, out, want, ms, plain_ms, library_ms, ops, nbytes,
     return row
 
 
-def model_kernel_phase(dev, peak_ops, peak_bw, peak_bf16):
-    """Phase 5: both model-zoo kernels against their plain versions."""
+def model_kernel_phase(dev, path_ops, peak_bw):
+    """Phase 7: both model-zoo kernels against their plain versions
+    (``path_ops``: each path's rate of operations)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -514,12 +580,12 @@ def model_kernel_phase(dev, peak_ops, peak_bw, peak_bf16):
         path = fa.flash_path(t, D)
         flash.append(kernel_row(
             f"flash {case}", path, out, want, ms, plain_ms, library_ms, ops,
-            nbytes, peak_bf16 if path == "wgmma" else peak_ops, peak_bw, dtype))
+            nbytes, path_ops[path], peak_bw, dtype))
         del q, k, v, out, want
-    for case, B, S, H, P, N, Lc in SSD_CASES:
+    for case, B, S, H, P, N, Lc, dtype in SSD_CASES:
         NC = S // Lc
         x = torch.randn((B, H, NC, Lc, P), generator=g,
-                        device=dev).to(torch.bfloat16)
+                        device=dev).to(types[dtype])
         dt = torch.rand((B, H, NC, Lc), generator=g, device=dev) * 0.1 \
             + 1e-3
         a = -torch.exp(torch.randn((H,), generator=g, device=dev) * 0.5)
@@ -537,10 +603,12 @@ def model_kernel_phase(dev, peak_ops, peak_bw, peak_bf16):
         ms = stream_ms(kern)
         tri = Lc * (Lc + 1) // 2             # pairs l >= m of one chunk
         ops = 2 * B * NC * tri * N + 2 * B * H * NC * tri * P
-        nbytes = 2 * 2 * B * H * NC * Lc * P + 4 * 2 * B * H * NC * Lc \
-            + 4 * 2 * B * NC * Lc * N
-        ssd.append(kernel_row(f"ssd {case}", "fma", out, want, ms, plain_ms,
-                              None, ops, nbytes, peak_ops, peak_bw, "bf16"))
+        nbytes = 2 * x.element_size() * B * H * NC * Lc * P \
+            + 4 * 2 * B * H * NC * Lc + 4 * 2 * B * NC * Lc * N
+        path = PATHS["ssd_intra_chunk"]
+        ssd.append(kernel_row(f"ssd {case}", path, out, want, ms, plain_ms,
+                              None, ops, nbytes, path_ops[path], peak_bw,
+                              dtype))
         del x, dt, acum, b, c, out, want
     torch.cuda.empty_cache()
     return {"flash_attention": flash, "ssd_intra_chunk": ssd}
@@ -890,6 +958,9 @@ def main(argv=None) -> int:
             raise AssertionError(f"{plan.kind} kernel disagrees with its "
                                  f"plain version on {plan.describe()}: "
                                  f"rel err {rel_err:.3e}")
+        if plan.kind == "eltwise" and not torch.equal(out, want):
+            raise AssertionError(f"eltwise kernel is not bit for bit its "
+                                 f"plain version on {plan.describe()}")
         lib_err = float((library(plan, inputs) - want).abs().max())
         if lib_err > NETWORK_TOL * float(want.abs().max()):
             raise AssertionError(f"{plan.describe()}: the library call does "
@@ -907,7 +978,7 @@ def main(argv=None) -> int:
                             for c in copies])
         del copies
         ops, nbytes = work(plan)
-        path = lx.ATTN_PATHS[plan.layer.dim("K")] \
+        path = lx.ATTN_PATHS[lx.attention_head_dim(plan.layer.dim("K"))] \
             if plan.kind == "attention" else PATHS[plan.kind]
         row = {"plan": where, "kind": plan.kind, "path": path,
                "describe": plan.describe(), "resnet_uses": resnet_uses[k],
@@ -926,6 +997,9 @@ def main(argv=None) -> int:
         del inputs, out
     log(f"[kernels] {len(rows)} distinct plans checked in "
         f"{time.perf_counter() - t_phase:.1f} s")
+    detail["eltwise_many"] = eltwise_many_case(
+        next(p for _, p in distinct.values() if p.kind == "eltwise"), dev,
+        not args.check_only)
     if args.check_only:
         log(f"[check] worst rel err {max(rows):.2e}; stopping (--check-only)")
         return 0
@@ -983,7 +1057,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan
     t_phase = time.perf_counter()
-    model_rows = model_kernel_phase(dev, peak_ops, peak_bw, peak_bf16)
+    model_rows = model_kernel_phase(dev, path_ops, peak_bw)
     log(f"[kernels] model zoo checked in "
         f"{time.perf_counter() - t_phase:.1f} s")
     detail["model_kernels"] = model_rows

@@ -584,34 +584,132 @@ __global__ void pool_kernel(const float* __restrict__ I,
 }
 
 // ---------------------------------------------------------------------------
-// eltwise: O = X0 + X1 + ... (up to 8 operands, added in operand order)
-// Replaces src/repro/lower/exec.py _run_eltwise.  Bound: bytes.  Design: one
-// thread per element; the sum is taken in the same order as the plain
-// version, so the two agree bit for bit.
+// eltwise: O = X0 + X1 + ... (1 to 8 operands a launch, added in operand
+// order; the wrapper chains launches for more, each taking the running sum
+// as its operand 0)
+// Replaces src/repro/lower/exec.py _run_eltwise.  Bound: bytes (each operand
+// read once, O written once, 3.35 TB/s).  To reach it, each SM needs many
+// bytes in flight.  Design: the operand count is a template parameter, so the
+// body unrolls with no branch; a block owns a segment of ELT_THREADS x
+// ELT_V float4s (16-byte loads and stores), a thread ELT_V of them from
+// every operand, all loads issued before the first add; __launch_bounds__
+// asks for ELT_OCC blocks an SM at two operands, half that per doubling of
+// the operands.  A scalar tail takes numel % 4; operands or an output that
+// are not 16-byte aligned take the scalar path of the same kernel (VEC
+// false).  The grid is whole waves: one block a segment, rounded up to a
+// multiple of the blocks the SMs hold at once; the blocks past the work exit
+// at once.  The sum is taken in the plain version's order, so the two agree
+// bit for bit.  Measured on ResNet-50 b64's plans (NVIDIA H100 80GB HBM3,
+// PERF.md): short blocks of 4 float4s a thread come within 1% of torch.add,
+// where one persistent wave striding over the segments lost 5%, and the
+// streaming cache hints (ld.global.nc, st.global.cs) lost 2% to the plain
+// loads and stores used here.
 // ---------------------------------------------------------------------------
 
 constexpr int ELT_MAX_OPS = 8;
+constexpr int ELT_THREADS = 256;  // threads a block
+constexpr int ELT_V = 4;          // float4s a thread takes of each operand
+constexpr int ELT_OCC = 4;        // blocks an SM at two operands
 
 struct EltArgs {
   const float* x[ELT_MAX_OPS];
-  int n_ops;
   long long numel;
 };
 
-__global__ void eltwise_kernel(EltArgs a, float* __restrict__ O) {
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < a.numel; i += (long long)gridDim.x * blockDim.x) {
-    float acc = a.x[0][i];
-#pragma unroll                  // constant indices keep a.x out of local memory
-    for (int j = 1; j < ELT_MAX_OPS; ++j)
-      if (j < a.n_ops) acc = acc + a.x[j][i];
-    O[i] = acc;
+template <int NOPS>
+constexpr int elt_occupancy() {
+  return NOPS <= 2 ? ELT_OCC : NOPS <= 4 ? ELT_OCC / 2 : ELT_OCC / 4;
+}
+
+template <int NOPS, bool VEC>
+__global__ void __launch_bounds__(ELT_THREADS, elt_occupancy<NOPS>())
+eltwise_kernel(EltArgs a, float* __restrict__ O) {
+  const long long n4 = VEC ? a.numel / 4 : 0;
+  for (long long seg = (long long)blockIdx.x * ELT_THREADS * ELT_V; seg < n4;
+       seg += (long long)gridDim.x * ELT_THREADS * ELT_V) {
+    float4 v[NOPS][ELT_V];
+#pragma unroll
+    for (int o = 0; o < NOPS; ++o)
+#pragma unroll
+      for (int k = 0; k < ELT_V; ++k) {
+        const long long i = seg + threadIdx.x + k * ELT_THREADS;
+        v[o][k] = i < n4 ? reinterpret_cast<const float4*>(a.x[o])[i]
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+    for (int k = 0; k < ELT_V; ++k) {
+      const long long i = seg + threadIdx.x + k * ELT_THREADS;
+      if (i >= n4) continue;
+      float4 s = v[0][k];
+#pragma unroll
+      for (int o = 1; o < NOPS; ++o) {
+        s.x = s.x + v[o][k].x;
+        s.y = s.y + v[o][k].y;
+        s.z = s.z + v[o][k].z;
+        s.w = s.w + v[o][k].w;
+      }
+      reinterpret_cast<float4*>(O)[i] = s;
+    }
+  }
+  // the scalar tail (numel % 4 with VEC), or every element
+  for (long long i = 4 * n4 + (long long)blockIdx.x * ELT_THREADS +
+                     threadIdx.x;
+       i < a.numel; i += (long long)gridDim.x * ELT_THREADS) {
+    float s = a.x[0][i];
+#pragma unroll
+    for (int o = 1; o < NOPS; ++o) s = s + a.x[o][i];
+    O[i] = s;
+  }
+}
+
+// whole waves: one block a segment, rounded up to a multiple of the blocks
+// the SMs hold at once
+template <int NOPS, bool VEC>
+cudaError_t launch_eltwise(const EltArgs& a, float* O, cudaStream_t s) {
+  static long long wave = 0;
+  if (wave == 0) {
+    int dev, sms, per_sm;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, eltwise_kernel<NOPS, VEC>, ELT_THREADS, 0);
+    if (err != cudaSuccess) return err;
+    wave = (long long)sms * per_sm;
+  }
+  const long long per_seg = VEC ? 4LL * ELT_THREADS * ELT_V : ELT_THREADS;
+  long long blocks = (a.numel + per_seg - 1) / per_seg;
+  if (blocks > wave) blocks = (blocks + wave - 1) / wave * wave;
+  if (blocks > 0x7fffffffLL) blocks = 0x7fffffffLL / wave * wave;
+  eltwise_kernel<NOPS, VEC>
+      <<<(unsigned)(blocks > 0 ? blocks : 1), ELT_THREADS, 0, s>>>(a, O);
+  return cudaGetLastError();
+}
+
+template <bool VEC>
+cudaError_t eltwise_by_ops(int n, const EltArgs& a, float* O,
+                           cudaStream_t s) {
+  switch (n) {
+    case 1: return launch_eltwise<1, VEC>(a, O, s);
+    case 2: return launch_eltwise<2, VEC>(a, O, s);
+    case 3: return launch_eltwise<3, VEC>(a, O, s);
+    case 4: return launch_eltwise<4, VEC>(a, O, s);
+    case 5: return launch_eltwise<5, VEC>(a, O, s);
+    case 6: return launch_eltwise<6, VEC>(a, O, s);
+    case 7: return launch_eltwise<7, VEC>(a, O, s);
+    case 8: return launch_eltwise<8, VEC>(a, O, s);
+    default: return cudaErrorInvalidValue;
   }
 }
 
 // ---------------------------------------------------------------------------
 // attention: O[n] = softmax(Q[n] K[n]^T * D^-1/2) V[n], non-causal, per head
-// n; Q [N, X, D], K and V [N, C, D], float32.
+// n; Q [N, X, D], K and V [N, C, D], float32.  The kernels are instantiated
+// at D = 16, 32, 64, 128 and 256; another D up to 256 runs at the next of
+// them: the wrapper zero-pads Q, K and V (zero columns add nothing to
+// Q K^T and give zero output columns, which it slices off) and passes the
+// scale of its own D.
 // Replaces src/repro/lower/exec.py _run_attention.  Bound: operations,
 // 4*N*X*C*D, at the 3xTF32 rate (165 TFLOP/s on the H100 SXM) on the
 // tensor-core path; the bytes (each of Q, K, V read once, O written once)
@@ -978,26 +1076,31 @@ extern "C" int kapla_pool(const float* I, float* O, const long long* p,
   return (int)cudaGetLastError();
 }
 
+// p: n_ops (1..8), numel, vec (operands and O 16-byte aligned)
 extern "C" int kapla_eltwise(const void* const* xs, float* O,
                              const long long* p, void* stream) {
+  const int n = (int)p[0];
   EltArgs a;
-  a.n_ops = (int)p[0];
   a.numel = p[1];
-  if (a.n_ops < 1 || a.n_ops > ELT_MAX_OPS) return (int)cudaErrorInvalidValue;
+  if (n < 1 || n > ELT_MAX_OPS || a.numel < 0)
+    return (int)cudaErrorInvalidValue;
   for (int i = 0; i < ELT_MAX_OPS; ++i)
-    a.x[i] = i < a.n_ops ? static_cast<const float*>(xs[i]) : nullptr;
-  eltwise_kernel<<<grid_1d((size_t)a.numel, 256), 256, 0,
-                   (cudaStream_t)stream>>>(a, O);
-  return (int)cudaGetLastError();
+    a.x[i] = i < n ? static_cast<const float*>(xs[i]) : nullptr;
+  const cudaStream_t s = (cudaStream_t)stream;
+  return (int)(p[2] ? eltwise_by_ops<true>(n, a, O, s)
+                    : eltwise_by_ops<false>(n, a, O, s));
 }
 
-// p: N, X, C, D, bx, bc, sub_x, the grid (x, y), the dynamic shared memory
-// in bytes, and the path (1: attention_mma_kernel, 0: attention_kernel)
+// p: N, X, C, D (the instantiated head dim the operands are padded to), bx,
+// bc, sub_x, the grid (x, y), the dynamic shared memory in bytes, and the
+// path (1: attention_mma_kernel, 0: attention_kernel); f: the scale (of the
+// layer's own head dim)
 extern "C" int kapla_attention(const float* Q, const float* K, const float* V,
-                               float* O, const long long* p, void* stream) {
+                               float* O, const long long* p, const double* f,
+                               void* stream) {
   const int D = (int)p[3];
   AttnArgs a{(int)p[0], (int)p[1], (int)p[2], (int)p[4], (int)p[5],
-             (int)p[6], (float)(1.0 / sqrt((double)D))};
+             (int)p[6], (float)f[0]};
   const dim3 grid((unsigned)p[7], (unsigned)p[8]);
   const size_t smem = (size_t)p[9];
   const bool mma = p[10] != 0;

@@ -10,7 +10,8 @@
 //   the CUDA cores through the online-softmax tile of online_softmax.cuh,
 //   which the layer tier's attention_kernel shares.
 // Both compute and accumulate in float32 and write the output in the input's
-// type.  The SSD kernel is f32 FMA on the CUDA cores.
+// type.  The SSD intra-chunk kernel runs its two products on the tensor
+// cores in 3xTF32 (tf32_mma.cuh), float32 inside, x's type at the output.
 // Each entry point takes a host int64 parameter array (and flash a host
 // double array for the scale and soft-cap), launches on the given stream and
 // returns cudaGetLastError().  The Python wrappers (repro_torch/kernels/
@@ -25,6 +26,7 @@
 
 #include "hopper.cuh"
 #include "online_softmax.cuh"
+#include "tf32_mma.cuh"
 
 namespace {
 
@@ -456,139 +458,479 @@ cudaError_t flash_wgmma_by_dim(int D, const void* q, const void* k,
 //   y[l] = sum_{m <= l} (C[l] . B[m]) * exp(acum[l] - acum[m]) * dt[m] * x[m]
 // per (b, h, chunk); B and C are shared across heads (G = 1).
 // Replaces src/repro/kernels/ssd_scan.py ssd_intra_chunk and
-// _ssd_intra_kernel.  Bound: operations (two chained Lc x Lc products per
-// block against one read of a few KB); float32 on the CUDA cores, since
-// TF32 would change the operands.  Design: one block per (b*H + h, chunk),
-// 256 threads as a 16 x 16 grid.  Phase 1 forms the [Lc, Lc] scores C B^T,
-// 8 x 8 per thread, staging C and B through shared memory 32 state columns
-// at a time; then applies the decay, dt and the causal mask, evaluating
-// exp only on and below the diagonal (above it exp overflows to inf and
-// inf * 0 would give NaN), and writes the scores to shared memory (64 KB,
-// dynamic).  Phase 2 stages x into the space C and B used and forms
-// y = scores @ x, 8 x 4 per thread.  Takes Lc <= 128 and P <= 64 (the
-// models use Lc = 128, P = 64); any state width N.
+// _ssd_intra_kernel.  Bound: bytes at the models' shapes (Zamba2-1.2B's
+// prefill reads x and writes y, 67 MB a launch in bf16, against 2.2 GFLOP
+// that take less time at the 3xTF32 rate).  Design, for the tensor cores:
+// - G = C B^T once per (b, chunk, head group).  One block per (b * NC + chunk,
+//   group of hg heads; ssd_scan.py ssd_launch picks hg and passes it): G
+//   depends on no head, so the block forms each 128 x 128 tile of it once and
+//   applies it to every head of its group.  Eight warps, each owning a
+//   16-row strip of the tile; a warp keeps its strip of G in registers (16
+//   m16n8 accumulators) across the heads.
+// - Both products in 3xTF32 on mma.sync m16n8k8 (tf32_mma.cuh): G over the
+//   state N in chunks of 64 (8 k-steps, summed from zero, the partial sums
+//   added in float32); S @ x per 32-key step from zero (the small products
+//   first, then S_hi x_hi, one accumulator per 8-column tile), added to y in
+//   float32.  A single TF32 product would break the 1e-5 limit on f32.  With
+//   bf16 x, x is exact in TF32, so S @ x takes two products (S's high and low
+//   parts against x), not three, and x's B fragments come from
+//   ldmatrix.trans.
+// - The m16n8 accumulator of G is not the tf32 A-fragment layout (a lane
+//   holds keys 2t and 2t + 1; the fragment wants t and t + 4), so each 8-key
+//   step takes A column t as key 2t and column t + 4 as key 2t + 1, and
+//   reads x's B fragment rows in that order (attention_mma_kernel's P V
+//   permutation).  S never leaves the registers.
+// - The decay, factored, and no exp above the diagonal (there it overflows
+//   to inf, and inf * 0 would give NaN).  Per tile pair and head, each key's
+//   u_m = exp(e_b - acum_m) dt_m, with e_b the acum of its 8-key block's
+//   last valid key, and each block's step c_b = exp(e_{b+1} - e_b): acum
+//   falls along the keys, so both are at most 1 (times dt) and neither can
+//   overflow, whatever the decay.  A row's factor exp(acum_l - e_b) is at
+//   most 1 at every block wholly below the row's own: one expf at the first
+//   of them (on the diagonal tile the row's block less one; below it, the
+//   last), stepped down the blocks by c_b (the key steps run last first),
+//   0 above, all by selects.  The row's own 8-key block on the diagonal
+//   takes exp(acum_l - acum_m) dt_m directly, keys to the row only: a table
+//   of 8 per row and head, formed once per diagonal tile and read in a
+//   warp-uniform branch.  An underflow is a decay truly below float's
+//   range.
+// - Causal skipping and balance.  On the diagonal tile strip s needs keys
+//   [0, 16 s + 16) only: 2 s + 2 of the 16 k-steps (rounded up to whole
+//   32-key steps, and G to whole halves of 8 column tiles), so the last
+//   strip does 8x the first's work.  Warp w runs on SM sub-partition w % 4,
+//   whose tensor core its partner w + 4 shares; warp w < 4 takes strip w and
+//   warp w + 4 strip 7 - w, so every sub-partition gets strips s and 7 - s,
+//   18 of the tile's 72 k-step units.  Tiles below the diagonal are full.
+// - x of the next (head, P tile) streams in with cp.async into the other
+//   half of a double buffer while the current one computes; the first of a
+//   tile pair loads under the G computation.  Each warp stages its strip of
+//   the output and writes it along the rows in 16-byte stores.
+// - What bounds it: not the tensor cores but the instructions around them
+//   with two warps a sub-partition (255 registers: one block an SM).  The
+//   row factor's update is therefore selects, not a branch per k-step (its
+//   expf inlined at 32 sites); see PERF.md.
+// - Any Lc and P: 128-row tiles of Lc, walking the key tiles at or below
+//   each row tile; 64-column tiles of P.  Rows, keys and columns past the
+//   edge are zero-filled and masked.  With more than one row tile, the key
+//   tiles' partial sums of a row tile go through a float32 workspace (y
+//   itself in f32) in key-tile order, each thread rereading what it wrote.
 // ---------------------------------------------------------------------------
 
-constexpr int SSD_L = 128, SSD_P = 64, SSD_NB = 32, SSD_THREADS = 256;
-constexpr int SSD_SPITCH = SSD_L + 1;  // scores row pitch
-constexpr int SSD_CPITCH = SSD_L + 4;  // staged C^T / B^T row pitch
-constexpr size_t SSD_SMEM =
-    (size_t)(SSD_L * SSD_SPITCH + 2 * SSD_NB * SSD_CPITCH) * sizeof(float);
-static_assert(SSD_L * SSD_P <= 2 * SSD_NB * SSD_CPITCH,
-              "x must fit where C and B were staged");
+constexpr int SSD_T = 128;           // rows of a row tile, keys of a key tile
+constexpr int SSD_PT = 64;           // columns of a P tile
+constexpr int SSD_NB = 64;           // state columns of a staged B/C chunk
+constexpr int SSD_THREADS = 256;     // eight warps, a 16-row strip each
+constexpr int SSD_BCP = SSD_NB + 4;  // B/C row pitch: conflict-free fragments
+constexpr int SSD_HG = 8;            // the most heads a block
+constexpr int SSD_KB = SSD_T / 8;    // 8-key blocks of a key tile
+// a head's decays of a key tile, one block of floats: acum, u, dt, the
+// 8-key blocks' steps c and 8 a row for the rows' own blocks on the
+// diagonal (one base pointer a head: the offsets are immediates)
+constexpr int SSD_KA = 0, SSD_KU = SSD_T, SSD_KDT = 2 * SSD_T,
+              SSD_KC = 3 * SSD_T, SSD_KOWN = 3 * SSD_T + SSD_KB,
+              SSD_KH = SSD_KOWN + 8 * SSD_T;
 
-struct SsdArgs {
-  int B, H, NC, Lc, P, N;
+// x staging pitch in elements: rows 2t of a B fragment fall in distinct
+// banks (f32: 68 floats; bf16: 72 halves, 36 words)
+template <typename T>
+struct SsdX;
+template <>
+struct SsdX<float> {
+  static constexpr int PITCH = SSD_PT + 4;
+};
+template <>
+struct SsdX<__nv_bfloat16> {
+  static constexpr int PITCH = SSD_PT + 8;
 };
 
 template <typename T>
-__global__ void __launch_bounds__(SSD_THREADS)
+constexpr size_t ssd_smem() {
+  return (size_t)2 * SSD_T * SSD_BCP * sizeof(float) +  // C and B chunks
+         (size_t)3 * SSD_T * SsdX<T>::PITCH * sizeof(T) +  // x ring, y tile
+         (size_t)SSD_HG * SSD_KH * sizeof(float);  // decays
+}
+
+struct SsdArgs {
+  int B, H, NC, Lc, P, N;
+  int hg;     // heads a block
+  int xvec;   // x rows 16-byte aligned: 16-byte cp.async, else element loads
+  int bcvec;  // B and C rows 16-byte aligned: 16-byte cp.async, else 4-byte
+};
+
+// four 8 x 8 bf16 tiles of x, transposed: lane (g, t) gets {x[2t][g],
+// x[2t + 1][g]} of tile q in r[q], the tf32 B fragment's two rows (keys 2t
+// and 2t + 1 of a column) of the key permutation; lane l gives the address
+// of row l % 8 of tile l / 8
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// two adjacent outputs into the staged tile (an even column)
+__device__ __forceinline__ void ssd_put2(float* p, float v0, float v1) {
+  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+}
+__device__ __forceinline__ void ssd_put2(__nv_bfloat16* p, float v0,
+                                         float v1) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+}
+
+// B or C rows [0, valid) of a tile, state columns [n0, n0 + SSD_NB), into
+// `dst` at pitch SSD_BCP; the rest zero-filled
+__device__ __forceinline__ void ssd_stage_bc(float* dst, const float* src,
+                                             int valid, int n0, int N,
+                                             bool vec, int tid) {
+  const int nw = min(SSD_NB, N - n0);
+  if (vec) {
+    for (int idx = tid; idx < SSD_T * (SSD_NB / 4); idx += SSD_THREADS) {
+      const int r = idx / (SSD_NB / 4), c = 4 * (idx % (SSD_NB / 4));
+      const int bytes = r < valid ? 4 * max(0, min(4, nw - c)) : 0;
+      cp_async16(dst + r * SSD_BCP + c,
+                 bytes ? src + (size_t)r * N + n0 + c : src, bytes);
+    }
+  } else {
+    for (int idx = tid; idx < SSD_T * SSD_NB; idx += SSD_THREADS) {
+      const int r = idx / SSD_NB, c = idx % SSD_NB;
+      const bool ok = r < valid && c < nw;
+      cp_async4(dst + r * SSD_BCP + c, ok ? src + (size_t)r * N + n0 + c : src,
+                ok ? 4 : 0);
+    }
+  }
+}
+
+// x rows [0, nk) and columns [0, pw) of one (head, key tile, P tile), row
+// stride P, into `dst` at SsdX<T>::PITCH; the rest of the 128 x 64 tile zero
+template <typename T>
+__device__ __forceinline__ void ssd_stage_x(T* dst, const T* src, int nk,
+                                            int pw, int P, bool vec,
+                                            int tid) {
+  constexpr int XP = SsdX<T>::PITCH, E = 16 / sizeof(T);
+  if (vec) {  // P * sizeof(T) is a multiple of 16, so pw a multiple of E
+    for (int idx = tid; idx < SSD_T * (SSD_PT / E); idx += SSD_THREADS) {
+      const int r = idx / (SSD_PT / E), c = E * (idx % (SSD_PT / E));
+      const bool ok = r < nk && c < pw;
+      cp_async16(reinterpret_cast<float*>(dst + r * XP + c),
+                 reinterpret_cast<const float*>(
+                     ok ? src + (size_t)r * P + c : src),
+                 ok ? 16 : 0);
+    }
+  } else {
+    for (int idx = tid; idx < SSD_T * SSD_PT; idx += SSD_THREADS) {
+      const int r = idx / SSD_PT, c = idx % SSD_PT;
+      dst[r * XP + c] =
+          r < nk && c < pw ? src[(size_t)r * P + c] : from_f32<T>(0.f);
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(SSD_THREADS, 1)
 ssd_intra_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                  const float* __restrict__ acum,
                  const float* __restrict__ bmat,
-                 const float* __restrict__ cmat, T* __restrict__ y,
+                 const float* __restrict__ cmat, T* y, float* ws,
                  SsdArgs a) {
-  extern __shared__ float4 smem4[];
-  float* sc = reinterpret_cast<float*>(smem4);  // [SSD_L][SSD_SPITCH]
-  float* stage = sc + SSD_L * SSD_SPITCH;
-  float* cs = stage;                        // C^T chunk [SSD_NB][SSD_CPITCH]
-  float* bs = stage + SSD_NB * SSD_CPITCH;  // B^T chunk
-  float* xs = stage;                        // x [SSD_L][SSD_P], phase 2
+  constexpr int XP = SsdX<T>::PITCH;
+  constexpr bool F32 = sizeof(T) == sizeof(float);
+  extern __shared__ float4 ssd_smem4[];
+  float* cs = reinterpret_cast<float*>(ssd_smem4);  // C chunk [T][BCP]
+  float* bs = cs + SSD_T * SSD_BCP;                  // B chunk [T][BCP]
+  T* xs = reinterpret_cast<T*>(bs + SSD_T * SSD_BCP);  // 2 x [T][XP]
+  T* ys = xs + 2 * SSD_T * XP;  // the output tile [T][XP], staged
+  // per head of the group, its decays of the key tile [HG][KH]
+  float* kdec = reinterpret_cast<float*>(ys + SSD_T * XP);
 
-  const int ch = blockIdx.x, bh = blockIdx.y, b = bh / a.H;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const size_t row0 = ((size_t)bh * a.NC + ch) * a.Lc;  // into x, dt, acum
-  const float* cg = cmat + ((size_t)b * a.NC + ch) * a.Lc * a.N;
-  const float* bg = bmat + ((size_t)b * a.NC + ch) * a.Lc * a.N;
+  const int bc = blockIdx.x;  // b * NC + chunk
+  const int b = bc / a.NC, ch = bc - b * a.NC;
+  const int h0 = blockIdx.y * a.hg, nh = min(a.hg, a.H - h0);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  // warp w runs on SM sub-partition w % 4 with warp w + 4: strips s and
+  // 7 - s there
+  const int r0 = 16 * (warp < 4 ? warp : 11 - warp);  // the warp's strip
+  const int rt = (a.Lc + SSD_T - 1) / SSD_T;
+  const int pt = (a.P + SSD_PT - 1) / SSD_PT;
+  const int items = nh * pt;  // (head, P tile) pairs of a tile pair
+  const float* cg = cmat + (size_t)bc * a.Lc * a.N;
+  const float* bg = bmat + (size_t)bc * a.Lc * a.N;
+  // element (b, h0 + hh, ch, 0) of dt, acum and, times P, of x and y
+  const size_t row0 = (((size_t)b * a.H + h0) * a.NC + ch) * a.Lc;
+  auto head_row = [&](int hh) { return row0 + (size_t)hh * a.NC * a.Lc; };
+  // stage x of item q (a head, a P tile) of key tile j into slot `buf`
+  auto load_item = [&](int j, int q, int buf) {
+    const int hh = q / pt, p0 = (q - hh * pt) * SSD_PT;
+    const size_t row = head_row(hh) + (size_t)j * SSD_T;
+    ssd_stage_x<T>(xs + buf * SSD_T * XP, x + row * a.P + p0,
+                   min(SSD_T, a.Lc - j * SSD_T), min(SSD_PT, a.P - p0), a.P,
+                   a.xvec, tid);
+  };
 
-  // phase 1: scores[l][m] = C[l] . B[m] for l = ty + 16 i, m = tx + 16 j
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  for (int n0 = 0; n0 < a.N; n0 += SSD_NB) {
-    __syncthreads();
-    for (int idx = tid; idx < SSD_L * SSD_NB; idx += SSD_THREADS) {
-      const int r = idx / SSD_NB, n = idx % SSD_NB;
-      const bool in = r < a.Lc && n0 + n < a.N;
-      const size_t off = (size_t)r * a.N + n0 + n;
-      cs[n * SSD_CPITCH + r] = in ? cg[off] : 0.f;
-      bs[n * SSD_CPITCH + r] = in ? bg[off] : 0.f;
-    }
-    __syncthreads();
-    for (int n = 0; n < SSD_NB; ++n) {
-      float cv[8], bv[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) cv[i] = cs[n * SSD_CPITCH + ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) bv[j] = bs[n * SSD_CPITCH + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(cv[i], bv[j], acc[i][j]);
-    }
-  }
+  for (int i = 0; i < rt; ++i) {
+    const int nr = min(SSD_T, a.Lc - i * SSD_T);
+    for (int j = 0; j <= i; ++j) {
+      const bool diag = j == i;
+      const int nk = min(SSD_T, a.Lc - j * SSD_T);
+      // k-steps (8 keys, an n-tile of G) the strip needs
+      const int kt =
+          r0 < nr ? ((diag ? min(r0 + 16, nk) : nk) + 7) / 8 : 0;
+      __syncthreads();  // the previous tile pair's readers are done
+      load_item(j, 0, 0);
+      for (int idx = tid; idx < nh * SSD_T; idx += SSD_THREADS) {
+        const int hh = idx / SSD_T, k = idx % SSD_T;
+        const size_t e = head_row(hh) + (size_t)j * SSD_T + k;
+        const bool ok = k < nk;  // else zero-filled
+        float* kh = kdec + hh * SSD_KH;
+        cp_async4(kh + SSD_KA + k, ok ? acum + e : acum, ok ? 4 : 0);
+        cp_async4(kh + SSD_KDT + k, ok ? dt + e : dt, ok ? 4 : 0);
+      }
+      cp_async_commit();
 
-  // decay, dt and the causal mask; exp only where l >= m
-  float al[8], am[8], dm[8];
+      // G = C_i B_j^T, this warp's 16 rows by keys [0, 8 kt) (whole
+      // halves of 8 n-tiles), kept in registers across the heads
+      float G[16][4];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = ty + 16 * i;
-    al[i] = r < a.Lc ? acum[row0 + r] : 0.f;
-  }
+      for (int n = 0; n < 16; ++n)
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int r = tx + 16 * j;
-    am[j] = r < a.Lc ? acum[row0 + r] : 0.f;
-    dm[j] = r < a.Lc ? dt[row0 + r] : 0.f;
-  }
+        for (int e = 0; e < 4; ++e) G[n][e] = 0.f;
+      for (int n0 = 0; n0 < a.N; n0 += SSD_NB) {
+        if (n0) __syncthreads();  // the previous chunk's readers are done
+        ssd_stage_bc(cs, cg + (size_t)i * SSD_T * a.N, nr, n0, a.N, a.bcvec,
+                     tid);
+        ssd_stage_bc(bs, bg + (size_t)j * SSD_T * a.N, nk, n0, a.N, a.bcvec,
+                     tid);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+        const int ksteps = (min(SSD_NB, a.N - n0) + 7) / 8;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int l = ty + 16 * i;
+        for (int half = 0; half < 2; ++half) {
+          if (8 * half >= kt) break;
+          float sp[8][4];  // this chunk's sum from zero, small products first
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int mm = tx + 16 * j;
-      float val = 0.f;
-      if (mm <= l && l < a.Lc) val = acc[i][j] * expf(al[i] - am[j]) * dm[j];
-      sc[l * SSD_SPITCH + mm] = val;
-    }
-  }
-  __syncthreads();  // scores written; C and B no longer read
+          for (int q = 0; q < 8; ++q)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) sp[q][e] = 0.f;
+#pragma unroll
+          for (int kk = 0; kk < SSD_NB / 8; ++kk) {
+            if (kk >= ksteps) break;
+            uint32_t ah[4], al[4];
+            const float* cr = cs + (r0 + g) * SSD_BCP + 8 * kk + t4;
+            split_tf32(cr[0], ah[0], al[0]);
+            split_tf32(cr[8 * SSD_BCP], ah[1], al[1]);
+            split_tf32(cr[4], ah[2], al[2]);
+            split_tf32(cr[8 * SSD_BCP + 4], ah[3], al[3]);
+#pragma unroll
+            for (int q = 0; q < 8; ++q) {  // whole halves: no branch
+              const float* br =
+                  bs + (8 * (8 * half + q) + g) * SSD_BCP + 8 * kk + t4;
+              uint32_t bh[2], bl[2];
+              split_tf32(br[0], bh[0], bl[0]);
+              split_tf32(br[4], bh[1], bl[1]);
+              mma_tf32(sp[q], al, bh);
+              mma_tf32(sp[q], ah, bl);
+              mma_tf32(sp[q], ah, bh);
+            }
+          }
+#pragma unroll
+          for (int q = 0; q < 8; ++q)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) G[8 * half + q][e] += sp[q][e];
+        }
+      }
 
-  const T* xg = x + row0 * a.P;
-  for (int idx = tid; idx < SSD_L * SSD_P; idx += SSD_THREADS) {
-    const int r = idx / SSD_P, p = idx % SSD_P;
-    xs[idx] = r < a.Lc && p < a.P ? to_f32(xg[(size_t)r * a.P + p]) : 0.f;
-  }
-  __syncthreads();
+      // the decay, factored at each 8-key block's last valid key e_b: per
+      // key u_m = exp(e_b - acum_m) dt_m <= dt_m, per block c_b =
+      // exp(e_{b+1} - e_b) <= 1 (a row's factor exp(acum_l - e_b) steps
+      // down the blocks by it); keys past the tile get u = 0
+      for (int idx = tid; idx < nh * SSD_T; idx += SSD_THREADS) {
+        const int hh = idx / SSD_T, m = idx % SSD_T;
+        float* kh = kdec + hh * SSD_KH;
+        const float* ah = kh + SSD_KA;
+        kh[SSD_KU + m] =
+            m < nk ? expf(ah[min(m | 7, nk - 1)] - ah[m]) * kh[SSD_KDT + m]
+                   : 0.f;
+        if (m < SSD_KB)  // the last block has no step below it
+          kh[SSD_KC + m] =
+              m < SSD_KB - 1 ? expf(ah[min(8 * m + 15, nk - 1)] -
+                                    ah[min(8 * m + 7, nk - 1)])
+                             : 0.f;
+      }
+      // on the diagonal, row l's own block: exp(acum_l - acum_m) dt_m for
+      // its keys m <= l, 0 past them and past the tile's rows
+      if (diag)
+        for (int idx = tid; idx < nh * SSD_T * 8; idx += SSD_THREADS) {
+          const int hh = idx / (SSD_T * 8), l = (idx / 8) % SSD_T;
+          const int m = (l & ~7) + (idx & 7);
+          float* kh = kdec + hh * SSD_KH;
+          const bool on = m <= l && l < nk;
+          kh[SSD_KOWN + idx % (SSD_T * 8)] =
+              on ? expf(on ? kh[SSD_KA + l] - kh[SSD_KA + m] : 0.f) *
+                       kh[SSD_KDT + m]
+                 : 0.f;
+        }
+      __syncthreads();
 
-  // phase 2: y[l][p] = sum_m scores[l][m] x[m][p], l = ty + 16 i, p = tx + 16 j
-  float yacc[8][4];
+      // every (head, P tile) of the group: y_i += S_ij(h) @ x_j(h)
+      for (int q = 0; q < items; ++q) {
+        cp_async_wait<0>();
+        __syncthreads();  // item q is in; the other slot's readers are done
+        if (q + 1 < items) load_item(j, q + 1, (q + 1) & 1);
+        cp_async_commit();
+        if (kt == 0) continue;  // the strip is past the chunk's last row
+        const int hh = q / pt, p0 = (q - hh * pt) * SSD_PT;
+        const int pw = min(SSD_PT, a.P - p0);
+        const T* xb = xs + (q & 1) * SSD_T * XP;
+        const float* kh = kdec + hh * SSD_KH;
+        const size_t hrow = head_row(hh) + (size_t)i * SSD_T;
+        // the lane's rows r0 + g + 8 hr: the block kd where the factor
+        // starts (on the diagonal the one before the row's own, ro + hr - 1
+        // with ro = r0 / 8, perhaps none; below it the last, for both) and
+        // the factor there, exp(acum_l - e_kd) <= 1 (acum -inf past the
+        // tile's rows, so their factor is 0); above kd the factor is 0
+        float fac[2];
+        int kd[2];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+        for (int hr = 0; hr < 2; ++hr) {
+          const int row = r0 + g + 8 * hr;
+          kd[hr] = diag ? (r0 >> 3) + hr - 1 : kt - 1;
+          const float al = row >= nr ? __int_as_float(0xff800000)  // -inf
+                               : diag ? kh[SSD_KA + row] : acum[hrow + row];
+          fac[hr] = kd[hr] < 0
+                        ? 0.f
+                        : expf(al - kh[SSD_KA + min(8 * kd[hr] + 7, nk - 1)]);
+        }
+        float acc[8][4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) yacc[i][j] = 0.f;
-  for (int mm = 0; mm < a.Lc; ++mm) {
-    float xv[4];
+        for (int n = 0; n < 8; ++n)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) xv[j] = xs[mm * SSD_P + tx + 16 * j];
+          for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+        // 32-key steps, last first (the rows' factors step down the
+        // blocks); a step's k-steps past kt have S = 0.  Inside a step no
+        // branch: the 8 column tiles' chains interleave.
+        const int steps = (kt + 3) / 4;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float sv = sc[(ty + 16 * i) * SSD_SPITCH + mm];
+        for (int s4 = 3; s4 >= 0; --s4) {
+          if (s4 >= steps) continue;
+          float pp[8][4];  // the small products first, then S_hi x_hi
 #pragma unroll
-      for (int j = 0; j < 4; ++j) yacc[i][j] = fmaf(sv, xv[j], yacc[i][j]);
-    }
-  }
-  T* yg = y + row0 * a.P;
+          for (int n = 0; n < 8; ++n)
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int l = ty + 16 * i;
-    if (l >= a.Lc) continue;
+            for (int e = 0; e < 4; ++e) pp[n][e] = 0.f;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int p = tx + 16 * j;
-      if (p < a.P) yg[(size_t)l * a.P + p] = from_f32<T>(yacc[i][j]);
+          for (int kj = 3; kj >= 0; --kj) {
+            const int kk = 4 * s4 + kj, m = 8 * kk + 2 * t4;
+            const float ck = kh[SSD_KC + kk];
+            float f[2];  // selects, no branch
+#pragma unroll
+            for (int hr = 0; hr < 2; ++hr) {
+              fac[hr] = kk < kd[hr] ? fac[hr] * ck : fac[hr];
+              f[hr] = kk > kd[hr] ? 0.f : fac[hr];
+            }
+            const float2 um =
+                *reinterpret_cast<const float2*>(kh + SSD_KU + m);
+            float v[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              v[e] = G[kk][e] * f[e >> 1] * ((e & 1) ? um.y : um.x);
+            if (diag && kk > kd[0] && kk <= kd[1] + 1) {  // warp-uniform
+              // the own block of rows 8 kk + g (rows r0 + g + 8 hr with
+              // kk == kd[hr] + 1), keys m and m + 1
+              const float2 own = *reinterpret_cast<const float2*>(
+                  kh + SSD_KOWN + 8 * (8 * kk + g) + 2 * t4);
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                if (kk == kd[e >> 1] + 1)
+                  v[e] = G[kk][e] * ((e & 1) ? own.y : own.x);
+            }
+            // S's A fragment: column t4 is key m, column t4 + 4 key m + 1.
+            // Keys past the tile have u = 0 and G = 0: S = 0 with no mask.
+            uint32_t pah[4], pal[4];
+            split_tf32(v[0], pah[0], pal[0]);
+            split_tf32(v[2], pah[1], pal[1]);
+            split_tf32(v[1], pah[2], pal[2]);
+            split_tf32(v[3], pah[3], pal[3]);
+            const int k0 = 8 * kk;
+            if constexpr (F32) {
+              const T* xk = xb + (k0 + 2 * t4) * XP + g;
+#pragma unroll
+              for (int n = 0; n < 8; ++n) {
+                uint32_t bh[2], bl[2];
+                split_tf32(to_f32(xk[8 * n]), bh[0], bl[0]);
+                split_tf32(to_f32(xk[8 * n + XP]), bh[1], bl[1]);
+                mma_tf32(pp[n], pal, bh);
+                mma_tf32(pp[n], pah, bl);
+                mma_tf32(pp[n], pah, bh);
+              }
+            } else {  // bf16 is exact in TF32: x's low part is zero
+#pragma unroll
+              for (int n4 = 0; n4 < 2; ++n4) {
+                uint32_t w[4];
+                ldmatrix_x4_trans(w, xb + (k0 + (lane & 7)) * XP +
+                                         8 * (4 * n4 + (lane >> 3)));
+#pragma unroll
+                for (int q = 0; q < 4; ++q) {
+                  const int n = 4 * n4 + q;
+                  const uint32_t bh[2] = {w[q] << 16, w[q] & 0xffff0000u};
+                  mma_tf32(pp[n], pal, bh);
+                  mma_tf32(pp[n], pah, bh);
+                }
+              }
+            }
+          }
+#pragma unroll
+          for (int n = 0; n < 8; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[n][e] += pp[n][e];
+        }
+
+        // rows r0 + g (+ 8), columns p0 + 8 n + 2 t4 (+ 1); below the
+        // diagonal into the workspace, on it through the staged tile
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int row = r0 + g + 8 * hr;
+#pragma unroll
+          for (int n = 0; n < 8; ++n) {
+            const int col = 8 * n + 2 * t4;
+            float v0 = acc[n][2 * hr], v1 = acc[n][2 * hr + 1];
+            if (rt > 1 && row < nr && col < pw) {  // key tiles in order
+              float* w = ws + (hrow + row) * a.P + p0 + col;
+              const bool two = col + 1 < pw;
+              if (j > 0) {
+                v0 = w[0] + v0;
+                if (two) v1 = w[1] + v1;
+              }
+              if (!diag) {
+                w[0] = v0;
+                if (two) w[1] = v1;
+              }
+            }
+            ssd_put2(ys + row * XP + col, v0, v1);
+          }
+        }
+        if (!diag) continue;
+        __syncwarp();
+        // the strip's rows to y: 16-byte stores along each row
+        const int rows = min(16, nr - r0);
+        T* yg = y + (hrow + r0) * a.P + p0;
+        if (a.xvec) {  // P * sizeof(T) a multiple of 16, so pw too
+          constexpr int E = 16 / sizeof(T);
+          const int cpr = pw / E;
+          for (int idx = lane; idx < rows * cpr; idx += 32) {
+            const int r = idx / cpr, c = E * (idx - r * cpr);
+            *reinterpret_cast<float4*>(yg + (size_t)r * a.P + c) =
+                *reinterpret_cast<const float4*>(ys + (r0 + r) * XP + c);
+          }
+        } else {
+          for (int idx = lane; idx < rows * pw; idx += 32) {
+            const int r = idx / pw, c = idx - r * pw;
+            yg[(size_t)r * a.P + c] = ys[(r0 + r) * XP + c];
+          }
+        }
+      }
     }
   }
 }
@@ -596,13 +938,15 @@ ssd_intra_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 template <typename T>
 cudaError_t launch_ssd(const void* x, const float* dt, const float* acum,
                        const float* bmat, const float* cmat, void* y,
-                       const SsdArgs& a, cudaStream_t stream) {
+                       float* ws, const SsdArgs& a, dim3 grid, size_t smem,
+                       cudaStream_t stream) {
   static bool smem_set = false;
-  cudaError_t err = allow_smem(ssd_intra_kernel<T>, SSD_SMEM, smem_set);
+  if (smem != ssd_smem<T>()) return cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(ssd_intra_kernel<T>, smem, smem_set);
   if (err != cudaSuccess) return err;
-  dim3 grid((unsigned)a.NC, (unsigned)(a.B * a.H));
-  ssd_intra_kernel<T><<<grid, SSD_THREADS, SSD_SMEM, stream>>>(
-      static_cast<const T*>(x), dt, acum, bmat, cmat, static_cast<T*>(y), a);
+  ssd_intra_kernel<T><<<grid, SSD_THREADS, smem, stream>>>(
+      static_cast<const T*>(x), dt, acum, bmat, cmat, static_cast<T*>(y), ws,
+      a);
   return cudaGetLastError();
 }
 
@@ -634,20 +978,30 @@ extern "C" int kapla_flash_attention(const void* q, const void* k,
   return (int)cudaErrorInvalidValue;
 }
 
-// p: B, H, NC, Lc, P, N, dtype
+
+// p: B, H, NC, Lc, P, N, dtype, hg, xvec, bcvec, grid (x, y), the dynamic
+// shared memory in bytes (ssd_scan.py ssd_launch); ws: a float32 workspace
+// [B, H, NC, Lc, P] where Lc > 128 (y itself for float32), else unused
 extern "C" int kapla_ssd_intra_chunk(const void* x, const float* dt,
                                      const float* acum, const float* bmat,
-                                     const float* cmat, void* y,
+                                     const float* cmat, void* y, float* ws,
                                      const long long* p, void* stream) {
   SsdArgs a{(int)p[0], (int)p[1], (int)p[2], (int)p[3], (int)p[4],
-            (int)p[5]};
+            (int)p[5], (int)p[7], (int)p[8], (int)p[9]};
   const int dtype = (int)p[6];
-  if (a.Lc <= 0 || a.Lc > SSD_L || a.P <= 0 || a.P > SSD_P || a.N <= 0)
+  const dim3 grid((unsigned)p[10], (unsigned)p[11]);
+  const size_t smem = (size_t)p[12];
+  if (a.Lc <= 0 || a.P <= 0 || a.N <= 0 || a.hg <= 0 || a.hg > SSD_HG ||
+      (long long)grid.x != (long long)a.B * a.NC ||
+      (int)grid.y != (a.H + a.hg - 1) / a.hg ||
+      (a.Lc > SSD_T && ws == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return (int)launch_ssd<float>(x, dt, acum, bmat, cmat, y, a, s);
+    return (int)launch_ssd<float>(x, dt, acum, bmat, cmat, y, ws, a, grid,
+                                  smem, s);
   if (dtype == 1)
-    return (int)launch_ssd<__nv_bfloat16>(x, dt, acum, bmat, cmat, y, a, s);
+    return (int)launch_ssd<__nv_bfloat16>(x, dt, acum, bmat, cmat, y, ws, a,
+                                          grid, smem, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -48,9 +48,9 @@ MODEL_SOURCE = CSRC / "model_kernels.cu"
 #: is a pointer (device buffers, the host parameter arrays, the stream)
 ENTRY_POINTS = {
     SOURCE.name: {"kapla_fc": 6, "kapla_conv": 5, "kapla_pool": 4,
-                  "kapla_eltwise": 4, "kapla_attention": 6},
+                  "kapla_eltwise": 4, "kapla_attention": 7},
     MODEL_SOURCE.name: {"kapla_flash_attention": 7,
-                        "kapla_ssd_intra_chunk": 8},
+                        "kapla_ssd_intra_chunk": 9},
 }
 
 #: element-type codes the model kernels' C entry points take

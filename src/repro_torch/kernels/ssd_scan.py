@@ -9,12 +9,16 @@ The port of ``repro/kernels/ssd_scan.py``.  Per (batch, head, chunk):
 with B and C shared across heads (G = 1).  The inter-chunk recurrence stays
 in ``ops.ssd``.  ``ssd_intra_chunk`` launches the kernel for CUDA tensors (or
 raises) and takes ``plain_ssd_intra_chunk`` for CPU tensors.  ``LAUNCHES``
-counts kernel launches.
+counts kernel launches.  ``ssd_launch`` computes the kernel's geometry (head
+group, tiles, shared memory, grid); the kernel takes any chunk length and
+head dim.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+import dataclasses
+import functools
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -27,8 +31,130 @@ LAUNCHES: Dict[str, int] = {"ssd_intra_chunk": 0}
 REPLACES = {"ssd_intra_chunk": "src/repro/kernels/ssd_scan.py:40"}
 
 SOURCE = "src/repro_torch/csrc/model_kernels.cu"
-#: the kernel's largest chunk length and head dim
-MAX_CHUNK, MAX_HEAD_DIM = 128, 64
+#: the kernel's row and key tiles of a chunk, its P tile, the state columns
+#: of a staged B/C chunk and its warps (one 16-row strip each)
+SSD_TILE, SSD_PTILE, SSD_NCHUNK, SSD_WARPS = 128, 64, 64, 8
+#: the heads a block takes; the kernel's shared memory holds their decays
+SSD_HG = 8
+#: the most dynamic shared memory a block may opt into (227 KB)
+SMEM_MAX = 232448
+
+
+@dataclasses.dataclass(frozen=True)
+class SsdLaunch:
+    """Geometry of one ``kapla_ssd_intra_chunk`` call
+    (``csrc/model_kernels.cu`` ``ssd_intra_kernel``).  Block ``(x, y)`` owns
+    (b, chunk) ``x`` (``b * NC + chunk``) and heads ``[y * hg, y * hg +
+    hg)``.  It walks the chunk's row tiles of ``SSD_TILE`` rows, for each
+    the key tiles at or below it (``tiles``), forming G = C Bᵀ of the tile
+    pair once (``n_chunks`` staged B/C chunks of ``SSD_NCHUNK`` state
+    columns) and applying it to every (head, P tile) of its group.  Warp
+    ``w`` owns the 16-row strip ``strip(w)`` of a row tile.  With more than
+    one row tile the key tiles' partial sums go through a float32 workspace
+    (``workspace``)."""
+
+    B: int
+    H: int
+    NC: int
+    Lc: int
+    P: int
+    N: int
+    elem: int       # bytes of an element of x (4 float32, 2 bfloat16)
+    hg: int         # heads a block
+
+    @property
+    def row_tiles(self) -> int:
+        return -(-self.Lc // SSD_TILE)
+
+    @property
+    def p_tiles(self) -> int:
+        return -(-self.P // SSD_PTILE)
+
+    @property
+    def n_chunks(self) -> int:
+        return -(-self.N // SSD_NCHUNK)
+
+    @property
+    def groups(self) -> int:
+        return -(-self.H // self.hg)
+
+    @property
+    def grid(self) -> Tuple[int, int]:
+        return (self.B * self.NC, self.groups)
+
+    @property
+    def workspace(self) -> bool:
+        return self.row_tiles > 1
+
+    @property
+    def x_pitch(self) -> int:
+        """Staged x row pitch in elements (bank-conflict-free B fragments):
+        68 floats or 72 bf16."""
+        return SSD_PTILE + (4 if self.elem == 4 else 8)
+
+    @property
+    def smem(self) -> int:
+        """Dynamic shared memory: the C and B chunks (rows at a pitch of
+        ``SSD_NCHUNK + 4`` floats), the two-slot x ring and the staged
+        output tile (at x's pitch), and per head of a group of ``SSD_HG`` a
+        key tile's acum, factored decay u and dt, its 8-key blocks' steps
+        and 8 decays a row (the row's own block on the diagonal)."""
+        return (2 * SSD_TILE * (SSD_NCHUNK + 4) * 4
+                + 3 * SSD_TILE * self.x_pitch * self.elem
+                + SSD_HG * (11 * SSD_TILE + SSD_TILE // 8) * 4)
+
+    def tiles(self) -> List[Tuple[int, int, int]]:
+        """(row tile, key tile, P tile) of every product, in the kernel's
+        order within a head."""
+        return [(i, j, p) for i in range(self.row_tiles)
+                for j in range(i + 1) for p in range(self.p_tiles)]
+
+    def extent(self, tile: int, size: int, width: int) -> Tuple[int, int]:
+        """(start, valid extent) of tile ``tile`` of ``width`` along an
+        axis of ``size``."""
+        return tile * width, min(width, size - tile * width)
+
+    @staticmethod
+    def strip(warp: int) -> int:
+        """The 16-row strip of a row tile warp ``warp`` owns: warps w and w +
+        4 share an SM sub-partition's tensor core, and take strips s and 7 -
+        s, so each sub-partition gets equal work on the diagonal tile."""
+        return warp if warp < 4 else 11 - warp
+
+    def ksteps(self, warp: int, i: int, j: int) -> int:
+        """8-key steps the strip of ``warp`` needs in tile pair (i, j): up
+        to its last row on the diagonal, every valid key below it, none
+        past the chunk's last row."""
+        r0 = 16 * self.strip(warp)
+        nr = self.extent(i, self.Lc, SSD_TILE)[1]
+        nk = self.extent(j, self.Lc, SSD_TILE)[1]
+        if r0 >= nr:
+            return 0
+        return -(-(min(r0 + 16, nk) if i == j else nk) // 8)
+
+    def params(self, dtype_code: int, xvec: bool, bcvec: bool) -> List[int]:
+        """``kapla_ssd_intra_chunk``'s parameter array; ``xvec`` and
+        ``bcvec``: the rows of x and of B and C are 16-byte aligned."""
+        return [self.B, self.H, self.NC, self.Lc, self.P, self.N,
+                dtype_code, self.hg, int(xvec), int(bcvec), *self.grid,
+                self.smem]
+
+
+@functools.lru_cache(maxsize=None)
+def ssd_launch(B: int, H: int, NC: int, Lc: int, P: int, N: int,
+               elem: int = 2) -> SsdLaunch:
+    """The geometry of ``kapla_ssd_intra_chunk``: groups of ``SSD_HG``
+    heads (all of them, if fewer).  At Zamba2-1.2B's and Mamba2-1.3B's
+    prefill (B 8, 4 chunks, 64 heads) that is 256 blocks of eight warps,
+    one an SM at a time, in two waves over the H100's 132 SMs; a
+    single-request prefill (B 1) gives 32."""
+    if min(B, H, NC, Lc, P, N) <= 0 or elem not in (2, 4):
+        raise ValueError(f"ssd_launch: dims {(B, H, NC, Lc, P, N)}, element "
+                         f"bytes {elem}")
+    launch = SsdLaunch(B, H, NC, Lc, P, N, elem, min(H, SSD_HG))
+    if launch.grid[0] >= 1 << 31 or launch.grid[1] > 65535:
+        raise ValueError(f"ssd_launch: grid {launch.grid} too large")
+    return launch
 
 
 def plain_ssd_intra_chunk(x: torch.Tensor, dt: torch.Tensor,
@@ -88,7 +214,7 @@ def ssd_intra_chunk(x: torch.Tensor, dt: torch.Tensor, acum: torch.Tensor,
     acum: [B, H, NC, Lc]      (within-chunk cumsum of dt * A, float32)
     b, c: [B, NC, Lc, N]      (G=1: shared across heads, float32)
     returns y_intra: [B, H, NC, Lc, P] in x's dtype.  The CUDA kernel on
-    the card (Lc <= 128, P <= 64), the plain version on the CPU.
+    the card (geometry from ``ssd_launch``), the plain version on the CPU.
     """
     _check(x, dt, acum, b, c)
     if x.device.type == "cpu":
@@ -97,21 +223,25 @@ def ssd_intra_chunk(x: torch.Tensor, dt: torch.Tensor, acum: torch.Tensor,
         raise ValueError(f"ssd_intra_chunk: unsupported device {x.device}")
     B, H, NC, Lc, P = x.shape
     N = b.shape[-1]
-    if Lc > MAX_CHUNK or P > MAX_HEAD_DIM:
-        raise ValueError(f"ssd_intra_chunk: chunk {Lc} > {MAX_CHUNK} or "
-                         f"head dim {P} > {MAX_HEAD_DIM}")
-    prm = (ctypes.c_int64 * 7)(B, H, NC, Lc, P, N,
-                               backend.DTYPE_CODES[x.dtype])
+    launch = ssd_launch(B, H, NC, Lc, P, N, x.element_size())
+    xvec = (P * x.element_size()) % 16 == 0 and x.data_ptr() % 16 == 0
+    bcvec = N % 4 == 0 and b.data_ptr() % 16 == 0 and c.data_ptr() % 16 == 0
+    vals = launch.params(backend.DTYPE_CODES[x.dtype], xvec, bcvec)
+    prm = (ctypes.c_int64 * len(vals))(*vals)
     out = torch.empty_like(x)
+    ws = None
+    if launch.workspace:        # the key tiles' partial sums, in float32
+        ws = out if x.dtype == torch.float32 else torch.empty(
+            x.shape, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         fn = backend.library(backend.MODEL_SOURCE).kapla_ssd_intra_chunk
         backend.check_launch("kapla_ssd_intra_chunk", fn(
             x.data_ptr(), dt.data_ptr(), acum.data_ptr(), b.data_ptr(),
-            c.data_ptr(), out.data_ptr(), prm,
-            backend.stream_handle(x.device)))
+            c.data_ptr(), out.data_ptr(), None if ws is None
+            else ws.data_ptr(), prm, backend.stream_handle(x.device)))
     LAUNCHES["ssd_intra_chunk"] += 1
     return out
 
 
-__all__ = ["LAUNCHES", "MAX_CHUNK", "MAX_HEAD_DIM", "REPLACES", "SOURCE",
-           "plain_ssd_intra_chunk", "ssd_intra_chunk"]
+__all__ = ["LAUNCHES", "REPLACES", "SOURCE", "SsdLaunch",
+           "plain_ssd_intra_chunk", "ssd_intra_chunk", "ssd_launch"]

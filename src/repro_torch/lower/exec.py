@@ -49,7 +49,12 @@ REPLACES = {"fc": "src/repro/lower/exec.py:88",
 
 SOURCE = "src/repro_torch/csrc/lower_kernels.cu"
 NEG_INF = -1e30
+#: operands one eltwise launch adds; ``eltwise_chain`` chains launches for
+#: more
 ELTWISE_MAX_OPS = 8
+#: the most elements an array of one conv launch may hold: its window
+#: offsets are 32-bit, so ``conv_batch_parts`` splits the batch under it
+CONV_MAX_ELEMS = (1 << 31) - 1
 #: the H100's SMs, over which the conv model spreads blocks
 SMS = 132
 CONV_THREADS = 128
@@ -556,8 +561,29 @@ def _conv_idle_warps(launch: ConvLaunch) -> int:
     return CONV_WARPS - busy
 
 
-def conv_launch(plan: KernelPlan, XI: int, YI: int) -> ConvLaunch:
-    """The geometry of ``kapla_conv`` for ``plan``: of the warp tiles in
+def conv_batch_parts(plan: KernelPlan, XI: int,
+                     YI: int) -> List[Tuple[int, int]]:
+    """The images ``[n0, n1)`` of each ``kapla_conv`` launch: the batch cut
+    at multiples of the plan's N block so that each launch's input and
+    output hold at most ``CONV_MAX_ELEMS`` elements (one part when the
+    whole batch does)."""
+    L, bn = plan.layer, plan.block["N"]
+    N = L.dim("N")
+    per_image = max(L.dim("C") * XI * YI,
+                    L.dim("K") * L.dim("X") * L.dim("Y"))
+    step = CONV_MAX_ELEMS // per_image // bn * bn
+    if step == 0:
+        raise ValueError(f"{plan.describe()}: one N block of {bn} images "
+                         f"holds {bn * per_image} elements; the kernel's "
+                         "window offsets are 32-bit")
+    return [(n0, min(N, n0 + step)) for n0 in range(0, N, step)]
+
+
+def conv_launch(plan: KernelPlan, XI: int, YI: int,
+                batch: Optional[int] = None) -> ConvLaunch:
+    """The geometry of ``kapla_conv`` for ``plan`` (over ``batch`` images
+    of it, a multiple of its N block, where ``conv_batch_parts`` splits the
+    batch; by default all of them): of the warp tiles in
     ``CONV_TILES``, each with its chunks sized for every cap of
     ``CONV_SMEM_CAPS``, of those with the fewest idle warps the one that
     the model ``_conv_time`` finds quickest (then the largest, then the
@@ -566,10 +592,12 @@ def conv_launch(plan: KernelPlan, XI: int, YI: int) -> ConvLaunch:
     _check_reduction(plan)
     L, b = plan.layer, plan.block
     N, C, K, XO, YO = (L.dim(d) for d in "NCKXY")
+    N = N if batch is None else batch
     R, S, st = (int(L.meta[k]) for k in ("R", "S", "stride"))
-    if N * C * XI * YI >= 1 << 31:
-        raise ValueError(f"{plan.describe()}: input of {N * C * XI * YI} "
-                         "elements; the kernel's window offsets are 32-bit")
+    if N % b["N"] or max(N * C * XI * YI, N * K * XO * YO) > CONV_MAX_ELEMS:
+        raise ValueError(f"{plan.describe()}: a launch of {N} images; the "
+                         "kernel takes whole N blocks and arrays of at most "
+                         f"{CONV_MAX_ELEMS} elements (conv_batch_parts)")
     launch = _conv_launch(N, C, K, XI, YI, XO, YO, R, S, st, b["N"],
                           b["C"], b["K"], b["X"], b["Y"])
     if launch is None:
@@ -645,16 +673,17 @@ def run_conv(plan: KernelPlan, x: torch.Tensor,
     _check(w, (K, C, R, S), "conv weight W[K,C,R,S]", x.device)
     if not _cuda_or_cpu(x, "conv"):
         return plain_conv(plan, x, w)
-    launch = conv_launch(plan, XI, YI)
-    prm = _conv_params(launch, launch.vec and w.data_ptr() % 16 == 0)
     out = torch.empty((N, K, L.dim("X"), L.dim("Y")), dtype=torch.float32,
                       device=x.device)
     with torch.cuda.device(x.device):
         lib = backend.library()
-        backend.check_launch("kapla_conv", lib.kapla_conv(
-            x.data_ptr(), w.data_ptr(), out.data_ptr(), prm,
-            backend.stream_handle(x.device)))
-    LAUNCHES["conv"] += 1
+        for n0, n1 in conv_batch_parts(plan, XI, YI):
+            launch = conv_launch(plan, XI, YI, n1 - n0)
+            prm = _conv_params(launch, launch.vec and w.data_ptr() % 16 == 0)
+            backend.check_launch("kapla_conv", lib.kapla_conv(
+                x[n0:n1].data_ptr(), w.data_ptr(), out[n0:n1].data_ptr(),
+                prm, backend.stream_handle(x.device)))
+            LAUNCHES["conv"] += 1
     return out
 
 
@@ -723,27 +752,51 @@ def plain_eltwise(plan: KernelPlan,
     return out
 
 
+def eltwise_chain(n_ops: int) -> List[range]:
+    """The operands of each ``kapla_eltwise`` launch for ``n_ops``
+    operands: the first ``ELTWISE_MAX_OPS``, then up to
+    ``ELTWISE_MAX_OPS - 1`` more a launch, each launch after the first
+    adding them to the running sum (its operand 0).  Operand order, and so
+    every rounding, is that of one n-ary sum."""
+    if n_ops < 1:
+        raise ValueError(f"eltwise takes at least one operand, got {n_ops}")
+    chain = [range(0, min(n_ops, ELTWISE_MAX_OPS))]
+    while chain[-1].stop < n_ops:
+        lo = chain[-1].stop
+        chain.append(range(lo, min(n_ops, lo + ELTWISE_MAX_OPS - 1)))
+    return chain
+
+
 def run_eltwise(plan: KernelPlan,
                 xs: Sequence[torch.Tensor]) -> torch.Tensor:
-    """eltwise wrapper (1 to 8 operands): the CUDA kernel on the card,
-    ``plain_eltwise`` on the CPU.  Both add in operand order, so they agree
-    bit for bit."""
+    """eltwise wrapper (any number of operands): the CUDA kernel on the
+    card (one launch per ``eltwise_chain`` step, ping-ponging the running
+    sum so that no launch reads what it writes), ``plain_eltwise`` on the
+    CPU.  Both add in operand order, so they agree bit for bit."""
     shape = tuple(plan.layer.dim(d) for d in "NCXY")
-    if not 1 <= len(xs) <= ELTWISE_MAX_OPS:
-        raise ValueError(f"eltwise takes 1..{ELTWISE_MAX_OPS} operands, "
-                         f"got {len(xs)}")
+    chain = eltwise_chain(len(xs))
     for i, x in enumerate(xs):
         _check(x, shape, f"eltwise operand {i}", xs[0].device)
     if not _cuda_or_cpu(xs[0], "eltwise"):
         return plain_eltwise(plan, xs)
-    ptrs = (ctypes.c_void_p * len(xs))(*[x.data_ptr() for x in xs])
-    prm = _params([len(xs), xs[0].numel()])
-    out = torch.empty(shape, dtype=torch.float32, device=xs[0].device)
-    with torch.cuda.device(out.device):
+    dev = xs[0].device
+    out = torch.empty(shape, dtype=torch.float32, device=dev)
+    # the last launch writes out; the ones before alternate with tmp
+    tmp = torch.empty_like(out) if len(chain) > 1 else None
+    dsts = [out if (len(chain) - 1 - k) % 2 == 0 else tmp
+            for k in range(len(chain))]
+    with torch.cuda.device(dev):
         lib = backend.library()
-        backend.check_launch("kapla_eltwise", lib.kapla_eltwise(
-            ptrs, out.data_ptr(), prm, backend.stream_handle(out.device)))
-    LAUNCHES["eltwise"] += 1
+        for k, ops in enumerate(chain):
+            srcs = ([] if k == 0 else [dsts[k - 1]]) + [xs[i] for i in ops]
+            vec = all(t.data_ptr() % 16 == 0 for t in (*srcs, dsts[k]))
+            ptrs = (ctypes.c_void_p * len(srcs))(*[t.data_ptr()
+                                                   for t in srcs])
+            backend.check_launch("kapla_eltwise", lib.kapla_eltwise(
+                ptrs, dsts[k].data_ptr(),
+                _params([len(srcs), out.numel(), int(vec)]),
+                backend.stream_handle(dev)))
+            LAUNCHES["eltwise"] += 1
     return out
 
 
@@ -784,21 +837,32 @@ def plain_attention(plan: KernelPlan, q: torch.Tensor, k: torch.Tensor,
     return acc / lsum.clamp_min(1e-30)[..., None]
 
 
+def attention_head_dim(D: int) -> int:
+    """The instantiated head dim (``ATTN_HEAD_DIMS``) the attention kernel
+    runs head dim ``D`` at: ``D`` itself or the next above it, to which the
+    wrapper zero-pads Q, K and V; above the largest it raises."""
+    if D < 1 or D > ATTN_HEAD_DIMS[-1]:
+        raise ValueError(f"head dim {D}; the attention kernel takes 1.."
+                         f"{ATTN_HEAD_DIMS[-1]}")
+    return next(d for d in ATTN_HEAD_DIMS if d >= D)
+
+
 def attention_launch(plan: KernelPlan) -> List[int]:
-    """Parameters of ``kapla_attention``: dims, the plan's X and C blocks,
-    64-row query sub-tiles per plan X tile, grid (query sub-tiles, heads),
-    dynamic shared memory and the path (1: ``attention_mma_kernel``, Q and
-    two stages of 64-key K and V tiles; 0: ``attention_kernel``, Q, K and V
-    tiles of 64 rows; rows at a pitch of D + 4 floats).  The kernels are
-    instantiated for the head dims in ``ATTN_HEAD_DIMS`` only."""
+    """Parameters of ``kapla_attention``: dims (D the instantiated head dim
+    of ``attention_head_dim``), the plan's X and C blocks, 64-row query
+    sub-tiles per plan X tile, grid (query sub-tiles, heads), dynamic
+    shared memory and the path (1: ``attention_mma_kernel``, Q and two
+    stages of 64-key K and V tiles; 0: ``attention_kernel``, Q, K and V
+    tiles of 64 rows; rows at a pitch of D + 4 floats)."""
     _check_reduction(plan)
     L, b = plan.layer, plan.block
-    N, X, C, D = L.dim("N"), L.dim("X"), L.dim("C"), L.dim("K")
-    if D not in ATTN_PATHS:
-        raise ValueError(f"{plan.describe()}: head dim {D}; the attention "
-                         f"kernel takes {ATTN_HEAD_DIMS}")
+    N, X, C = L.dim("N"), L.dim("X"), L.dim("C")
+    try:
+        D = attention_head_dim(L.dim("K"))
+    except ValueError as e:
+        raise ValueError(f"{plan.describe()}: {e}") from None
     mma = ATTN_PATHS[D] == "mma-3xtf32"
-    if b["K"] != D:
+    if b["K"] != L.dim("K"):
         raise ValueError(f"{plan.describe()}: the head dim must be whole "
                          "in a block")
     sub_x = _ceil(b["X"], ATTN_TILE)
@@ -814,7 +878,9 @@ def attention_launch(plan: KernelPlan) -> List[int]:
 def run_attention(plan: KernelPlan, q: torch.Tensor, k: torch.Tensor,
                   v: torch.Tensor) -> torch.Tensor:
     """attention wrapper: the CUDA kernel on the card, ``plain_attention``
-    on the CPU.  Q ``[N,X,D]``, K and V ``[N,C,D]``, float32."""
+    on the CPU.  Q ``[N,X,D]``, K and V ``[N,C,D]``, float32; a head dim
+    outside ``ATTN_HEAD_DIMS`` runs zero-padded to ``attention_head_dim``
+    at its own scale, the output sliced back to D."""
     L = plan.layer
     N, X, C, D = L.dim("N"), L.dim("X"), L.dim("C"), L.dim("K")
     _check(q, (N, X, D), "attention query Q[N,X,K]", q.device)
@@ -826,16 +892,20 @@ def run_attention(plan: KernelPlan, q: torch.Tensor, k: torch.Tensor,
         raise ValueError("attention: Q, K and V must be 16-byte aligned "
                          "(the kernel loads float4)")
     launch = attention_launch(plan)
+    Dk = launch[3]
+    if Dk != D:
+        q, k, v = (torch.nn.functional.pad(t, (0, Dk - D)) for t in (q, k, v))
     prm = _params(launch)
-    out = torch.empty((N, X, D), dtype=torch.float32, device=q.device)
+    out = torch.empty((N, X, Dk), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         lib = backend.library()
         backend.check_launch("kapla_attention", lib.kapla_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), prm,
+            (ctypes.c_double * 1)(D ** -0.5),
             backend.stream_handle(q.device)))
     LAUNCHES["attention"] += 1
     LAUNCHES["attention_mma"] += launch[-1]
-    return out
+    return out if Dk == D else out[..., :D].contiguous()
 
 
 # ---------------------------------------------------------------------------

@@ -109,8 +109,11 @@ def test_wrappers_check_their_inputs():
     with pytest.raises(ValueError, match="shape"):
         tex.rel_error(torch.zeros((2, 3)), torch.zeros((3, 2)))
     elt = _plan(eltwise("d.elt", 2, 4, 3, 3))
-    with pytest.raises(ValueError, match="operands"):
-        tex.run_eltwise(elt, [torch.zeros((2, 4, 3, 3))] * 9)
+    with pytest.raises(ValueError, match="operand"):
+        tex.run_eltwise(elt, [])
+    with pytest.raises(ValueError, match="shape"):
+        tex.run_eltwise(elt, [torch.zeros((2, 4, 3, 3))] * 8
+                        + [torch.zeros((2, 4, 3, 2))])
 
 
 @pytest.mark.gpu
@@ -323,8 +326,14 @@ def test_fc_kernel_walks_every_c_tile_past_the_workspace_cap_on_card(
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
-@pytest.mark.parametrize("H,NC,Lc,P,N", [(4, 2, 128, 64, 128),
-                                         (3, 3, 64, 32, 16)])
+@pytest.mark.parametrize("H,NC,Lc,P,N", [
+    (4, 2, 128, 64, 128),
+    (3, 3, 64, 32, 16),
+    (2, 2, 256, 128, 64),       # two row tiles (workspace), two P tiles
+    (3, 2, 200, 100, 20),       # ragged Lc and P; bf16 rows unaligned
+    (5, 1, 72, 36, 130),        # N chunks 64 + 64 + 2, 4-byte B/C copies
+    (12, 66, 64, 32, 16),       # groups of 8 heads, the last one partial
+])
 def test_ssd_kernel_matches_plain_on_card(dtype, H, NC, Lc, P, N):
     from repro_torch.kernels import ops, ssd_scan
     dev = _card()
@@ -341,6 +350,35 @@ def test_ssd_kernel_matches_plain_on_card(dtype, H, NC, Lc, P, N):
     torch.cuda.synchronize()
     assert ssd_scan.LAUNCHES == {"ssd_intra_chunk": 1}
     assert out.dtype == dt_
+    assert _max_rel(out, want) <= (1e-5 if dtype == "f32" else 8e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("decay", ["spread", "steep"])
+def test_ssd_kernel_strong_decay_on_card(dtype, decay):
+    """Decays past float's range: ``spread``, acum falls ~400 over 256 keys
+    (steps up to 3); ``steep``, ~15 at every key (|A| 16, dt ~0.95), so
+    that each 8-key block spans ~105, past float's exp range.  The
+    kernel's factored decay underflows where the plain version's exp does,
+    and never makes an inf or a NaN."""
+    from repro_torch.kernels import ssd_scan
+    dev = _card()
+    dt_ = torch.float32 if dtype == "f32" else torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn((2, 3, 2, 256, 64), generator=g, device=dev).to(dt_)
+    if decay == "spread":
+        dt = torch.rand((2, 3, 2, 256), generator=g, device=dev) * 3.0
+        acum = torch.cumsum(-dt, dim=-1)
+    else:
+        dt = 0.9 + 0.1 * torch.rand((2, 3, 2, 256), generator=g, device=dev)
+        acum = torch.cumsum(-16.0 * dt, dim=-1)
+    b = torch.randn((2, 2, 256, 32), generator=g, device=dev) * 0.3
+    c = torch.randn((2, 2, 256, 32), generator=g, device=dev) * 0.3
+    out = ssd_scan.ssd_intra_chunk(x, dt, acum, b, c)
+    want = ssd_scan.plain_ssd_intra_chunk(x, dt, acum, b, c)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
     assert _max_rel(out, want) <= (1e-5 if dtype == "f32" else 8e-3)
 
 
@@ -420,3 +458,76 @@ def test_attention_kernel_paths_on_card(D):
     assert mma == (D != 256)
     assert _max_rel(out, want) <= 1e-5, plan.describe()
     assert torch.equal(out, again), "two launches differ"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_ops,numel_off,offset", [
+    (2, 0, 0), (9, 0, 0), (12, 3, 0), (5, 1, 1), (1, 2, 0)])
+def test_eltwise_kernel_bitwise_on_card(n_ops, numel_off, offset):
+    """The vectorised eltwise, chained past 8 operands, a scalar tail
+    (numel % 4) and operands not 16-byte aligned (``offset`` floats into
+    their storage): equal to plain_eltwise bit for bit, with one launch per
+    ``eltwise_chain`` step."""
+    from repro_torch.lower.plan import GridAxis, KernelPlan
+    dev = _card()
+    N, C, X, Y = 2, 64, 14, 14 + numel_off
+    layer = eltwise("g.elt.n", N, C, X, Y)
+    plan = KernelPlan(layer=layer, scheme=None, kind="eltwise",
+                      grid=(GridAxis("N", 2),),
+                      block={"N": 1, "C": C, "X": X, "Y": Y}, valid=True)
+    g = torch.Generator(device=dev).manual_seed(n_ops)
+    xs = [torch.randn(N * C * X * Y + offset, generator=g, device=dev)
+          [offset:].view(N, C, X, Y) for _ in range(n_ops)]
+    reset_launch_counts()
+    out = tex.run_eltwise(plan, xs)
+    want = tex.plain_eltwise(plan, xs)
+    torch.cuda.synchronize()
+    assert LAUNCHES["eltwise"] == len(tex.eltwise_chain(n_ops))
+    assert torch.equal(out, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [48, 80, 200])
+def test_attention_kernel_padded_head_dims_on_card(D):
+    """Head dims outside the instantiated set run zero-padded to the next
+    one (48 -> 64 and 80 -> 128 on the tensor cores, 200 -> 256 on the FMA
+    tile), within 1e-5 of plain_attention."""
+    dev = _card()
+    plan = _hand_plan(attention("g.attn.pad", 1, 3, 100, D, seq_kv=200),
+                      {"N": 1, "X": 50, "C": 100, "K": D},
+                      [("C", 2), ("N", 3), ("X", 2)])
+    inputs = tex.make_inputs(plan, device=dev)
+    reset_launch_counts()
+    out = tex.run_attention(plan, inputs["Q"], inputs["K"], inputs["V"])
+    want = tex.plain_attention(plan, inputs["Q"], inputs["K"], inputs["V"])
+    torch.cuda.synchronize()
+    Dk = tex.attention_head_dim(D)
+    assert LAUNCHES["attention"] == 1
+    assert LAUNCHES["attention_mma"] == int(tex.ATTN_PATHS[Dk]
+                                            == "mma-3xtf32")
+    assert out.shape == want.shape == (3, 100, D)
+    assert _max_rel(out, want) <= 1e-5, plan.describe()
+
+
+@pytest.mark.gpu
+def test_conv_kernel_past_2_31_elements_on_card():
+    """An input of just over 2^31 elements (130 x 64 x 512 x 512 float32,
+    8.7 GB): the batch split into launches within the kernel's 32-bit
+    offsets, against the oracle of kernels/ref.py (F.conv2d, TF32 off)."""
+    from repro_torch.kernels import ref
+    dev = _card()
+    torch.backends.cudnn.allow_tf32 = False
+    plan = _hand_plan(conv("g.conv.big", 130, 64, 8, 512, 512, 1, 1),
+                      {"N": 2, "C": 64, "K": 8, "X": 16, "Y": 512},
+                      [("N", 65), ("X", 32)])
+    XI, YI = tex.input_extent(plan.layer)
+    assert 130 * 64 * XI * YI >= 2 ** 31
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((130, 64, XI, YI), generator=g, device=dev)
+    w = torch.randn((8, 64, 1, 1), generator=g, device=dev) * 64 ** -0.5
+    reset_launch_counts()
+    out = tex.run_conv(plan, x, w)
+    assert LAUNCHES["conv"] == len(tex.conv_batch_parts(plan, XI, YI)) > 1
+    want = ref.conv2d_ref(x, w)
+    torch.cuda.synchronize()
+    assert _max_rel(out, want) <= 1e-5

@@ -180,12 +180,65 @@ def test_attention_launch_geometry(layer, hw_args, grid):
     assert smem == 4 * 5 * tex.ATTN_TILE * (D + 4) <= 227 * 1024
 
 
+def _hand_attention_plan(D, X=100, C=200):
+    """An attention plan at head dim D: C outermost, ragged tiles."""
+    from repro_torch.lower.plan import GridAxis, KernelPlan
+    return KernelPlan(layer=t_attention("t.attn.hand", 1, 3, X, D, seq_kv=C),
+                      scheme=None, kind="attention",
+                      grid=(GridAxis("C", 2), GridAxis("N", 3),
+                            GridAxis("X", 2)),
+                      block={"N": 1, "X": X // 2, "C": C // 2, "K": D},
+                      valid=True)
+
+
 def test_attention_launch_refuses_other_head_dims():
-    plan = _port_plan(t_attention("t.d48", 1, 2, 128, 48), nodes=4, pe=8)
-    with pytest.raises(ValueError, match="head dim 48"):
-        tex.attention_launch(plan)
+    """Head dims above the largest instantiated one (256) are refused;
+    every other runs (``test_attention_launch_pads_head_dims``)."""
+    with pytest.raises(ValueError, match="head dim 320"):
+        tex.attention_launch(_hand_attention_plan(320))
+    with pytest.raises(ValueError, match="head dim 320"):
+        tex.attention_head_dim(320)
     assert tex.attention_launch(_port_plan(
         t_attention("t.d32", 1, 2, 128, 32), nodes=4, pe=8))[3] == 32
+
+
+@pytest.mark.parametrize("D,Dk", [(48, 64), (200, 256), (80, 128),
+                                  (1, 16), (256, 256)])
+def test_attention_launch_pads_head_dims(D, Dk):
+    """A head dim outside ``ATTN_HEAD_DIMS`` runs at the next instantiated
+    one: its path, shared memory and grid, the plan's own blocks."""
+    plan = _hand_attention_plan(D)
+    if D == 48:                 # the solver's plan too
+        plan = _port_plan(t_attention("t.d48", 1, 2, 128, 48), nodes=4,
+                          pe=8)
+    N, X, C, Dl, bx, bc, sub_x, gx, gy, smem, mma = \
+        tex.attention_launch(plan)
+    L, b = plan.layer, plan.block
+    assert tex.attention_head_dim(D) == Dl == Dk
+    assert (N, X, C) == (L.dim("N"), L.dim("X"), L.dim("C"))
+    assert (bx, bc) == (b["X"], b["C"]) and b["K"] == D
+    assert (gx, gy) == ((X // bx) * sub_x, N)
+    assert mma == int(tex.ATTN_PATHS[Dk] == "mma-3xtf32")
+    rows = 5 * tex.ATTN_TILE if mma else 3 * tex.ATTN_TILE
+    assert smem == 4 * rows * (Dk + 4) <= tex.CONV_SMEM_MAX
+
+
+@pytest.mark.parametrize("D", [48, 200])
+def test_attention_zero_padding_keeps_the_function(D):
+    """What the wrapper hands the kernel at a padded head dim: Q, K and V
+    zero-padded to ``attention_head_dim(D)``, the scale of D, the output
+    sliced back; against plain_attention at D (float32, 1e-6)."""
+    plan = _hand_attention_plan(D)
+    inputs = tex.make_inputs(plan, seed=3, device="cpu")
+    Dk = tex.attention_head_dim(D)
+    q, k, v = (torch.nn.functional.pad(inputs[n], (0, Dk - D))
+               for n in ("Q", "K", "V"))
+    s = torch.einsum("nqd,nkd->nqk", q, k) * D ** -0.5
+    got = (torch.softmax(s, dim=-1) @ v)[..., :D]
+    want = tex.plain_attention(plan, inputs["Q"], inputs["K"], inputs["V"])
+    assert tex.rel_error(got, want) <= 1e-6
+    assert tex.rel_error(tex.run_attention(plan, inputs["Q"], inputs["K"],
+                                           inputs["V"]), want) <= 1e-6
 
 
 def test_attention_wrapper_checks_its_inputs():
@@ -629,3 +682,101 @@ def test_conv_kernel_emulation_matches_plain(source):
         got = _emulate_conv(launch, inputs["I"], inputs["W"])
         want = tex.plain_conv(plan, inputs["I"], inputs["W"])
         assert tex.rel_error(got, want) <= TOL, plan.describe()
+
+
+# ---------------------------------------------------------------------------
+# eltwise beyond one launch's operands, and the conv batch split
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n_ops", [9, 12])
+def test_eltwise_many_operands_bitwise_vs_interpret(n_ops):
+    """More operands than one launch takes (``ELTWISE_MAX_OPS``): the port
+    (the plain version here; chained launches on the card, in operand
+    order) equals the reference's ``_run_eltwise`` in interpret mode bit
+    for bit, and so does the chain's order replayed on the CPU."""
+    from repro.lower.exec import _run_eltwise
+    layer = eltwise("t.elt.many", 2, 16, 7, 7)
+    scheme = _best_scheme(layer)
+    plan = lower_scheme(scheme, HW)
+    tplan = t_lower_scheme(TLayerScheme.from_json(scheme.to_json()), T_HW)
+    rng = np.random.default_rng(n_ops)
+    xs = [rng.standard_normal((2, 16, 7, 7), dtype=np.float32)
+          for _ in range(n_ops)]
+    want = np.asarray(_run_eltwise(plan, xs, interpret=True))
+    tex.reset_launch_counts()
+    got = tex.run_eltwise(tplan, [torch.from_numpy(a) for a in xs])
+    assert tex.LAUNCHES["eltwise"] == 0          # CPU: the plain version
+    assert np.array_equal(got.numpy(), want)
+    chain = tex.eltwise_chain(n_ops)
+    assert len(chain) == 2
+    acc = None
+    for ops in chain:
+        part = [acc] if acc is not None else []
+        acc = tex.plain_eltwise(tplan, part + [torch.from_numpy(xs[i])
+                                               for i in ops])
+    assert np.array_equal(acc.numpy(), want)
+
+
+@pytest.mark.parametrize("n_ops,launches", [(1, [1]), (8, [8]), (9, [8, 1]),
+                                            (12, [8, 4]), (15, [8, 7]),
+                                            (16, [8, 7, 1])])
+def test_eltwise_chain(n_ops, launches):
+    """Each launch after the first adds up to ELTWISE_MAX_OPS - 1 operands
+    to the running sum; every operand once, in order."""
+    chain = tex.eltwise_chain(n_ops)
+    assert [len(r) for r in chain] == launches
+    assert [i for r in chain for i in r] == list(range(n_ops))
+    assert all(len(r) + (k > 0) <= tex.ELTWISE_MAX_OPS
+               for k, r in enumerate(chain))
+    with pytest.raises(ValueError, match="operand"):
+        tex.eltwise_chain(0)
+
+
+#: conv plans whose input passes 2^31 elements (never allocated here):
+#: (N, C, K, X, Y, R, stride), block, grid
+CONV_BIG = {
+    "just-over": ((130, 64, 8, 512, 512, 1, 1),
+                  {"N": 2, "C": 64, "K": 8, "X": 16, "Y": 512},
+                  [("N", 65), ("X", 32)]),
+    "resnet-like-4096": ((4096, 256, 64, 56, 56, 3, 1),
+                         {"N": 8, "C": 64, "K": 64, "X": 14, "Y": 14},
+                         [("N", 512), ("C", 4), ("X", 4), ("Y", 4)]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CONV_BIG))
+def test_conv_batch_split_past_2_31(case):
+    """The batch is cut at multiples of the plan's N block so that each
+    launch's input and output stay within the kernel's 32-bit offsets, as
+    few launches as that allows; each part's geometry is valid."""
+    (N, C, K, X, Y, R, st), block, grid = CONV_BIG[case]
+    plan = _hand_conv_plan(N, C, K, X, Y, R, st, block, grid)
+    XI, YI = tex.input_extent(plan.layer)
+    assert N * C * XI * YI >= 2 ** 31
+    parts = tex.conv_batch_parts(plan, XI, YI)
+    assert len(parts) > 1
+    assert _covers_once(parts, 0, N)
+    per_image = max(C * XI * YI, K * X * Y)
+    for n0, n1 in parts:
+        assert n0 % block["N"] == 0 and (n1 - n0) % block["N"] == 0
+        assert (n1 - n0) * per_image <= tex.CONV_MAX_ELEMS
+        launch = tex.conv_launch(plan, XI, YI, n1 - n0)
+        assert launch.N == n1 - n0
+        assert launch.grid[2] == (n1 - n0) // block["N"] * launch.sub["N"]
+    # one block more a part would pass the limit
+    size = parts[0][1] - parts[0][0]
+    assert (size + block["N"]) * per_image > tex.CONV_MAX_ELEMS
+    assert len(parts) == -(-N // size)
+    with pytest.raises(ValueError, match="32-bit|at most"):
+        tex.conv_launch(plan, XI, YI)
+    small = _hand_conv_plan(*CONV_HAND["k8-3x3"])
+    assert tex.conv_batch_parts(small, *tex.input_extent(small.layer)) == \
+        [(0, small.layer.dim("N"))]
+
+
+def test_conv_batch_split_refuses_a_block_past_2_31():
+    plan = _hand_conv_plan(64, 64, 8, 1024, 1024, 1, 1,
+                           {"N": 64, "C": 64, "K": 8, "X": 16, "Y": 1024},
+                           [("X", 64)])
+    with pytest.raises(ValueError, match="32-bit"):
+        tex.conv_batch_parts(plan, *tex.input_extent(plan.layer))

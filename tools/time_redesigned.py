@@ -15,6 +15,11 @@ network forward) and 20 calls back to back (``stream_ms``):
 - layer-tier attention at the Zamba2-1.2B shared block's plan (16x16)
   beside ``F.scaled_dot_product_attention`` in float32;
 - fc at ResNet-50 b64's plan beside ``torch.matmul``;
+- eltwise per ResNet-50 b64 forward: every distinct eltwise plan (two
+  operands), its time times its uses summed, beside ``torch.add``;
+- the SSD intra-chunk term at the Mamba2-1.3B and Zamba2-1.2B prefill
+  shapes (bf16, 8 requests), per Zamba2-1.2B serve prefill (38 launches),
+  and at Zamba2-1.2B's shape with 1, 2 and 4 requests;
 - flash attention at the Qwen2.5-3B and Zamba2-1.2B prefill shapes (bf16,
   causal) beside SDPA, and per serve prefill of both (36 and 6 launches);
 - the wall time of one prefill of each model at full width (8 x 512
@@ -57,6 +62,7 @@ def main(argv=None) -> int:
     from repro_torch.core.solver import solve
     from repro_torch.hw.presets import eyeriss_multinode
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan
     from repro_torch.lower import calibrate as cal
     from repro_torch.lower import exec as lx
     from repro_torch.lower import lower_network, lower_scheme
@@ -96,6 +102,25 @@ def main(argv=None) -> int:
     res["conv2d_per_forward_ms"] = fwd["conv2d"]
     res["conv_plans"] = per_plan
 
+    # eltwise, per ResNet-50 b64 forward
+    uses, plans = collections.Counter(), {}
+    for n in nplan.order:
+        plan = nplan.plans[n]
+        if plan.kind == "eltwise":
+            k = cs.plan_key(plan)
+            uses[k] += 1
+            plans.setdefault(k, plan)
+    fwd = {"eltwise": 0.0, "add": 0.0}
+    for k, plan in plans.items():
+        copies = cs.cold_copies(lx.make_inputs(plan, seed=0, device=dev))
+        fwd["eltwise"] += uses[k] * cs.stream_ms([functools.partial(
+            lx.run_eltwise, plan, [c["A"], c["B"]]) for c in copies])
+        fwd["add"] += uses[k] * cs.stream_ms([functools.partial(
+            torch.add, c["A"], c["B"]) for c in copies])
+        del copies
+    res["eltwise_per_forward_ms"] = fwd["eltwise"]
+    res["add_per_forward_ms"] = fwd["add"]
+
     # layer-tier attention at the Zamba2-1.2B plan, 16x16 template
     plan = lower_scheme(cal.scheme_variants(
         attention("zamba2.attn", 8, 32, 512, 64), hw, 0)[0], hw)
@@ -133,6 +158,28 @@ def main(argv=None) -> int:
     for what, t in per_prefill.items():
         res[f"{what}_per_prefill_ms"] = t
     del q, k, v
+
+    # the SSD intra-chunk term at the serve prefills' shapes (bf16), and
+    # at Zamba2-1.2B's with fewer requests
+    zamba = cs.SSD_CASES[1]
+    assert zamba[0] == "zamba2-1.2b"
+    cases = [*cs.SSD_CASES[:2],
+             *((f"{zamba[0]}_b{B}", B, *zamba[2:]) for B in (1, 2, 4))]
+    for case, B, S, H, P, N, Lc, dtype in cases:
+        NC = S // Lc
+        x = torch.randn((B, H, NC, Lc, P), generator=g,
+                        device=dev).to(torch.bfloat16)
+        dt = torch.rand((B, H, NC, Lc), generator=g, device=dev) * 0.1 \
+            + 1e-3
+        a = -torch.exp(torch.randn((H,), generator=g, device=dev) * 0.5)
+        acum = torch.cumsum(dt * a[None, :, None, None], dim=-1)
+        b = torch.randn((B, NC, Lc, N), generator=g, device=dev) * 0.5
+        c = torch.randn((B, NC, Lc, N), generator=g, device=dev) * 0.5
+        res[f"ssd_{case}_ms"] = cs.stream_ms(
+            lambda: ssd_scan.ssd_intra_chunk(x, dt, acum, b, c))
+        del x, dt, acum, b, c
+    res["ssd_per_prefill_ms"] = res["ssd_zamba2-1.2b_ms"] * \
+        cs.SERVE["zamba2-1.2b"]["ssd_intra_chunk"]
 
     for arch in () if args.no_prefill else cs.SERVE:
         cfg = get_config(arch)
