@@ -29,6 +29,26 @@ Phases, in order; any failure exits non-zero:
    every layer within 1e-3 of the torch oracles; measure_network, its
    predicted latency recorded as drift;
 4. the same for AlexNet b64;
+4b. the fused tier (``lower/fuse.py``: the whole plan replayed as one CUDA
+   graph over the same kernels) for ResNet-50 b64 and AlexNet b64: a
+   replay with ``keep="all"`` bit for bit equal to the per-layer run of
+   phases 3-4, within 1e-3 of the torch oracles; the launch counters set
+   to 0 just before one replay and read just after (each must equal the
+   plan's layer count of its kind); the capture's seconds; the
+   ``keep="boundary"`` variant (the one measured) bit for bit equal to the
+   per-layer run on what it returns; three ``measure_network`` calls
+   (fused, each the min of 3 after 1 warm-up) beside phase 3-4's
+   per-layer time; one replay under ``torch.profiler``; peak memory; a
+   fresh lowering of the same schedule served from the cache with zero
+   recaptures; the memory after ``clear_cache()``, which must be back
+   within ``MEMORY_SLACK`` of the allocation before the capture (the
+   inputs alone);
+4c. ``autotune_network`` on AlexNet b64 (k=3) on the card, every
+   candidate verified within 1e-3 on the fused tier, its report printed;
+   then the quickstart's steps (``repro_torch.quickstart``): the service
+   solve and its store hit, random search, conv3 and AlexNet b1 verified
+   and measured on both tiers, and the reference's headline (AlexNet b64:
+   162.82 mJ, 66.56 ms);
 5. the calibration sweep on the card, 4x4 template: ``run_calibration``
    (full sweep; every pair verified within 1e-3, >= 20 pairs, launches per
    kind = (1 + iters) x its pairs, counters set to 0 just before and read
@@ -107,6 +127,7 @@ ROOT = Path(__file__).resolve().parent
 KERNEL_TOL = 1e-5
 BF16_TOL = 8e-3
 NETWORK_TOL = 1e-3
+MEMORY_SLACK = 8 << 20      # bytes clear_cache() may leave allocated
 CONSISTENCY_TOL = 1e-3
 
 #: published peaks (NVIDIA H100 data sheet, dense, no sparsity): FP32 on
@@ -256,6 +277,159 @@ def calibration_phase(dev, out_dir: Path):
                       "samples": report.get("samples")}}
 
 
+def fused_phase(dev, nplans, scheds, predicted, e2e):
+    """Phase 4b: the fused tier for ResNet-50 b64 and AlexNet b64 on the
+    16x16 template (see the module docstring)."""
+    import torch
+    from repro_torch.lower import (cache_stats, clear_cache, compare_network,
+                                   fused_runner, lower_network,
+                                   make_network_inputs, measure_network,
+                                   network_runner)
+    from repro_torch.lower import exec as lx
+    out = {}
+    clear_cache()
+    for net_name in ("resnet", "alexnet"):
+        key = (net_name, "eyeriss_16x16")
+        nplan = nplans[key]
+        inputs = make_network_inputs(nplan, seed=0, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()     # the inputs alone
+        want = {n: v.to(dev) for n, v in
+                network_runner(nplan, inputs, device=dev)().outputs.items()}
+        torch.cuda.reset_peak_memory_stats()
+        run = network_runner(nplan, inputs, device=dev, fused=True)
+        first_ms = host_ms(run)[1]
+        net = fused_runner(nplan, device=dev)
+        capture_s = net.capture_seconds[("net", "all")]
+        torch.cuda.synchronize()
+        lx.reset_launch_counts()
+        ex = run()
+        launches = dict(lx.LAUNCHES)
+        expect = collections.Counter(nplan.plans[n].kind
+                                     for n in nplan.order)
+        for kind, count in launches.items():
+            if count != expect.get(kind, 0):
+                raise AssertionError(f"fused {net_name}: {kind} launched "
+                                     f"{count} times a replay, plan has "
+                                     f"{expect.get(kind, 0)}")
+        unequal = [n for n in nplan.order
+                   if not torch.equal(ex.outputs[n], want[n])]
+        if unequal:
+            raise AssertionError(f"fused {net_name}: {len(unequal)} layer "
+                                 f"outputs differ from the per-layer run, "
+                                 f"first {unequal[0]}")
+        ver = compare_network(nplan, ex, inputs, tol=NETWORK_TOL)
+        if not ver.ok:
+            raise AssertionError(f"fused {net_name}: layer "
+                                 f"{ver.worst_layer} rel err "
+                                 f"{ver.max_rel_err:.3e} > {NETWORK_TOL}")
+        del ex
+        # the variant measure_network times: equal on what it returns
+        bound = network_runner(nplan, inputs, device=dev, keep="boundary",
+                               fused=True)
+        got = bound().outputs
+        unequal = [n for n, v in got.items() if not torch.equal(v, want[n])]
+        if not got or unequal:
+            raise AssertionError(f"fused {net_name}: the boundary variant "
+                                 f"returned {len(got)} outputs, "
+                                 f"{len(unequal)} differ from the per-layer "
+                                 f"run")
+        n_boundary = len(got)
+        del got, want
+        ms = [measure_network(nplan, inputs, device=dev, iters=3, warmup=1,
+                              predicted_seconds=predicted[key]) * 1e3
+              for _ in range(3)]
+        profile = device_profile(bound)
+        log(f"[profile] fused {net_name}: {json.dumps(profile)}")
+        peak = torch.cuda.max_memory_allocated()
+        # a fresh lowering of the same schedule: a cache hit, no capture
+        traces, hits = net.traces, cache_stats()["hits"]
+        sched, graph, hw = scheds[key]
+        again = lower_network(sched, graph, hw)
+        if fused_runner(again, device=dev) is not net:
+            raise AssertionError(f"fused {net_name}: a fresh lowering "
+                                 "missed the cache")
+        network_runner(again, inputs, device=dev, keep="boundary",
+                       fused=True)()
+        if net.traces != traces or cache_stats()["hits"] != hits + 2:
+            raise AssertionError(f"fused {net_name}: the cache hit "
+                                 f"captured again ({net.traces} captures, "
+                                 f"{traces} before)")
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        net_bytes = net.nbytes
+        del run, bound, net, again
+        clear_cache()
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_allocated()
+        if after > base + MEMORY_SLACK:
+            raise AssertionError(f"fused {net_name}: clear_cache() left "
+                                 f"{after - base} bytes above the "
+                                 "allocation before the capture")
+        del inputs
+        per_ms = e2e[net_name]["measure_network_ms"]
+        out[net_name] = {
+            "launches": launches, "max_rel_err": ver.max_rel_err,
+            "bitwise_equal_layers": len(nplan.order),
+            "first_call_ms": first_ms, "capture_seconds": capture_s,
+            "captures": traces, "measure_network_ms": ms,
+            "measure_network_spread_ms": max(ms) - min(ms),
+            "per_layer_measure_network_ms": per_ms, "profile": profile,
+            "boundary_outputs": n_boundary, "peak_bytes": peak,
+            "base_bytes": base, "held_bytes": held, "net_bytes": net_bytes,
+            "after_clear_bytes": after,
+            "reserved_after_clear_bytes": torch.cuda.memory_reserved()}
+        log(f"[fused] {net_name} b64: {len(nplan.order)} layers bit for bit "
+            f"equal to the per-layer run ({n_boundary} in the boundary "
+            f"variant), rel err {ver.max_rel_err:.3e}, "
+            f"launches a replay {launches}, capture {capture_s:.3f} s "
+            f"(first call {first_ms:.1f} ms), measure_network "
+            f"{', '.join(f'{m:.3f}' for m in ms)} ms (spread "
+            f"{max(ms) - min(ms):.3f}; per-layer {per_ms:.2f} ms), peak "
+            f"{peak / 2**30:.2f} GiB, held {held / 2**30:.2f} GiB (the "
+            f"network {net_bytes / 2**30:.2f}), after clear_cache() "
+            f"{after} B (before the capture, the inputs alone: {base} B)")
+    return out
+
+
+def service_phase(dev):
+    """Phase 4c: autotune AlexNet b64 (k=3) on the card, then the
+    quickstart's steps."""
+    import tempfile
+    from repro_torch import quickstart
+    from repro_torch.hw.presets import eyeriss_multinode
+    from repro_torch.lower import clear_cache
+    from repro_torch.service import ScheduleStore, autotune_network
+    from repro_torch.workloads.nets import get_net
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-store-") as root:
+        report = autotune_network(get_net("alexnet", batch=64),
+                                  eyeriss_multinode(),
+                                  store=ScheduleStore(root), k=3, iters=3,
+                                  device=dev)
+    clear_cache()
+    log(f"[autotune] {json.dumps(report)}")
+    if report["skipped"] or report["n_executed"] != 3:
+        raise AssertionError(f"autotune: {report['n_executed']} of 3 "
+                             f"candidates ran: {report['skipped']}")
+    worst = max(e["max_rel_err"] for e in report["candidates"])
+    if not worst <= NETWORK_TOL or not report.get("promoted"):
+        raise AssertionError(f"autotune: rel err {worst:.3e}, promoted "
+                             f"{report.get('promoted')}")
+    q = quickstart.run(dev)
+    clear_cache()
+    if (f"{q['energy_mj']:.2f}", f"{q['latency_ms']:.2f}") != \
+            ("162.82", "66.56"):
+        raise AssertionError(f"quickstart: headline {q['energy_mj']} mJ, "
+                             f"{q['latency_ms']} ms")
+    if q["sources"] != ("cold", "cached") or not (q["plan_ok"]
+                                                  and q["network_ok"]):
+        raise AssertionError(f"quickstart: {q}")
+    log(f"[quickstart] {json.dumps(q)}")
+    return report, q
+
+
 def explain_phase():
     """Phase 6: the solver flight recorder on AlexNet b64."""
     from repro_torch.core.solver import solve
@@ -329,7 +503,8 @@ def device_profile(runner):
                  if f"{f}_kernel" in k), None)
         if group is None:
             group = "memcpy_dtoh" if "DtoH" in k else \
-                "memcpy_htod" if "HtoD" in k else "other"
+                "memcpy_htod" if "HtoD" in k else \
+                "memcpy_dtod" if "DtoD" in k else "other"
         groups[group] += us / 1e3
     wall_ms = ex.seconds * 1e3
     busy = sum(groups.values())
@@ -868,7 +1043,7 @@ def main(argv=None) -> int:
                ("alexnet", eyeriss_multinode()),
                ("resnet", eyeriss_multinode(nodes=4, pe=8)),
                ("alexnet", eyeriss_multinode(nodes=4, pe=8))]
-    nplans, predicted = {}, {}
+    nplans, predicted, scheds = {}, {}, {}
     for net_name, hw in configs:
         net = get_net(net_name, batch=64)
         t0 = time.perf_counter()
@@ -878,6 +1053,7 @@ def main(argv=None) -> int:
             raise RuntimeError(f"{net_name}/{hw.name}: "
                                f"{nplan.invalid_layers()}")
         nplans[(net_name, hw.name)] = nplan
+        scheds[(net_name, hw.name)] = (sched, net, hw)
         predicted[(net_name, hw.name)] = sched.total_latency_cycles \
             / hw.freq_hz
         log(f"[solve] {net_name} b64 on {hw.name}: "
@@ -1048,6 +1224,10 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     detail["e2e"] = e2e
 
+    # 4b./4c. the fused tier; autotune and the quickstart -------------------
+    detail["fused"] = fused_phase(dev, nplans, scheds, predicted, e2e)
+    detail["autotune"], detail["quickstart"] = service_phase(dev)
+
     # 5./6. calibration, the watchdog, the flight recorder -------------------
     out_dir = ROOT / "chiprun_out"
     detail["calibration"] = calibration_phase(dev, out_dir)
@@ -1067,6 +1247,7 @@ def main(argv=None) -> int:
 
     # 10. the kernels line ---------------------------------------------------
     kernels = []
+    fused_launches = detail["fused"]["resnet"]["launches"]
     for kind in ("fc", "conv", "pool", "eltwise"):
         mine = [r for r in rows if r["kind"] == kind]
         res = [r for r in mine if r["resnet_uses"]]
@@ -1078,6 +1259,7 @@ def main(argv=None) -> int:
             "name": kind, "route": "cuda", "path": PATHS[kind],
             "source": lx.SOURCE, "replaces": lx.REPLACES[kind],
             "launches": e2e["resnet"]["launches"][kind],
+            "launches_fused": fused_launches[kind],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "max_rel_err": max(r["max_rel_err"] for r in mine),
             "ms": per_forward("ms"),

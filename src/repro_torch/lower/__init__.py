@@ -12,13 +12,18 @@ against the measured times, at two tiers:
              kernel plans + segment buffer schedule w/ on-chip forwarding)
           -> netexec.network_runner / execute_network / verify_network /
              measure_network (drift: netexec.record_latency_drift)
+  fused tier
+      fuse.fused_runner                  (FusedNetwork: the whole net or
+         one segment replayed as one CUDA graph over the port's kernels,
+         process-wide cache keyed by fuse.plan_signature; the default of
+         measure_network; network_runner(fused=True),
+         exec.plan_runner(fused=True))
   calibration
       calibrate.run_calibration          (per-kernel Spearman + fit,
-         backend "cuda" or "cpu")
+         backend "cuda", "cuda-graph" (fused) or "cpu")
       calibrate.run_network_calibration  (end-to-end network Spearman)
 
 ``plan.py`` and ``netplan.py`` are byte-identical copies of ``repro``'s.
-The fused tier (``fuse.py``) is ported in a later slice.
 """
 from .plan import GridAxis, KernelPlan, lower_scheme, lower_schedule
 from .exec import (LAUNCHES, execute_plan, make_inputs, measure_plan,
@@ -32,6 +37,8 @@ from .netexec import (NetworkExecution, NetworkVerification,
                       measure_network, network_runner,
                       record_latency_drift, reference_network,
                       verify_network)
+from .fuse import (FusedNetwork, cache_stats, clear_cache,
+                   compiled_plan_fn, fused_runner, plan_signature)
 from .calibrate import (Calibration, default_hw, default_network_sweep,
                         default_sweep, fit_calibration, load_record,
                         run_calibration, run_network_calibration,
@@ -48,6 +55,8 @@ __all__ = [
     "execute_network", "from_reference_inputs", "make_network_inputs",
     "measure_network", "network_runner", "record_latency_drift",
     "reference_network", "verify_network",
+    "FusedNetwork", "cache_stats", "clear_cache", "compiled_plan_fn",
+    "fused_runner", "plan_signature",
     "Calibration", "default_hw", "default_network_sweep", "default_sweep",
     "fit_calibration", "load_record", "run_calibration",
     "run_network_calibration", "save_record", "scheme_variants", "spearman",

@@ -11,16 +11,19 @@ detailed model's predicted latency against the measured wall clock:
     seconds against the roofline's cycle terms (compute, DRAM, GBUF) plus a
     per-grid-step overhead, exported as a ``cost_model.Calibration``.
 
-``device=None`` is the card; ``device="cpu"`` runs the plain versions.  The
-record's ``backend`` (and the fit's) is ``"cuda"`` or ``"cpu"``
-(``netexec.backend_label``), so a fit of one never prices the other, nor
-the JAX package's ``interpret``/``pallas``/``compiled`` fits.  The record
+``device=None`` is the card; ``device="cpu"`` runs the plain versions.
+``fused=True`` (``--fused``, the counterpart of the reference's
+``--compiled``) measures the fused tier: each plan or network replayed as a
+CUDA graph (``fuse.py``).  The record's ``backend`` (and the fit's) is
+``"cuda"``, ``"cuda-graph"`` or ``"cpu"`` (``netexec.backend_label``), so a
+fit of one never prices another, nor the JAX package's
+``interpret``/``pallas``/``compiled`` fits.  The record
 schema is the JAX package's, so ``obs.watch.check_calibration_record``
 reads it.  Every measured pair is also recorded as latency drift
 (``netexec.record_latency_drift``, source ``calibration``).
 
     python -m repro_torch.lower.calibrate [--network] [--full] [--iters N]
-                                          [--out F] [--device cpu]
+                                          [--out F] [--device cpu] [--fused]
 """
 from __future__ import annotations
 
@@ -163,14 +166,16 @@ def fit_calibration(pairs: List[Dict], hw: HWTemplate,
 def run_calibration(hw: Optional[HWTemplate] = None, quick: bool = True,
                     layers: Optional[Sequence[LayerSpec]] = None,
                     n_variants: int = 3, device=None, verify: bool = True,
-                    iters: int = 2, seed: int = 0) -> Dict:
+                    iters: int = 2, seed: int = 0,
+                    fused: bool = False) -> Dict:
     """Full calibration sweep on ``device`` (the card unless ``"cpu"``);
     returns a JSON-safe record whose ``calibration`` round-trips through
     ``Calibration.from_json_dict``.  Each pair launches its kernel once for
     the warm-up and the numerics check together, then ``iters`` times for
-    the timing (min), fenced by ``torch.cuda.synchronize``."""
+    the timing (min), fenced by ``torch.cuda.synchronize``; with ``fused``
+    each plan replays as a one-kernel CUDA graph (``plan_runner``)."""
     dev = kbackend.resolve_device(device)
-    backend = backend_label(dev)
+    backend = backend_label(dev, fused)
     hw = hw if hw is not None else default_hw()
     layers = list(layers) if layers is not None else default_sweep(quick)
     pairs: List[Dict] = []
@@ -195,7 +200,7 @@ def run_calibration(hw: Optional[HWTemplate] = None, quick: bool = True,
             # one runner serves the warm-up, the numerics check and the
             # timing: the warm-up's output is the one checked
             inputs = make_inputs(plan, seed, dev)
-            run = plan_runner(plan, dev)
+            run = plan_runner(plan, dev, fused)
             out = run(inputs)
             _sync(dev)
             if verify:
@@ -253,18 +258,19 @@ def default_network_sweep(quick: bool = True):
 def run_network_calibration(hw: Optional[HWTemplate] = None,
                             quick: bool = True, nets=None, device=None,
                             iters: int = 2, seed: int = 0,
-                            tol: float = 1e-3) -> Dict:
+                            tol: float = 1e-3, fused: bool = False) -> Dict:
     """End-to-end network calibration on ``device``: each net is solved,
     lowered to a ``NetworkPlan``, verified against the whole-graph
     reference pass, and its measured wall clock compared with the
-    schedule's predicted latency (``spearman_network``)."""
+    schedule's predicted latency (``spearman_network``); ``fused`` runs
+    the fused tier (``network_runner``)."""
     from ..core.solver import solve
     from .netexec import (compare_network, make_network_inputs,
                           measure_network, network_runner)
     from .netplan import lower_network
 
     dev = kbackend.resolve_device(device)
-    backend = backend_label(dev)
+    backend = backend_label(dev, fused)
     hw = hw if hw is not None else default_hw()
     nets = list(nets) if nets is not None else default_network_sweep(quick)
     entries: List[Dict] = []
@@ -283,7 +289,7 @@ def run_network_calibration(hw: Optional[HWTemplate] = None,
             continue
         # one runner serves verification, warm-up and timing
         inputs = make_network_inputs(nplan, seed, dev)
-        run = network_runner(nplan, inputs, dev)
+        run = network_runner(nplan, inputs, dev, fused=fused)
         ver = compare_network(nplan, run(), inputs, tol)
         entry = {
             "net": net.name,
@@ -353,14 +359,18 @@ def main(argv=None) -> int:
                         help="write the JSON record here")
     parser.add_argument("--device", default=None,
                         help="cuda (the default) or cpu")
+    parser.add_argument("--fused", action="store_true",
+                        help="measure the fused tier (CUDA graph replays) "
+                             "instead of kernels launched one by one")
     args = parser.parse_args(argv)
     if args.network:
         record = run_network_calibration(quick=not args.full,
                                          iters=args.iters,
-                                         device=args.device)
+                                         device=args.device,
+                                         fused=args.fused)
     else:
         record = run_calibration(quick=not args.full, iters=args.iters,
-                                 device=args.device)
+                                 device=args.device, fused=args.fused)
     if args.out:
         save_record(record, args.out)
     print(json.dumps({k: v for k, v in record.items()

@@ -16,14 +16,17 @@ Beside each kernel sits its plain PyTorch version, which walks ``plan.grid``
 in order and accumulates into output blocks exactly as the Pallas kernel
 does: the port's counterpart of interpret mode.  A wrapper takes the plain
 version only for tensors on the CPU; for CUDA tensors it launches the kernel
-or raises.  ``LAUNCHES`` counts kernel launches per family.
+or raises.  ``LAUNCHES`` counts kernel launches per family; a launch
+captured into a CUDA graph (``fuse.py``) counts at each replay.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
 import itertools
+import threading
 import time
 from typing import Callable, Dict, Iterator, List, Mapping, Optional, \
     Sequence, Tuple
@@ -98,9 +101,33 @@ _INPUT_NAMES = {"fc": ("I", "W"), "conv": ("I", "W"), "pool": ("I",),
                 "eltwise": ("A", "B"), "attention": ("Q", "K", "V")}
 
 
+_recording = threading.local()
+
+
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def _count(kind: str, n: int = 1) -> None:
+    """Add ``n`` launches of ``kind`` to ``LAUNCHES``, or, while this thread
+    captures a CUDA graph (``recording_launches``), to the capture's tally,
+    which every replay of the graph adds to ``LAUNCHES``."""
+    tally = getattr(_recording, "tally", None)
+    (LAUNCHES if tally is None else tally)[kind] += n
+
+
+@contextlib.contextmanager
+def recording_launches() -> Iterator[Dict[str, int]]:
+    """Within the block, this thread's launches go to the yielded tally
+    and not to ``LAUNCHES``: a launch inside a graph capture runs nothing
+    until the graph replays."""
+    prev = getattr(_recording, "tally", None)
+    _recording.tally = tally = dict.fromkeys(LAUNCHES, 0)
+    try:
+        yield tally
+    finally:
+        _recording.tally = prev
 
 
 def _check_kind(plan: KernelPlan) -> None:
@@ -324,7 +351,7 @@ def run_fc(plan: KernelPlan, x: torch.Tensor,
             x.data_ptr(), w.data_ptr(), out.data_ptr(),
             None if ws is None else ws.data_ptr(), _fc_params(launch, vec),
             backend.stream_handle(x.device)))
-    LAUNCHES["fc"] += 1
+    _count("fc")
     return out
 
 
@@ -683,7 +710,7 @@ def run_conv(plan: KernelPlan, x: torch.Tensor,
             backend.check_launch("kapla_conv", lib.kapla_conv(
                 x[n0:n1].data_ptr(), w.data_ptr(), out[n0:n1].data_ptr(),
                 prm, backend.stream_handle(x.device)))
-            LAUNCHES["conv"] += 1
+            _count("conv")
     return out
 
 
@@ -729,7 +756,7 @@ def run_pool(plan: KernelPlan, x: torch.Tensor) -> torch.Tensor:
         backend.check_launch("kapla_pool", lib.kapla_pool(
             x.data_ptr(), out.data_ptr(), prm,
             backend.stream_handle(x.device)))
-    LAUNCHES["pool"] += 1
+    _count("pool")
     return out
 
 
@@ -796,7 +823,7 @@ def run_eltwise(plan: KernelPlan,
                 ptrs, dsts[k].data_ptr(),
                 _params([len(srcs), out.numel(), int(vec)]),
                 backend.stream_handle(dev)))
-            LAUNCHES["eltwise"] += 1
+            _count("eltwise")
     return out
 
 
@@ -903,8 +930,8 @@ def run_attention(plan: KernelPlan, q: torch.Tensor, k: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), prm,
             (ctypes.c_double * 1)(D ** -0.5),
             backend.stream_handle(q.device)))
-    LAUNCHES["attention"] += 1
-    LAUNCHES["attention_mma"] += launch[-1]
+    _count("attention")
+    _count("attention_mma", launch[-1])
     return out if Dk == D else out[..., :D].contiguous()
 
 
@@ -973,16 +1000,22 @@ _RUN = {"fc": run_fc, "conv": run_conv, "pool": run_pool,
         "attention": run_attention}
 
 
-def plan_runner(plan: KernelPlan, device=None) -> Callable[[Mapping],
-                                                          torch.Tensor]:
+def plan_runner(plan: KernelPlan, device=None,
+                fused: bool = False) -> Callable[[Mapping], torch.Tensor]:
     """``inputs -> output`` for the plan on ``device`` (the card unless the
-    caller passes ``"cpu"``); inputs may be tensors or numpy arrays."""
+    caller passes ``"cpu"``); inputs may be tensors or numpy arrays.  With
+    ``fused=True`` the plan's step (``fuse.compiled_plan_fn``) replays as a
+    one-kernel CUDA graph on the card (``fuse.plan_graph_runner``); on the
+    CPU it runs the same step through the plain version."""
     if not plan.valid:
         raise ValueError(
             f"cannot execute invalid plan for layer {plan.layer.name!r}: "
             f"{plan.invalid_reason}")
     _check_kind(plan)
     dev = backend.resolve_device(device)
+    if fused:
+        from .fuse import plan_graph_runner    # lazy: fuse imports netexec
+        return plan_graph_runner(plan, dev)
     names = _INPUT_NAMES[plan.kind]
     if plan.kind == "eltwise":
         return lambda inputs: run_eltwise(

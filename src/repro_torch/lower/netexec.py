@@ -2,13 +2,20 @@
 
 The port of ``repro/lower/netexec.py``.  The layer tier (``exec.py``) runs
 one kernel; this module chains every kernel of a lowered network in
-topological order, realizing the plan's buffer schedule:
+topological order, realizing the plan's buffer schedule, at one of two
+tiers:
 
-  * **forwarded** tensors (segment-internal, see ``netplan``) stay device
-    tensors handed from the producing kernel to its consumers;
-  * **boundary** tensors go to host numpy after the producer
+  * **per-layer** (``fused=False``): each kernel launched from Python;
+    **forwarded** tensors (segment-internal, see ``netplan``) stay device
+    tensors handed from the producing kernel to its consumers, and
+    **boundary** tensors go to host numpy after the producer
     (``.cpu().numpy()``) and back to the device when consumed: the
-    execution analogue of a DRAM store + reload.
+    execution analogue of a DRAM store + reload;
+  * **fused** (``fused=True``, ``fuse.py``): the same kernels replayed as
+    one CUDA graph, every tensor on the device; ``roundtrips`` then lists
+    the boundary tensors, which stay on the device.  ``measure_network``
+    measures this tier unless told otherwise, as the reference measures
+    its compiled tier.
 
 Producer and consumer shapes line up only approximately (conv halos,
 flattening before FC, LSTM gate merges, inception concat).  One canonical
@@ -219,6 +226,7 @@ class NetworkExecution:
     roundtrips: Tuple[str, ...]     # materialized to host numpy
     seconds: float
     device: str = "cuda"
+    tier: str = "per-layer"         # or "fused" (``fuse.py``)
 
 
 def _check_executable(nplan: NetworkPlan) -> None:
@@ -235,7 +243,8 @@ def _sync(dev: torch.device) -> None:
 
 
 def network_runner(nplan: NetworkPlan, inputs: Mapping, device=None,
-                   keep: str = "all") -> Callable[[], NetworkExecution]:
+                   keep: str = "all", fused: bool = False
+                   ) -> Callable[[], NetworkExecution]:
     """Build a reusable ``() -> NetworkExecution`` for the plan on
     ``device`` (the card unless the caller passes ``"cpu"``).
 
@@ -244,12 +253,35 @@ def network_runner(nplan: NetworkPlan, inputs: Mapping, device=None,
     order; forwarded tensors pass between kernels on the device, boundary
     tensors round-trip through host numpy.  ``keep="boundary"`` returns
     only the round-tripped outputs (the measurement path), ``keep="all"``
-    every layer output (verification)."""
+    every layer output (verification).
+
+    ``fused=True`` runs the fused tier instead: ``fuse.fused_runner``'s
+    network from the process-wide cache; each call copies the inputs into
+    its buffers, replays its graph and synchronises.  With ``keep="all"``
+    the outputs are copies, this call's alone.  With ``keep="boundary"``
+    (the measurement path) they are the cached network's own tensors,
+    shared by every runner of an equal plan: the next fused call of that
+    plan, from any runner or thread, overwrites them."""
     if keep not in ("all", "boundary"):
         raise ValueError(f"keep must be 'all' or 'boundary', got {keep!r}")
-    dev = backend.resolve_device(device)
     _check_executable(nplan)
+    dev = backend.resolve_device(device)
     inputs = {k: as_tensor(v, dev) for k, v in inputs.items()}
+    if fused:
+        from .fuse import fused_runner          # lazy: fuse imports this
+        net = fused_runner(nplan, device=dev)
+        fwd = nplan.forwarded()
+        boundary = tuple(n for n in nplan.order if n not in fwd)
+
+        def run_fused() -> NetworkExecution:
+            t0 = time.perf_counter()
+            outputs = net(inputs, keep=keep, copy=keep == "all")
+            _sync(dev)
+            return NetworkExecution(
+                outputs=outputs, forwarded=fwd, roundtrips=boundary,
+                seconds=time.perf_counter() - t0, device=str(dev),
+                tier="fused")
+        return run_fused
     steps = []
     for name in nplan.order:
         fn, srcs = _layer_fn(nplan, name, inputs)
@@ -360,13 +392,16 @@ _m_drift = metrics.histogram(
     ("source", "backend"), buckets=metrics.DRIFT_BUCKETS)
 
 
-def backend_label(device) -> str:
+def backend_label(device, fused: bool = False) -> str:
     """The ``backend`` label of a run on ``device`` (a ``torch.device`` or
-    its name): ``"cuda"`` for the kernels on the card, ``"cpu"`` for the
-    plain versions.  The JAX package's labels (interpret, pallas,
+    its name): ``"cuda"`` for the kernels launched one by one on the card,
+    ``"cuda-graph"`` for the fused tier's graph replays there, ``"cpu"``
+    for the plain versions.  The JAX package's labels (interpret, pallas,
     compiled) are never reused, so a fit or a drift series of one never
     prices the other."""
-    return "cuda" if torch.device(device).type == "cuda" else "cpu"
+    if torch.device(device).type != "cuda":
+        return "cpu"
+    return "cuda-graph" if fused else "cuda"
 
 
 def record_latency_drift(predicted_seconds: Optional[float],
@@ -396,28 +431,35 @@ def measure_network(nplan: NetworkPlan, inputs: Optional[Mapping] = None,
                     device=None, iters: int = 3, warmup: int = 1,
                     runner: Optional[Callable[[], NetworkExecution]] = None,
                     predicted_seconds: Optional[float] = None,
-                    drift_source: str = "netexec") -> float:
+                    drift_source: str = "netexec",
+                    fused: bool = True) -> float:
     """Wall-clock seconds of one end-to-end network execution: min over
-    ``iters`` after ``warmup`` runs, host round-trips included.  Pass an
-    existing ``network_runner`` (with ``warmup=0`` if it already ran) to
-    reuse it.  With ``predicted_seconds`` the pair is recorded as drift
-    (``record_latency_drift``) under ``drift_source``, labelled with the
-    device the runs went to (``backend_label``)."""
+    ``iters`` after ``warmup`` runs.  Without a ``runner`` it measures the
+    fused tier (``fused=True``: graph replays, boundary outputs only, as
+    the reference measures its compiled tier); ``fused=False`` measures
+    the per-layer tier, host round-trips included.  Pass an existing
+    ``network_runner`` (with ``warmup=0`` if it already ran) to reuse it;
+    its tier is then the runner's.  With ``predicted_seconds`` the pair is
+    recorded as drift (``record_latency_drift``) under ``drift_source``,
+    labelled with the device and tier the runs went to
+    (``backend_label``)."""
     if runner is None:
         inputs = inputs if inputs is not None \
             else make_network_inputs(nplan, device=device)
-        runner = network_runner(nplan, inputs, device, keep="boundary")
+        runner = network_runner(nplan, inputs, device, keep="boundary",
+                                fused=fused)
         warmup = max(1, warmup)
     for _ in range(warmup):
         runner()
-    best, dev = math.inf, None
+    best, label = math.inf, None
     for _ in range(max(1, iters)):
         ex = runner()
-        best, dev = min(best, ex.seconds), ex.device
+        best = min(best, ex.seconds)
+        label = backend_label(ex.device, ex.tier == "fused")
         del ex      # free this run's outputs before the next one starts
     if predicted_seconds is not None:
         record_latency_drift(predicted_seconds, best, source=drift_source,
-                             backend=backend_label(dev))
+                             backend=label)
     return best
 
 

@@ -2,7 +2,8 @@
 
     python -m repro_torch.obs summarize TRACE.json [--critical-path] [--json]
     python -m repro_torch.obs metrics [SNAPSHOT.json] [--prom | --json]
-    python -m repro_torch.obs explain <net[/bN]> [--batch N] [--json]
+    python -m repro_torch.obs explain <sig|net[/bN]> [--batch N]
+                                      [--store-dir DIR] [--json]
     python -m repro_torch.obs watch [--calibration REC.json ...]
                                     [--bench CUR.json=BASE.json ...]
                                     [--metrics SNAPSHOT.json] [--state FILE]
@@ -18,10 +19,10 @@ Given a metrics snapshot instead, it renders the registry families with
 interpolated p50/p95/p99 per histogram series.
 ``metrics`` renders a registry snapshot from a file, else the live
 in-process registry; ``--prom`` emits Prometheus text exposition.
-``explain`` solves the named net fresh with ``explain=True`` on the 16x16
-Eyeriss template and renders the flight-recorder record.  The port has no
-schedule store yet (``service/`` is not ported), so ``--store-dir`` raises
-``NotImplementedError`` rather than report a stored schedule as missing.
+``explain`` renders a solver flight-recorder record: from a stored
+schedule (by signature or net name, searching ``--store-dir``), else by
+solving the named net fresh with ``explain=True`` on the 16x16 Eyeriss
+template.
 ``watch`` runs the drift watchdog over the calibration records and bench
 pairs it is given and the live ``latency_drift_ratio`` histogram;
 ``--gate`` exits non-zero on any error finding.
@@ -166,27 +167,48 @@ def cmd_metrics(args) -> int:
     return 0
 
 
+def _explain_from_store(target: str, store_dir: Optional[str]):
+    """Find a stored schedule by exact signature or by graph name;
+    returns (record, its explain block), or (None, None) on no match."""
+    from ..service.store import DEFAULT_ROOT, ScheduleStore
+    root = store_dir or DEFAULT_ROOT
+    if not os.path.isdir(root):
+        return None, None
+    store = ScheduleStore(root)
+    sigs = store.signatures()
+    if target in sigs:
+        rec = store.get_record(target)
+        return rec, (rec.schedule or {}).get("explain") if rec else None
+    for sig in sigs:
+        rec = store.get_record(sig)
+        if rec is not None and rec.graph_name == target:
+            return rec, (rec.schedule or {}).get("explain")
+    return None, None
+
+
 def cmd_explain(args) -> int:
-    if args.store_dir is not None:
-        raise NotImplementedError(
-            "explain --store-dir: looking a schedule up in a schedule store "
-            "needs repro_torch.service, which is not ported yet; name a "
-            "registered net to solve it fresh")
-    from ..core.solver import solve
-    from ..hw.presets import eyeriss_multinode
-    from ..workloads.nets import get_net
-    name, batch = args.target, args.batch
-    if "/b" in name:                    # accept "resnet/b64" directly
-        name, _, b = name.rpartition("/b")
-        batch = int(b)
-    try:
-        net = get_net(name, batch=batch)
-    except KeyError:
-        print(f"explain: {args.target!r} is not a registered net name "
-              "(stored signatures need the schedule store, not ported "
-              "yet)", file=sys.stderr)
-        return 1
-    record = solve(net, eyeriss_multinode(), explain=True).explain
+    rec, record = _explain_from_store(args.target, args.store_dir)
+    if rec is not None and record is None:
+        print(f"stored schedule {rec.signature} for {rec.graph_name} has "
+              "no explain block (solved without explain=True); solving "
+              "fresh", file=sys.stderr)
+    if record is None:
+        # not stored (or stored without a record): solve the net fresh
+        from ..core.solver import solve
+        from ..hw.presets import eyeriss_multinode
+        from ..workloads.nets import get_net
+        name, batch = args.target, args.batch
+        if "/b" in name:                # accept "resnet/b64" directly
+            name, _, b = name.rpartition("/b")
+            batch = int(b)
+        try:
+            net = get_net(name, batch=batch)
+        except KeyError:
+            print(f"explain: {args.target!r} is neither a stored "
+                  "signature/net nor a registered net name",
+                  file=sys.stderr)
+            return 1
+        record = solve(net, eyeriss_multinode(), explain=True).explain
     if record is None:
         print(f"explain: no record produced for {args.target!r}",
               file=sys.stderr)
@@ -270,8 +292,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--batch", type=int, default=64,
                    help="batch size when the target names none (default 64)")
     p.add_argument("--store-dir", default=None,
-                   help="schedule store to search: needs repro_torch.service "
-                        "(not ported yet), so it raises")
+                   help="schedule store to search first (default: "
+                        "$REPRO_STORE_DIR or .repro_store)")
     p.add_argument("--json", action="store_true",
                    help="raw explain record JSON")
     p.set_defaults(fn=cmd_explain)

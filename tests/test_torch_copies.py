@@ -28,9 +28,14 @@ COPIES = [
     "core/directives.py", "core/cost_model.py", "core/cost_batch.py",
     "core/estimate.py", "core/estimate_batch.py",
     "obs/metrics.py", "obs/trace.py", "obs/watch.py", "obs/explain.py",
-    "runtime/inject.py",
+    "runtime/inject.py", "runtime/fault.py",
+    "core/solver/__init__.py",
     "core/solver/memo.py", "core/solver/intralayer.py",
     "core/solver/interlayer.py", "core/solver/kapla.py",
+    "core/solver/random_search.py", "core/solver/exhaustive.py",
+    "core/solver/annealing.py", "core/solver/multinode.py",
+    "service/signature.py", "service/store.py", "service/client.py",
+    "service/server.py",
     "lower/plan.py", "lower/netplan.py",
     "configs/__init__.py", "configs/base.py", "configs/registry.py",
     "configs/gemma2_2b.py", "configs/internlm2_20b.py",

@@ -531,3 +531,195 @@ def test_conv_kernel_past_2_31_elements_on_card():
     want = ref.conv2d_ref(x, w)
     torch.cuda.synchronize()
     assert _max_rel(out, want) <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# the fused tier: CUDA graphs over the same kernels
+# ---------------------------------------------------------------------------
+
+#: (net, batch, template arguments) of the fused-tier cases
+FUSED_CASES = {"mlp": ("mlp", 4, {"nodes": 4, "pe": 8}),
+               "alexnet": ("alexnet", 2, {}),
+               "resnet": ("resnet", 2, {})}
+
+
+def _fused_case(case):
+    name, batch, hw_args = FUSED_CASES[case]
+    hw = eyeriss_multinode(**hw_args)
+    net = get_net(name, batch=batch)
+    return lower_network(solve(net, hw), net, hw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(FUSED_CASES))
+def test_fused_replay_bitwise_equals_per_layer_on_card(case):
+    """Every layer output of a replay equals the per-layer tier's bit for
+    bit, each replay adds the plan's launches of each kind, the boundary
+    variant (the one measured) equals it on what it returns, each
+    segment's graph equals the per-layer outputs it produces, and a plan's
+    one-kernel graph equals its launch."""
+    import collections
+    from repro_torch.lower import clear_cache, fused_runner
+    dev = _card()
+    nplan = _fused_case(case)
+    inputs = make_network_inputs(nplan, seed=0, device=dev)
+    want = {n: v.to(dev) for n, v in
+            network_runner(nplan, inputs, device=dev)().outputs.items()}
+    clear_cache()
+    run = network_runner(nplan, inputs, device=dev, fused=True)
+    run()                                   # warm-up and capture
+    expect = collections.Counter(nplan.plans[n].kind for n in nplan.order)
+    for _ in range(2):
+        reset_launch_counts()
+        ex = run()
+        assert {k: v for k, v in LAUNCHES.items() if v} == dict(expect)
+        for n in nplan.order:
+            assert torch.equal(ex.outputs[n], want[n]), n
+    bound = network_runner(nplan, inputs, device=dev, keep="boundary",
+                           fused=True)().outputs
+    assert bound and set(bound) < set(nplan.order)
+    for n, v in bound.items():
+        assert torch.equal(v, want[n]), n
+    net = fused_runner(nplan, device=dev)
+    assert net.traces == 2
+    for i, (consumes, produces) in enumerate(net.segment_io):
+        out = net.run_segment(i, {s: inputs[s] if s in inputs else want[s]
+                                  for s in consumes})
+        for n in produces:
+            assert torch.equal(out[n], want[n]), (i, n)
+    for n in nplan.order:
+        plan = nplan.plans[n]
+        feed = tex.make_inputs(plan, seed=1, device=dev)
+        assert torch.equal(plan_runner(plan, dev, fused=True)(feed),
+                           plan_runner(plan, dev)(feed)), n
+    clear_cache()
+
+
+@pytest.mark.gpu
+def test_fused_equal_signature_callers_keep_their_weights_on_card():
+    """Two runners of one cached network (seeds 0 and 1), called in turn:
+    each replay gives its own caller's per-layer result (a graph that read
+    the first caller's tensors would give seed 0's to both), and a result
+    held across the other runner's call keeps its values."""
+    from repro_torch.lower import cache_stats, clear_cache
+    dev = _card()
+    clear_cache()
+    plans = [_fused_case("alexnet"), _fused_case("alexnet")]
+    runs = []
+    for seed, nplan in enumerate(plans):
+        inputs = make_network_inputs(nplan, seed=seed, device=dev)
+        want = {n: v.to(dev) for n, v in
+                network_runner(nplan, inputs, device=dev)().outputs.items()}
+        runs.append((network_runner(nplan, inputs, device=dev, fused=True),
+                     want))
+    assert cache_stats()["hits"] == 1
+    last = plans[0].order[-1]
+    assert not torch.equal(runs[0][1][last], runs[1][1][last])
+    held = None
+    for run, want in runs + runs:
+        ex = run()
+        for n in plans[0].order:
+            assert torch.equal(ex.outputs[n], want[n]), n
+        if held is not None:
+            for n in plans[0].order:
+                assert torch.equal(held[0].outputs[n], held[1][n]), n
+        held = (ex, want)
+    clear_cache()
+
+
+@pytest.mark.gpu
+def test_fused_sees_weights_written_in_place_on_card():
+    """A weight written through ``.data`` (no version bump) between two
+    replays gives the new weight's per-layer result."""
+    from repro_torch.lower import clear_cache
+    dev = _card()
+    nplan = _fused_case("alexnet")
+    inputs = make_network_inputs(nplan, seed=0, device=dev)
+    clear_cache()
+    run = network_runner(nplan, inputs, device=dev, fused=True)
+    run()
+    w = next(k for k in inputs if k.endswith(".W"))
+    inputs[w].data.copy_(inputs[w].data * 2.0)
+    got = run().outputs
+    want = network_runner(nplan, inputs, device=dev)().outputs
+    for n in nplan.order:
+        assert torch.equal(got[n], want[n].to(dev)), n
+    clear_cache()
+
+
+@pytest.mark.gpu
+def test_fused_capture_in_a_worker_thread_on_card():
+    import threading
+    from repro_torch.lower import clear_cache
+    dev = _card()
+    nplan = _fused_case("alexnet")
+    inputs = make_network_inputs(nplan, seed=0, device=dev)
+    want = network_runner(nplan, inputs, device=dev)().outputs
+    clear_cache()
+    got, errors = {}, []
+
+    def work():
+        try:
+            got.update(network_runner(nplan, inputs, device=dev,
+                                      fused=True)().outputs)
+        except Exception as e:          # surfaced below
+            errors.append(e)
+    th = threading.Thread(target=work)
+    th.start()
+    th.join()
+    assert not errors, errors
+    for n in nplan.order:
+        assert torch.equal(got[n], want[n].to(dev)), n
+    clear_cache()
+
+
+@pytest.mark.gpu
+def test_fused_clear_cache_gives_the_memory_back_on_card():
+    from repro_torch.lower import cache_stats, clear_cache
+    dev = _card()
+    nplan = _fused_case("resnet")
+    inputs = make_network_inputs(nplan, seed=0, device=dev)
+    clear_cache()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    run = network_runner(nplan, inputs, device=dev, fused=True)
+    run()
+    held = torch.cuda.memory_allocated(dev)
+    assert held > base
+    del run
+    assert cache_stats()["size"] == 1
+    clear_cache()
+    assert torch.cuda.memory_allocated(dev) <= base
+    assert cache_stats()["size"] == 0
+
+
+@pytest.mark.gpu
+def test_fused_cache_bounded_by_bytes_on_card(monkeypatch):
+    """The cache fills to its bound in bytes and no further: with a bound
+    below one network, each new network evicts the last one and its
+    memory goes back; by default the bound is half the card."""
+    from repro_torch.lower import cache_stats, clear_cache
+    from repro_torch.lower import fuse
+    dev = _card()
+    assert fuse._budget(dev) == \
+        torch.cuda.get_device_properties(dev).total_memory // 2
+    clear_cache()
+    cases = [(c, _fused_case(c)) for c in ("mlp", "alexnet", "resnet")]
+    feeds = {c: make_network_inputs(p, seed=0, device=dev)
+             for c, p in cases}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    monkeypatch.setattr(fuse, "_CACHE_BYTES", 1)
+    for i, (case, nplan) in enumerate(cases):
+        network_runner(nplan, feeds[case], device=dev, fused=True)()
+        net = fuse.fused_runner(nplan, device=dev)
+        assert net.nbytes > 0
+        assert cache_stats()["size"] == 1
+        assert cache_stats()["evictions"] == i
+        # the network held now, and nothing of those evicted before it
+        assert torch.cuda.memory_allocated(dev) <= base + net.nbytes, case
+        del net
+    clear_cache()
+    assert torch.cuda.memory_allocated(dev) <= base

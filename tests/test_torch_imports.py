@@ -41,7 +41,10 @@ sys.modules["jax"] = None
 sys.modules["repro"] = None
 import repro_torch
 import repro_torch.lower.calibrate
+import repro_torch.lower.fuse
 import repro_torch.obs.__main__
+import repro_torch.quickstart
+import repro_torch.service.__main__
 from repro_torch.core.solver import solve
 from repro_torch.hw.presets import eyeriss_multinode
 from repro_torch.lower import lower_network
