@@ -49,6 +49,21 @@ Phases, in order; any failure exits non-zero:
    solve and its store hit, random search, conv3 and AlexNet b1 verified
    and measured on both tiers, and the reference's headline (AlexNet b64:
    162.82 mJ, 66.56 ms);
+4d. the mesh executor (``lower/meshexec.py``): ResNet-50 b64 on the 16x16
+   template over ``plan_multinode(..., NodeMesh(nodes=4))``, as segment
+   tasks of both tiers (per-layer; fused: each segment's CUDA graph,
+   captured when the tasks are built): every request's outputs bit for
+   bit equal to the per-layer run of phase 3 on the same tensors; the
+   launch counters set to 0 just before the first request and read just
+   after (each kind equal to the plan's layer count); that request is the
+   warm-up of three timed ones; one more under ``torch.profiler``
+   (``[profile] mesh``); a chaos request with ``node.crash`` injected on
+   the node it lands on (failures and re-partitions >= 1, not degraded,
+   outputs still bit for bit equal, no capture after the tasks were
+   built); one ``[mesh]`` line: request seconds of both tiers (min of 3
+   after 1 warm-up) beside phase 3's per-layer and phase 4b's fused
+   ``measure_network``, the boundary bytes a request copies to the host
+   and each executor's ``stats()``;
 5. the calibration sweep on the card, 4x4 template: ``run_calibration``
    (full sweep; every pair verified within 1e-3, >= 20 pairs, launches per
    kind = (1 + iters) x its pairs, counters set to 0 just before and read
@@ -63,9 +78,10 @@ Phases, in order; any failure exits non-zero:
 6. the solver flight recorder: AlexNet b64 solved with ``explain=True``
    on the 16x16 template, its render's first lines printed;
 7. hold the two model-zoo kernels against their plain versions on the
-   card: flash attention at the Qwen2.5-3B and Zamba2-1.2B serve prefill
-   shapes (bf16), a Gemma2-like case (D=256, window, soft-cap), a
-   right-aligned case (Sq < Sk), all four on the tensor-core path, and a
+   card: flash attention at the Qwen2.5-3B, Zamba2-1.2B and Qwen2-MoE-A2.7B
+   serve prefill shapes (bf16), a Gemma2-like case (D=256, window,
+   soft-cap), a right-aligned case (Sq < Sk), all five on the tensor-core
+   path, and a
    non-causal float32 case on the FMA tile; the SSD
    intra-chunk term (tensor cores, 3xTF32) at the Mamba2-1.3B and
    Zamba2-1.2B shapes in bf16, Zamba2-1.2B's in float32, and a chunk of
@@ -73,17 +89,21 @@ Phases, in order; any failure exits non-zero:
    within 1e-5 max rel error, bf16 within 8e-3 x max|plain| (one bf16
    ulp); time the kernel, the plain version and, where one PyTorch call
    computes the same function, ``F.scaled_dot_product_attention``;
-8. serve Qwen2.5-3B and Zamba2-1.2B at full width in bf16 (8 requests,
-   512-token prompts, 32 generated tokens) through ``serve``, with the
-   launch counters set to 0 just before and read just after: flash 36 for
-   Qwen; flash 6 and SSD 38 for Zamba2, every flash launch on the
-   tensor-core path (decode runs no kernel); finite
+8. serve Qwen2.5-3B, Zamba2-1.2B and Qwen2-MoE-A2.7B at full width in bf16
+   (8 requests, 512-token prompts, 32 generated tokens) through ``serve``,
+   with the launch counters set to 0 just before and read just after:
+   flash 36 for Qwen; flash 6 and SSD 38 for Zamba2; flash 24 for
+   Qwen2-MoE, every flash launch on the tensor-core path (decode runs no
+   kernel); finite
    logits, tokens [8, 32]; then one prefill and 8 decode steps under
    ``torch.profiler``;
 9. consistency, float32, full width, reduced depth (Qwen 4 layers, Zamba2
    12): the prefill's last-token logits (through the kernels) against a
    replay of the prompt through ``decode_step`` (no kernel), max rel error
-   <= 1e-3;
+   <= 1e-3; Qwen2-MoE at 2 layers (4 x 64 tokens): the card's prefill
+   against the same prefill through the plain versions on the host's CPU,
+   same weights, <= 1e-3, and the (token, slot) pairs capacity dropped,
+   equal on both;
 10. print ``{"kernels": [...]}``, the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -147,7 +167,7 @@ PATHS = {"fc": "mma-3xtf32", "conv": "mma-3xtf32", "pool": "fma",
 #: H100 80GB HBM3, 700.00 W; fc and flash one call between two CUDA events,
 #: the others this script's method).  Logged beside this run's times, never
 #: put in the kernels line.
-EARLIER_MS = {"fc": 0.3468, "flash_attention": 38.72, "conv": 91.81,
+EARLIER_MS = {"fc": 0.3468, "conv": 91.81,
               "attention": 1.1872, "eltwise": 1.823,
               "ssd_intra_chunk": 14.25}
 #: the kernels whose ptxas registers and spills ``[ptxas]`` reports
@@ -161,10 +181,16 @@ ELTWISE_MANY = 9
 SERVE = {"qwen2.5-3b": {"flash_attention": 36, "flash_attention_wgmma": 36,
                         "ssd_intra_chunk": 0},
          "zamba2-1.2b": {"flash_attention": 6, "flash_attention_wgmma": 6,
-                         "ssd_intra_chunk": 38}}
+                         "ssd_intra_chunk": 38},
+         "qwen2-moe-a2.7b": {"flash_attention": 24,
+                             "flash_attention_wgmma": 24,
+                             "ssd_intra_chunk": 0}}
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_GEN = 8, 512, 32
 #: the consistency phase: arch -> depth
 CONSISTENCY = {"qwen2.5-3b": 4, "zamba2-1.2b": 12}
+#: the MoE consistency row: arch, depth, requests and prompt length (short
+#: enough for the plain versions on the host's CPU)
+MOE_CONSISTENCY = ("qwen2-moe-a2.7b", 2, 4, 64)
 #: attention plans held against the plain version besides the calibration
 #: sweep's: layer name, (batch, heads, sequence, head dim), template.  The
 #: first (the Zamba2-1.2B shared block on the 16x16 template) times the
@@ -430,6 +456,135 @@ def service_phase(dev):
     return report, q
 
 
+def mesh_phase(dev, nplans, scheds, e2e, fused_res):
+    """Phase 4d: ResNet-50 b64 (16x16 template) as mesh segment tasks of
+    both tiers over ``plan_multinode(..., NodeMesh(nodes=4))``."""
+    import numpy as np
+    import torch
+    from repro_torch.core.solver.multinode import NodeMesh, plan_multinode
+    from repro_torch.lower import (clear_cache, fused_runner,
+                                   make_network_inputs, network_runner)
+    from repro_torch.lower import exec as lx
+    from repro_torch.lower.meshexec import MeshExecutor, build_segment_tasks
+    from repro_torch.runtime.inject import FaultPlan, FaultSpec, inject
+
+    key = ("resnet", "eyeriss_16x16")
+    nplan = nplans[key]
+    sched, graph, hw = scheds[key]
+    inputs = make_network_inputs(nplan, seed=0, device=dev)
+    weights = {k: v for k, v in inputs.items() if k.endswith(".W")}
+    ext = {k: v.cpu().numpy() for k, v in inputs.items()
+           if k.endswith(".I")}
+    # phase 3's per-layer run of the same tensors, kept on the host
+    want = {n: v.cpu().numpy() for n, v in network_runner(
+        nplan, inputs, device=dev)().outputs.items()}
+    expect = collections.Counter(nplan.plans[n].kind for n in nplan.order)
+    mplan = plan_multinode(sched, graph, hw, NodeMesh(nodes=4))
+    # a fresh executor's first request lands on the first node of
+    # segment 0's part: the chaos request's victim
+    victim = mplan.part_of_segment(0).node_ids[0]
+
+    def check(tier, what, r):
+        if r.degraded or not r.outputs:
+            raise AssertionError(f"mesh {tier} {what}: degraded "
+                                 f"{r.degraded}, {len(r.outputs)} outputs")
+        unequal = [n for n, v in r.outputs.items()
+                   if not np.array_equal(v, want[n])]
+        if unequal:
+            raise AssertionError(f"mesh {tier} {what}: {len(unequal)} "
+                                 f"outputs differ from the per-layer run, "
+                                 f"first {unequal[0]}")
+
+    out = {"nodes": 4, "victim": victim,
+           "parts": [[a.seg_start, a.seg_stop, list(a.node_ids)]
+                     for a in mplan.parts],
+           "fused_measure_network_ms":
+               fused_res["resnet"]["measure_network_ms"],
+           "per_layer_measure_network_ms":
+               e2e["resnet"]["measure_network_ms"]}
+    for tier, backend in (("per-layer", None), ("fused", "compiled")):
+        clear_cache()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tasks = build_segment_tasks(nplan, weights, backend=backend,
+                                    device=dev)
+        build_s = time.perf_counter() - t0
+        net = fused_runner(nplan, device=dev) if backend else None
+        traces = net.traces if net else 0
+        with MeshExecutor(mplan, tasks, schedule=sched, graph=graph,
+                          hw=hw) as ex:
+            torch.cuda.synchronize()
+            lx.reset_launch_counts()
+            r = ex.run(ext, "count")
+            launches = dict(lx.LAUNCHES)
+            for kind, count in launches.items():
+                if count != expect.get(kind, 0):
+                    raise AssertionError(
+                        f"mesh {tier}: {kind} launched {count} times a "
+                        f"request, plan has {expect.get(kind, 0)}")
+            # the count request is the executor's first: the warm-up
+            check(tier, "count request", r)
+            host_bytes = sum(v.nbytes for v in r.outputs.values())
+            n_out = len(r.outputs)
+            seconds = []
+            for i in range(3):
+                r = ex.run(ext, f"timed{i}")
+                seconds.append(r.seconds)
+                check(tier, f"request {i}", r)
+            stats = ex.stats()
+            profile = device_profile(lambda: ex.run(ext, "profiled"))
+        log(f"[profile] mesh {tier}: {json.dumps(profile)}")
+        faults = FaultPlan.make(4, {"node.crash": FaultSpec(
+            rate=1.0, match=f"node{victim}")})
+        with MeshExecutor(mplan, tasks, schedule=sched, graph=graph,
+                          hw=hw) as ex:
+            with inject(faults) as inj:
+                r = ex.run(ext, "chaos")
+            chaos = ex.stats()
+        check(tier, "chaos request", r)
+        if chaos["failures"] < 1 or chaos["repartitions"] < 1 \
+                or not inj.fired.get("node.crash"):
+            raise AssertionError(f"mesh {tier}: the chaos request did not "
+                                 f"fail over: {chaos}")
+        recaptures = (net.traces - traces) if net else 0
+        if recaptures:
+            raise AssertionError(f"mesh {tier}: {recaptures} captures after "
+                                 "build_segment_tasks")
+        out[tier] = {"build_seconds": build_s, "captures": traces,
+                     "launches": launches, "request_seconds": seconds,
+                     "min_request_seconds": min(seconds),
+                     "outputs": n_out, "host_bytes_per_request": host_bytes,
+                     "stats": stats, "profile": profile, "chaos": {
+                         "replays": r.replays, "seconds": r.seconds,
+                         "recaptures": recaptures, **chaos}}
+        log(f"[mesh-check] resnet b64 {tier} tasks on 4 nodes ({len(tasks)} "
+            f"segments, built in {build_s:.2f} s, {traces} captures): "
+            f"{n_out} outputs bit for bit equal to the per-layer run, "
+            f"launches a request {launches}; chaos: node{victim} crashed, "
+            f"failures {chaos['failures']}, repartitions "
+            f"{chaos['repartitions']}, replays {r.replays}, not degraded, "
+            f"{recaptures} captures after the build")
+        del tasks, net
+        clear_cache()
+    del inputs, weights, want
+    torch.cuda.empty_cache()
+    per, fus = out["per-layer"], out["fused"]
+    log(f"[mesh] resnet b64 request s (min of 3 after 1 warm-up): per-layer "
+        f"tasks {per['min_request_seconds']:.4f} "
+        f"({', '.join(f'{x:.4f}' for x in per['request_seconds'])}), fused "
+        f"tasks {fus['min_request_seconds']:.4f} "
+        f"({', '.join(f'{x:.4f}' for x in fus['request_seconds'])}); fused "
+        f"measure_network (phase 4b) "
+        f"{', '.join(f'{m:.3f}' for m in out['fused_measure_network_ms'])}"
+        f" ms, per-layer (phase 3) "
+        f"{out['per_layer_measure_network_ms']:.2f} ms; boundary bytes to "
+        f"the host a request: per-layer "
+        f"{per['host_bytes_per_request']}, fused "
+        f"{fus['host_bytes_per_request']}; stats per-layer "
+        f"{json.dumps(per['stats'])}, fused {json.dumps(fus['stats'])}")
+    return out
+
+
 def explain_phase():
     """Phase 6: the solver flight recorder on AlexNet b64."""
     from repro_torch.core.solver import solve
@@ -663,6 +818,8 @@ FLASH_CASES = [
     ("gemma2-like", 8, 8, 4, 512, 512, 256, True, 128, 50.0, "bf16", False),
     ("right-aligned", 8, 16, 2, 128, 512, 128, True, 0, 0.0, "bf16", False),
     ("non-causal-f32", 8, 16, 2, 512, 512, 128, False, 0, 0.0, "f32", True),
+    ("qwen2-moe-a2.7b", 8, 16, 16, 512, 512, 128, True, 0, 0.0, "bf16",
+     True),
 ]
 #: SSD cases: name, B, S, H, P, N, chunk, dtype (the first two are the
 #: serve prefills' shapes; then Zamba2-1.2B's in float32, and a chunk of 256
@@ -853,7 +1010,7 @@ def profile_serving(api, params, prompts, max_len: int, steps: int):
 
 
 def serve_phase(dev):
-    """Phase 6: both archs served at full width in bf16."""
+    """Phase 8: every arch of ``SERVE`` at full width in bf16."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -907,7 +1064,8 @@ def serve_phase(dev):
 
 
 def consistency_phase(dev):
-    """Phase 7: f32 prefill (the kernels) vs a decode replay (no kernel)."""
+    """Phase 9: f32 prefill (the kernels) vs a decode replay (no kernel),
+    and the MoE row (``moe_consistency``)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -946,7 +1104,66 @@ def consistency_phase(dev):
                                  f"{err:.3e} > {CONSISTENCY_TOL}")
         del api, params, cache
         torch.cuda.empty_cache()
+    results[MOE_CONSISTENCY[0]] = moe_consistency(dev)
     return results
+
+
+def moe_consistency(dev):
+    """Phase 9's MoE row: an f32 prefill on the card (the kernels) against
+    the same prefill through the plain versions on the host's CPU, with the
+    same weights.  A decode replay is no reference here: a prefill and a
+    decode step see other token counts, so other capacities, and may drop
+    other (token, slot) pairs, as the reference's own model does."""
+    import copy
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import build_model
+    from repro_torch.models.moe import counting_drops
+
+    arch, layers, requests, prompt = MOE_CONSISTENCY
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    api = build_model(cfg, device=dev, dtype=torch.float32)
+    host_api = build_model(cfg, device="cpu", dtype=torch.float32)
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        1, min(cfg.vocab_size, 1000),
+        size=(requests, prompt)).astype(np.int32))
+    with torch.inference_mode():
+        params = api.init(0)
+        host_params = copy.deepcopy(params).cpu()
+        ops.reset_launch_counts()
+        with counting_drops() as drops:
+            logits, _ = api.prefill(params, prompts.to(dev), prompt)
+        launches = ops.launch_counts()
+        t0 = time.perf_counter()
+        with counting_drops() as host_drops:
+            want, _ = host_api.prefill(host_params, prompts, prompt)
+        host_s = time.perf_counter() - t0
+    got = logits.float().cpu()
+    err = float((got - want).abs().max() / want.abs().max())
+    res = {"layers": layers, "requests": requests, "prompt": prompt,
+           "max_rel_err": err, "launches": launches,
+           "pairs": drops.pairs, "dropped_pairs": drops.dropped,
+           "host_dropped_pairs": host_drops.dropped,
+           "host_prefill_seconds": host_s}
+    log(f"[consistency] {arch} f32 {layers} layers, {requests} x {prompt} "
+        f"tokens: card prefill vs the plain versions on the host max rel "
+        f"err {err:.3e}, prefill launches {launches}, capacity dropped "
+        f"{drops.dropped} of {drops.pairs} (token, slot) pairs (host "
+        f"{host_drops.dropped}; host prefill {host_s:.2f} s)")
+    if launches["flash_attention"] != layers:
+        raise AssertionError(f"{arch}: {launches} flash launches for "
+                             f"{layers} layers")
+    if drops.dropped != host_drops.dropped:
+        raise AssertionError(f"{arch}: the card dropped {drops.dropped} "
+                             f"pairs, the host {host_drops.dropped}")
+    if not err <= CONSISTENCY_TOL:
+        raise AssertionError(f"{arch}: card vs host prefill rel err "
+                             f"{err:.3e} > {CONSISTENCY_TOL}")
+    del api, params, host_params
+    torch.cuda.empty_cache()
+    return res
 
 
 def model_kernel_entry(name, rows, uses, serve_res, source, replaces):
@@ -981,6 +1198,7 @@ def main(argv=None) -> int:
                     "distinct plan (phases 1-2, untimed) and stop without "
                     "a result line")
     args = ap.parse_args(argv)
+    t_main = time.perf_counter()
     if not (ROOT / "src" / "repro_torch" / "csrc"
             / "lower_kernels.cu").is_file():
         print("chip_smoke.py: src/repro_torch is missing; run it from the "
@@ -1224,9 +1442,13 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     detail["e2e"] = e2e
 
-    # 4b./4c. the fused tier; autotune and the quickstart -------------------
+    # 4b.-4d. the fused tier; autotune and the quickstart; the mesh --------
     detail["fused"] = fused_phase(dev, nplans, scheds, predicted, e2e)
     detail["autotune"], detail["quickstart"] = service_phase(dev)
+    # 4d. the mesh executor ----------------------------------------------------
+    t_phase = time.perf_counter()
+    detail["mesh"] = mesh_phase(dev, nplans, scheds, e2e, detail["fused"])
+    log(f"[mesh-check] phase in {time.perf_counter() - t_phase:.1f} s")
 
     # 5./6. calibration, the watchdog, the flight recorder -------------------
     out_dir = ROOT / "chiprun_out"
@@ -1306,14 +1528,17 @@ def main(argv=None) -> int:
                 f"{k['bound_ms']:.4f} ms; before the redesign "
                 f"{EARLIER_MS[k['name']]} ms (PERF.md's kernel table, "
                 f"copied, not measured in this run)")
+    detail["seconds"] = time.perf_counter() - t_main
+    log(f"[total] every phase in {detail['seconds']:.1f} s")
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
     log("(times of the kernels line: fc/conv/pool/eltwise per ResNet-50 b64 "
         "forward, summed over its layers at their plans' shapes; attention "
         "at the Zamba2-1.2B shared block's plan on the 16x16 template, "
-        "launches per full calibration sweep; flash_attention and "
-        "ssd_intra_chunk per serve prefill of Qwen2.5-3B and Zamba2-1.2B "
-        "together, summed over their launches)")
+        "launches per full calibration sweep; flash_attention per serve "
+        "prefill of Qwen2.5-3B, Zamba2-1.2B and Qwen2-MoE-A2.7B together, "
+        "ssd_intra_chunk per serve prefill of Zamba2-1.2B; each summed "
+        "over its launches)")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()

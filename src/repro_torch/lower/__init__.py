@@ -18,6 +18,11 @@ against the measured times, at two tiers:
          process-wide cache keyed by fuse.plan_signature; the default of
          measure_network; network_runner(fused=True),
          exec.plan_runner(fused=True))
+  mesh tier
+      meshexec.build_segment_tasks       (one SegmentTask per chain segment,
+         per-layer or fused; boundaries are host-numpy checkpoints)
+      meshexec.MeshExecutor              (requests over a NodePool along a
+         MultiNodePlan: speculate, re-dispatch, re-partition, fallback)
   calibration
       calibrate.run_calibration          (per-kernel Spearman + fit,
          backend "cuda", "cuda-graph" (fused) or "cpu")

@@ -140,7 +140,7 @@ class _Buffers:
 
     def add(self, name: str, shape: Sequence[int]) -> torch.Tensor:
         if name not in self.bufs:
-            self.bufs[name] = torch.empty(tuple(shape), dtype=torch.float32,
+            self.bufs[name] = torch.zeros(tuple(shape), dtype=torch.float32,
                                           device=self.device)
             self.nbytes += self.bufs[name].numel() * 4
         return self.bufs[name]
@@ -366,18 +366,25 @@ class FusedNetwork:
                       seconds=round(dt, 6))
         return graph
 
+    def _boundary_buffers(self, names: Sequence[str]) -> None:
+        for name in names:
+            if name not in self._feed:           # a boundary tensor
+                self._bufs.add(name, output_shape(self.nplan.plans[name]))
+
+    def _graph(self, key: Tuple) -> Tuple[_Graph, bool]:
+        """The variant's graph, and whether this call built it."""
+        graph = self._graphs.get(key)
+        if graph is not None:
+            return graph, False
+        graph = self._graphs[key] = self._build(key)
+        return graph, True
+
     def _run(self, key: Tuple, values: Mapping, names: Sequence[str],
              copy: bool = False) -> Dict[str, torch.Tensor]:
         with self._lock:
-            for name in names:
-                if name not in self._feed:       # a boundary tensor
-                    self._bufs.add(name,
-                                   output_shape(self.nplan.plans[name]))
-            self._bufs.bind(values, names)
-            graph = self._graphs.get(key)
-            built = graph is None
-            if built:
-                graph = self._graphs[key] = self._build(key)
+            self._boundary_buffers(names)
+            self._bufs.bind(values, names)       # checked before a capture
+            graph, built = self._graph(key)
             out = graph()
             if copy:
                 out = {k: v.clone() for k, v in out.items()}
@@ -411,6 +418,21 @@ class FusedNetwork:
         outputs, since they feed another segment."""
         return self._run(("seg", index), state, self.segment_io[index][0],
                          copy=True)
+
+    def capture_segments(self) -> None:
+        """Build every segment's variant now, on the calling thread, over
+        the buffers as they stand (zeros until a call fills them): a later
+        ``run_segment`` then only copies in and replays, from any thread.
+        The mesh executor's tasks (``meshexec.build_segment_tasks``) call
+        this, so that no capture runs on a node's thread beside another
+        node's copies and launches on the same card."""
+        built = False
+        with self._lock:
+            for i, (consumes, _) in enumerate(self.segment_io):
+                self._boundary_buffers(consumes)
+                built |= self._graph(("seg", i))[1]
+        if built:                                # it holds more memory now
+            _trim(keep=self)
 
     def release(self) -> None:
         """Drop every graph and its memory pool (outputs a caller still

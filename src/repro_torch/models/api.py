@@ -1,7 +1,8 @@
 """Unified model API of the model zoo, for serving.
 
 The port of ``repro/models/api.py`` for the families ``dense`` (Gemma2's
-paired local/global windows and both soft-caps included), ``ssm`` and
+paired local/global windows and both soft-caps included), ``moe`` (first
+dense layers, routed and shared experts: ``moe.py``), ``ssm`` and
 ``hybrid``.  ``build_model(cfg, device, dtype)`` returns a ``ModelAPI``:
 
   init(seed)                              -> params (a ``Model`` module)
@@ -15,8 +16,10 @@ The JAX package scans over layer-stacked parameters; here every block is an
 Weights keep the JAX layout (``[in, out]``, applied as ``x @ w``), so
 ``params_from_reference`` takes the JAX ``api.init`` tree (as numpy arrays)
 without transposing anything.  Caches are updated in place by
-``decode_step`` (the JAX version returns updated copies).  The MoE family
-and ``loss_fn`` come with later slices (``ROADMAP.md``).
+``decode_step`` (the JAX version returns updated copies).  An MoE model's
+blocks are its ``first_dense_layers`` dense blocks (the JAX tree's
+``dense_blocks``) followed by its MoE blocks, in layer order.  ``loss_fn``
+comes with training (``ROADMAP.md``).
 """
 from __future__ import annotations
 
@@ -32,17 +35,17 @@ from ..configs.base import ModelConfig
 from ..kernels import backend, ops
 from .attention import attn_decode, attn_forward, init_attn
 from .common import dense_init, rms_norm
-from .ssm import (F32_LEAVES, STATE_KEYS, init_mamba, mamba_decode,
-                  mamba_forward, mamba_init_state)
+from . import moe, ssm
+from .moe import init_moe, moe_ffn, shared_expert_ffn
+from .ssm import (STATE_KEYS, init_mamba, mamba_decode, mamba_forward,
+                  mamba_init_state)
 
-FAMILIES = ("dense", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
+#: leaves kept in float32 whatever the model's type
+F32_LEAVES = ssm.F32_LEAVES + moe.F32_LEAVES
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family == "moe":
-        raise NotImplementedError(
-            f"{cfg.name}: the moe family (repro/models/moe.py) is not ported "
-            "to repro_torch yet; see ROADMAP.md, Queue 1")
     if cfg.family not in FAMILIES:
         raise ValueError(f"unknown family {cfg.family!r}")
 
@@ -53,18 +56,22 @@ def _check_family(cfg: ModelConfig) -> None:
 
 class Block(nn.Module):
     """One block's parameters: top-level leaves as ``nn.Parameter``s,
-    sub-trees (``attn``, ``mlp``, ``mamba``) as ``nn.ParameterDict``s.
-    Indexed like the JAX tree (``bp["attn"]["wq"]``, ``"mlp" in bp``)."""
+    sub-trees (``attn``, ``mlp``, ``mamba``) as ``nn.ParameterDict``s, and
+    a sub-tree that holds sub-trees of its own (``moe`` with its
+    ``shared`` experts) as a ``Block``.  Indexed like the JAX tree
+    (``bp["attn"]["wq"]``, ``"mlp" in bp``, ``bp["moe"]["shared"]``)."""
 
     def __init__(self, tree: Mapping[str, Any]):
         super().__init__()
         self._names = tuple(tree)
         for name, leaf in tree.items():
-            if isinstance(leaf, Mapping):
+            if not isinstance(leaf, Mapping):
+                self.register_parameter(name, _frozen(leaf))
+            elif any(isinstance(v, Mapping) for v in leaf.values()):
+                self.add_module(name, Block(leaf))
+            else:
                 self.add_module(name, nn.ParameterDict(
                     {k: _frozen(v) for k, v in leaf.items()}))
-            else:
-                self.register_parameter(name, _frozen(leaf))
 
     def __getitem__(self, name: str):
         if name not in self._names:
@@ -113,6 +120,25 @@ def _init_dense_block(g: torch.Generator, cfg: ModelConfig, dtype):
             "mlp": _init_mlp(g, cfg.d_model, cfg.d_ff, dtype)}
 
 
+def _init_moe_block(g: torch.Generator, cfg: ModelConfig, dtype):
+    dev = g.device
+    return {"ln1": torch.zeros((cfg.d_model,), dtype=dtype, device=dev),
+            "attn": init_attn(g, cfg, dtype),
+            "ln2": torch.zeros((cfg.d_model,), dtype=dtype, device=dev),
+            "moe": init_moe(g, cfg, 1, dtype)}
+
+
+def _ffn(cfg: ModelConfig, bp: Block, x: torch.Tensor) -> torch.Tensor:
+    """A block's FFN: the gated MLP, or the routed experts plus the
+    shared ones."""
+    if "mlp" in bp:
+        return _gated_mlp(bp["mlp"], x)
+    out = moe_ffn(bp["moe"], x, cfg)
+    if "shared" in bp["moe"]:
+        out = out + shared_expert_ffn(bp["moe"], x)
+    return out
+
+
 def _init_mamba_block(g: torch.Generator, cfg: ModelConfig, dtype):
     return {"ln": torch.zeros((cfg.d_model,), dtype=dtype, device=g.device),
             "mamba": init_mamba(g, cfg, dtype)}
@@ -151,11 +177,16 @@ def params_from_reference(cfg: ModelConfig, tree: Mapping[str, Any],
     arrays (``jax.tree_util.tree_map(np.asarray, params)``).  The JAX tree
     stacks every block leaf on a leading layer axis (``jax.vmap``); it is
     cut into one ``Block`` per layer.  Gemma2's local/global pairs are the
-    even/odd layers of that axis, as the JAX forward reshapes them."""
+    even/odd layers of that axis, as the JAX forward reshapes them.  An MoE
+    tree's ``dense_blocks`` (its first dense layers) come first, then its
+    ``blocks``; the router stays float32."""
     _check_family(cfg)
     dev = backend.resolve_device(device)
-    L = cfg.num_layers
-    blocks = [Block(_layer(tree["blocks"], i, dtype, dev)) for i in range(L)]
+    fd = cfg.first_dense_layers if cfg.family == "moe" else 0
+    blocks = [Block(_layer(tree["dense_blocks"], i, dtype, dev))
+              for i in range(fd)]
+    blocks += [Block(_layer(tree["blocks"], i, dtype, dev))
+               for i in range(cfg.num_layers - fd)]
     shared = Block(_layer(tree["shared"], None, dtype, dev)) \
         if cfg.family == "hybrid" else None
     return Model(_leaf(tree["embed"], "embed", dtype, dev),
@@ -203,6 +234,12 @@ def build_model(cfg: ModelConfig, device=None,
         if cfg.family == "dense":
             blocks = [Block(_init_dense_block(g, cfg, dtype))
                       for _ in range(L)]
+        elif cfg.family == "moe":
+            fd = cfg.first_dense_layers
+            blocks = [Block(_init_dense_block(g, cfg, dtype))
+                      for _ in range(fd)]
+            blocks += [Block(_init_moe_block(g, cfg, dtype))
+                       for _ in range(L - fd)]
         else:
             blocks = [Block(_init_mamba_block(g, cfg, dtype))
                       for _ in range(L)]
@@ -236,7 +273,7 @@ def build_model(cfg: ModelConfig, device=None,
                            collect_kv=collect_kv)
         attn_out, kv = res if collect_kv else (res, None)
         h = h + attn_out
-        h = h + _gated_mlp(bp["mlp"], rms_norm(h, bp["ln2"]))
+        h = h + _ffn(cfg, bp, rms_norm(h, bp["ln2"]))
         return h, kv
 
     def _mamba_block_fwd(bp: Block, h):
@@ -249,7 +286,7 @@ def build_model(cfg: ModelConfig, device=None,
         ``collect_kv`` also the list of per-attention-layer (k, v)."""
         h = _embed(params, inputs)
         kv_all = []
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "moe"):
             for i, bp in enumerate(params.blocks):
                 h, kv = _dense_block_fwd(bp, h, window_of(i), collect_kv)
                 kv_all.append(kv)
@@ -276,7 +313,7 @@ def build_model(cfg: ModelConfig, device=None,
         def zeros(n, shape, dt):
             return torch.zeros((n, batch) + shape, dtype=dt, device=dev)
 
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "moe"):
             if cfg.kv_cache_dtype == "int8":
                 return {"k": zeros(L, (KV, max_len, hd), torch.int8),
                         "v": zeros(L, (KV, max_len, hd), torch.int8),
@@ -299,7 +336,7 @@ def build_model(cfg: ModelConfig, device=None,
         ssm/hybrid return a fresh cache: the serving loop replays the prompt
         through ``decode_step`` to build the state, as the JAX one does."""
         B, S = inputs.shape[0], inputs.shape[1]
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "moe"):
             return forward(params, inputs, last_only=True), \
                 init_cache(B, max_len)
         logits, kv_all = forward(params, inputs, collect_kv=True,
@@ -326,7 +363,7 @@ def build_model(cfg: ModelConfig, device=None,
                         cache_len, window=window, k_scale=scales[0],
                         v_scale=scales[1])[0]
         h = h + a
-        return h + _gated_mlp(bp["mlp"], rms_norm(h, bp["ln2"]))
+        return h + _ffn(cfg, bp, rms_norm(h, bp["ln2"]))
 
     def _mamba_block_decode(bp: Block, h, cache, i: int):
         state = {k: cache[k][i] for k in STATE_KEYS}
@@ -342,7 +379,7 @@ def build_model(cfg: ModelConfig, device=None,
         Returns (logits [B,1,V], the cache, updated in place)."""
         cache_len = int(cache_len)
         h = _embed(params, tokens)
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "moe"):
             for i, bp in enumerate(params.blocks):
                 h = _attn_block_decode(bp, h, cache, i, cache_len,
                                        window_of(i))

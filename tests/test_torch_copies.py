@@ -28,7 +28,7 @@ COPIES = [
     "core/directives.py", "core/cost_model.py", "core/cost_batch.py",
     "core/estimate.py", "core/estimate_batch.py",
     "obs/metrics.py", "obs/trace.py", "obs/watch.py", "obs/explain.py",
-    "runtime/inject.py", "runtime/fault.py",
+    "runtime/inject.py", "runtime/fault.py", "runtime/straggler.py",
     "core/solver/__init__.py",
     "core/solver/memo.py", "core/solver/intralayer.py",
     "core/solver/interlayer.py", "core/solver/kapla.py",

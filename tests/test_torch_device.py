@@ -723,3 +723,52 @@ def test_fused_cache_bounded_by_bytes_on_card(monkeypatch):
         del net
     clear_cache()
     assert torch.cuda.memory_allocated(dev) <= base
+
+
+# ---------------------------------------------------------------------------
+# the mesh executor: segment tasks of both tiers over four nodes
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", [None, "compiled"],
+                         ids=["per-layer", "fused"])
+def test_mesh_tasks_bitwise_equal_fused_replay_on_card(backend):
+    """AlexNet b64 on the 16x16 template over 4 nodes: the tier's tasks
+    give the fused replay's outputs bit for bit, through a node crash and
+    the re-partition after it, and fused tasks capture nothing after they
+    are built."""
+    import numpy as np
+    from repro_torch.core.solver.multinode import NodeMesh, plan_multinode
+    from repro_torch.lower import clear_cache, fused_runner
+    from repro_torch.lower.meshexec import MeshExecutor, build_segment_tasks
+    from repro_torch.runtime.inject import FaultPlan, FaultSpec, inject
+    dev = _card()
+    hw = eyeriss_multinode()
+    net = get_net("alexnet", batch=64)
+    sched = solve(net, hw)
+    nplan = lower_network(sched, net, hw)
+    inputs = make_network_inputs(nplan, seed=0, device=dev)
+    clear_cache()
+    want = {k: v.cpu().numpy() for k, v in network_runner(
+        nplan, inputs, device=dev, fused=True)().outputs.items()}
+    weights = {k: v for k, v in inputs.items() if k.endswith(".W")}
+    ext = {k: v.cpu().numpy() for k, v in inputs.items()
+           if k.endswith(".I")}
+    tasks = build_segment_tasks(nplan, weights, backend=backend, device=dev)
+    fused = fused_runner(nplan, device=dev)
+    traces = fused.traces
+    plan = plan_multinode(sched, net, hw, NodeMesh(nodes=4))
+    victim = plan.part_of_segment(0).node_ids[0]
+    faults = FaultPlan.make(2, {"node.crash": FaultSpec(
+        rate=1.0, match=f"node{victim}", after=1)})
+    with MeshExecutor(plan, tasks, schedule=sched, graph=net, hw=hw) as ex:
+        with inject(faults):
+            runs = [ex.run(ext, f"r{i}") for i in range(3)]
+        st = ex.stats()
+    assert st["failures"] >= 1 and st["repartitions"] >= 1
+    for r in runs:
+        assert not r.degraded and r.outputs
+        for k, v in r.outputs.items():
+            assert np.array_equal(v, want[k]), k
+    assert fused.traces == traces
+    clear_cache()

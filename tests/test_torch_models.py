@@ -1,7 +1,8 @@
 """The port's model zoo against the JAX package, arch by arch, at the
 reduced sizes of tests/test_models.py, in f32, with the JAX weights carried
 across by ``params_from_reference``: forward logits, prefill (logits and
-cache), three decode steps, and the Mamba2 and attention blocks alone."""
+cache), three decode steps, and the Mamba2, attention and MoE blocks alone
+(the MoE FFN also where capacity drops tokens: the same pairs dropped)."""
 import dataclasses
 
 import numpy as np
@@ -15,9 +16,11 @@ import jax.numpy as jnp
 from repro.configs import get_config, list_archs
 from repro.models.api import build_model
 from repro.models.attention import attn_forward
+from repro.models.moe import moe_ffn
 from repro.models.ssm import mamba_forward
 from repro_torch.configs import get_config as t_get_config
 from repro_torch.models import api as tapi
+from repro_torch.models import moe as tmoe
 from repro_torch.models.attention import attn_forward as t_attn_forward
 from repro_torch.models.ssm import mamba_forward as t_mamba_forward
 
@@ -47,7 +50,7 @@ def reduced(cfg):
     return dataclasses.replace(cfg, **over)
 
 
-ARCHS = [a for a in list_archs() if get_config(a).family != "moe"]
+ARCHS = list_archs()
 MOE_ARCHS = [a for a in list_archs() if get_config(a).family == "moe"]
 
 
@@ -113,9 +116,9 @@ def test_forward_prefill_decode_match_jax(arch):
         assert _rel_err(_np(tlog), jlog) < TOL
         _check_cache(tcache, jcache)
 
-        # dense: continue after the prompt; ssm/hybrid: the fresh cache the
-        # serving loop fills by replay, from position 0
-        start = S if cfg.family == "dense" else 0
+        # dense/moe: continue after the prompt; ssm/hybrid: the fresh cache
+        # the serving loop fills by replay, from position 0
+        start = S if cfg.family in ("dense", "moe") else 0
         jstep = jax.jit(japi.decode_step)
         toks = rng.integers(0, 100, size=(GEN, B, 1)).astype(np.int32)
         for i in range(GEN):
@@ -166,13 +169,103 @@ def test_attn_forward_matches_jax(arch, window):
     assert _rel_err(_np(got), want) < TOL
 
 
+def _probe_experts(jp, tp, d):
+    """Give expert e's down projection a single 1 in output column e, so
+    the MoE output's column e of a token is nonzero exactly when the pair
+    (token, e) was kept: the kept pairs read off the output alone."""
+    wo = np.zeros(np.asarray(jp["wo"]).shape, np.float32)
+    for e in range(wo.shape[0]):
+        wo[e, :, e] = 1.0
+    jp = dict(jp, wo=jnp.asarray(wo))
+    tp = {k: tp[k] for k in ("router", "wi", "wg")}
+    tp["wo"] = torch.from_numpy(wo)
+    assert wo.shape[0] <= d
+    return jp, tp
+
+
+def _kept(out, E):
+    return {(t, e) for t, e in zip(*np.nonzero(np.asarray(out)[:, :E]))}
+
+
 @pytest.mark.parametrize("arch", MOE_ARCHS)
-def test_moe_family_is_not_ported_yet(arch):
-    cfg = reduced(t_get_config(arch))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tapi.build_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tapi.params_from_reference(cfg, {}, device="cpu")
+@pytest.mark.parametrize("capacity_factor", [8.0, 1.0, 0.5])
+def test_moe_ffn_matches_jax_and_drops_the_same_pairs(arch,
+                                                      capacity_factor):
+    """``moe_ffn`` against the JAX one, without drops (8.0) and where
+    capacity drops pairs (1.0, 0.5): the outputs agree, and the (token,
+    slot) pairs the port drops are exactly those the reference drops
+    (read off both outputs through probe experts)."""
+    cfg = dataclasses.replace(reduced(get_config(arch)),
+                              capacity_factor=capacity_factor)
+    _, jparams, _, tparams = _models(cfg, seed=3)
+    fd = cfg.first_dense_layers
+    jp = {k: v for k, v in _block0(jparams["blocks"])["moe"].items()
+          if k != "shared"}
+    tp = tparams.blocks[fd]["moe"]
+    x = np.random.default_rng(3).standard_normal(
+        (4, 32, cfg.d_model)).astype(np.float32)
+    T, E = 4 * 32, cfg.num_experts
+    want = jax.jit(lambda p, x: moe_ffn(p, x, cfg))(jp, jnp.asarray(x))
+    with torch.inference_mode():
+        with tmoe.counting_drops() as count:
+            got = tmoe.moe_ffn(tp, torch.from_numpy(x), cfg)
+    assert _rel_err(_np(got), want) < TOL
+    assert count.pairs == T * cfg.top_k
+    if capacity_factor < 8.0:
+        assert count.dropped > 0
+    else:
+        assert count.dropped == 0
+
+    # the pairs: every routed pair (a capacity no pair exceeds), minus the
+    # dropped ones, read off each side's probe output
+    jprobe, tprobe = _probe_experts(jp, tp, cfg.d_model)
+    wide = dataclasses.replace(cfg, capacity_factor=float(E))
+    routed = _kept(jax.jit(lambda p, x: moe_ffn(p, x, wide))(
+        jprobe, jnp.asarray(x)).reshape(T, -1), E)
+    ref_kept = _kept(jax.jit(lambda p, x: moe_ffn(p, x, cfg))(
+        jprobe, jnp.asarray(x)).reshape(T, -1), E)
+    with torch.inference_mode():
+        port_routed = _kept(tmoe.moe_ffn(tprobe, torch.from_numpy(x), wide)
+                            .reshape(T, -1).numpy(), E)
+        port_kept = _kept(tmoe.moe_ffn(tprobe, torch.from_numpy(x), cfg)
+                          .reshape(T, -1).numpy(), E)
+    assert len(routed) == T * cfg.top_k
+    assert port_routed == routed
+    assert port_kept == ref_kept
+    assert port_routed - port_kept == routed - ref_kept
+    assert len(routed - ref_kept) == count.dropped
+
+
+def test_moe_ffn_has_no_model_axis_on_one_card():
+    cfg = reduced(get_config("qwen2-moe-a2.7b"))
+    _, _, _, tparams = _models(cfg)
+    x = torch.zeros((1, 4, cfg.d_model))
+    with pytest.raises(ValueError, match="model axis"):
+        tmoe.moe_ffn(tparams.blocks[0]["moe"], x, cfg, model_axis="model")
+
+
+def test_moe_params_keep_the_router_in_f32():
+    """bf16 parameters from the JAX tree: the router stays float32 (as
+    ``init_moe`` draws it), kimi-k2's first dense layer comes first."""
+    cfg = reduced(get_config("kimi-k2-1t-a32b"))
+    jparams = build_model(cfg, dtype=jnp.bfloat16).init(
+        jax.random.PRNGKey(0))
+    tree = jax.tree_util.tree_map(
+        lambda a: np.asarray(jnp.asarray(a, jnp.float32)), jparams)
+    tparams = tapi.params_from_reference(cfg, tree, device="cpu")
+    assert len(tparams.blocks) == cfg.num_layers
+    assert "mlp" in tparams.blocks[0] and "moe" in tparams.blocks[1]
+    moe_p = tparams.blocks[1]["moe"]
+    assert moe_p["router"].dtype == torch.float32
+    assert moe_p["wi"].dtype == torch.bfloat16
+    assert moe_p["shared"]["wo"].dtype == torch.bfloat16
+    own = tapi.build_model(cfg, device="cpu").init(0)
+    for name, leaf in jparams["blocks"]["moe"].items():
+        if name == "shared":
+            continue
+        assert tuple(own.blocks[1]["moe"][name].shape) == leaf.shape[1:]
+        assert (own.blocks[1]["moe"][name].dtype == torch.float32) == \
+            (leaf.dtype == jnp.float32), name
 
 
 def test_port_init_shapes_match_jax_tree():

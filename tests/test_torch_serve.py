@@ -56,7 +56,8 @@ def _jax_serve(arch, dtype):
 
 
 @pytest.mark.parametrize("arch", ["qwen2.5-3b", "gemma2-2b", "mamba2-1.3b",
-                                  "zamba2-1.2b"])
+                                  "zamba2-1.2b", "qwen2-moe-a2.7b",
+                                  "kimi-k2-1t-a32b"])
 def test_serve_tokens_match_jax_f32(arch):
     want, want_logits, cfg, tree = _jax_serve(arch, jnp.float32)
     params = params_from_reference(cfg, tree, device="cpu",
