@@ -88,7 +88,12 @@ Phases, in order; any failure exits non-zero:
    256 with head dim 128 in float32.  float32
    within 1e-5 max rel error, bf16 within 8e-3 x max|plain| (one bf16
    ulp); time the kernel, the plain version and, where one PyTorch call
-   computes the same function, ``F.scaled_dot_product_attention``;
+   computes the same function, ``F.scaled_dot_product_attention``; at the
+   three serve prefill shapes and the f32 case, also the kernel's
+   log-sum-exp output (``return_lse=True``, which the training path's
+   backward reads) against the plain version's, max abs error <=
+   ``LSE_TOL`` (both f32 from the same operands), its output within the
+   same limits, and the kernel's time with the lse store;
 8. serve Qwen2.5-3B, Zamba2-1.2B and Qwen2-MoE-A2.7B at full width in bf16
    (8 requests, 512-token prompts, 32 generated tokens) through ``serve``,
    with the launch counters set to 0 just before and read just after:
@@ -104,7 +109,29 @@ Phases, in order; any failure exits non-zero:
    against the same prefill through the plain versions on the host's CPU,
    same weights, <= 1e-3, and the (token, slot) pairs capacity dropped,
    equal on both;
-10. print ``{"kernels": [...]}``, the card's name and power limit, and last
+10. train Zamba2-1.2B at full width and depth in bf16 through
+   ``launch/train.py`` ``train`` (4 steps, 8 x 512 tokens, AdamW, no
+   checkpoints), with the launch counters set to 0 just before and read
+   just after: flash 24 (all ``wgmma``) and SSD 152, 6 and 38 a step, all
+   in the forward (the backwards are PyTorch, as the reference's are jnp);
+   every loss finite; the step seconds (min of steps 2-4), tokens/s and
+   peak memory; then one step of a fresh model under ``torch.profiler``:
+   device ms by group (the two kernels, matmul, the optimizer's
+   ``record_function`` range, the rest) and the idle share;
+11. the f32 training path on the card against the host's CPU: Zamba2 at
+   full width cut to 6 layers (one shared-attention call), 2 x 128
+   tokens, the same weights, TF32 off: the loss within 1e-4 relative,
+   every gradient leaf within 1e-3 of its leaf's max |g| (the FMA flash
+   kernel with its lse, the f32 SSD kernel and both backwards against the
+   plain versions);
+12. checkpoints at full width cut to 6 layers (2 x 256 tokens): ``train``
+   with a checkpoint every 2 steps and a failure injected at step 3 must
+   recover once (``restarts == 1``) with finite losses; 2 more steps
+   resumed from its directory must match the same steps of one
+   uninterrupted run within 1e-3 relative (the embedding gather's
+   backward adds with atomics on the card, so not bit for bit);
+13. print ``{"kernels": [...]}`` (flash and SSD count phase 8's and phase
+   10's launches), the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 
 Every ``[kernel]`` line and ``kernels`` entry names the path that ran:
@@ -135,6 +162,7 @@ import collections
 import dataclasses
 import functools
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -191,6 +219,27 @@ CONSISTENCY = {"qwen2.5-3b": 4, "zamba2-1.2b": 12}
 #: the MoE consistency row: arch, depth, requests and prompt length (short
 #: enough for the plain versions on the host's CPU)
 MOE_CONSISTENCY = ("qwen2-moe-a2.7b", 2, 4, 64)
+#: phase 7's flash cases whose log-sum-exp output is held against the plain
+#: version's (the three serve prefills on the tensor-core path, the f32 FMA
+#: case), and its limit: both are f32 from the same operands
+LSE_CASES = ("qwen2.5-3b", "zamba2-1.2b", "qwen2-moe-a2.7b", "non-causal-f32")
+LSE_TOL = 1e-4
+#: the training phase: arch, steps, batch, sequence, full width and depth
+#: in bf16, and the kernel launches over its steps (6 flash, all on the
+#: tensor cores, and 38 SSD a step, all in the forward: remat is "none",
+#: so the backward runs no kernel)
+TRAIN = ("zamba2-1.2b", 4, 8, 512)
+TRAIN_LAUNCHES = {"flash_attention": 24, "flash_attention_wgmma": 24,
+                  "ssd_intra_chunk": 152}
+#: the f32 training row, card against the host CPU: depth, batch,
+#: sequence; the loss's limit (relative) and each gradient leaf's (of its
+#: max |g|)
+TRAIN_CONSISTENCY = (6, 2, 128)
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-4, 1e-3
+#: the checkpoint row: depth, batch, sequence, and the limit (relative) on
+#: a resumed step's loss against the same step of an uninterrupted run
+CKPT_RUN = (6, 2, 256)
+RESUME_TOL = 1e-3
 #: attention plans held against the plain version besides the calibration
 #: sweep's: layer name, (batch, heads, sequence, head dim), template.  The
 #: first (the Zamba2-1.2B shared block on the 16x16 template) times the
@@ -887,17 +936,43 @@ def model_kernel_phase(dev, path_ops, peak_bw):
         k = torch.randn((B, KV, Sk, D), generator=g, device=dev).to(t)
         v = torch.randn((B, KV, Sk, D), generator=g, device=dev).to(t)
 
+        with_lse = case in LSE_CASES
+
         def kern():
             return fa.flash_attention(q, k, v, causal, window, cap)
 
+        def kern_lse():
+            return fa.flash_attention(q, k, v, causal, window, cap,
+                                      return_lse=True)
+
         def plain():
-            return fa.plain_flash_attention(q, k, v, causal, window, cap)
+            return fa.plain_flash_attention(q, k, v, causal, window, cap,
+                                            return_lse=with_lse)
 
         def library():
             return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
                                                   enable_gqa=True)
         out = kern()
         want, plain_ms = host_ms(plain)
+        lse_row = {}
+        if with_lse:
+            want, want_lse = want
+            out_l, lse = kern_lse()
+            lse_err = float((lse - want_lse).abs().max())
+            out_err = float((out_l.float() - want.float()).abs().max()
+                            / (want.float().abs().max() + 1e-9))
+            tol = KERNEL_TOL if dtype == "f32" else BF16_TOL
+            if not (lse_err <= LSE_TOL and out_err <= tol):
+                raise AssertionError(f"flash {case} with lse: lse abs err "
+                                     f"{lse_err:.3e} (limit {LSE_TOL}), "
+                                     f"out rel err {out_err:.3e} ({tol})")
+            lse_row = {"lse_max_abs_err": lse_err,
+                       "lse_out_max_rel_err": out_err,
+                       "lse_ms": stream_ms(kern_lse)}
+            log(f"[kernel] flash {case} with lse: lse abs err "
+                f"{lse_err:.3e}, out rel err {out_err:.3e}, kernel with lse "
+                f"{lse_row['lse_ms']:.4f} ms")
+            del out_l, lse, want_lse
         ms = stream_ms(kern)
         library_ms = None
         if has_lib:
@@ -910,9 +985,9 @@ def model_kernel_phase(dev, path_ops, peak_bw):
         ops = 4 * B * H * D * attention_pairs(Sq, Sk, causal, window)
         nbytes = elem * (2 * B * H * Sq * D + 2 * B * KV * Sk * D)
         path = fa.flash_path(t, D)
-        flash.append(kernel_row(
+        flash.append({**kernel_row(
             f"flash {case}", path, out, want, ms, plain_ms, library_ms, ops,
-            nbytes, path_ops[path], peak_bw, dtype))
+            nbytes, path_ops[path], peak_bw, dtype), **lse_row})
         del q, k, v, out, want
     for case, B, S, H, P, N, Lc, dtype in SSD_CASES:
         NC = S // Lc
@@ -1163,6 +1238,229 @@ def moe_consistency(dev):
                              f"{err:.3e} > {CONSISTENCY_TOL}")
     del api, params, host_params
     torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+def _train_groups(prof, wall_ms):
+    """Device ms of a profiled train step by group (the two kernels,
+    matmuls, the optimizer's kernels, the rest), the device kernels
+    launched and the idle share.  The optimizer's kernels are those of the
+    ops under its ``record_function`` range on the host; the range's own
+    span on the device timeline (a user annotation, first to last kernel,
+    gaps included) is reported apart and kept out of the kernel sums."""
+    from torch.autograd import DeviceType
+    groups = collections.Counter()
+    launched = 0
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if not us or e.key == "optimizer" or \
+                "cuda" not in str(getattr(e, "device_type", "")).lower():
+            continue
+        groups[kernel_group(e.key)] += us / 1e3
+        launched += e.count
+    busy = sum(groups.values())
+    opt = [e for e in prof.events() if e.name == "optimizer"]
+    opt_ms = sum(e.device_time_total for e in opt
+                 if e.device_type == DeviceType.CPU) / 1e3
+    span_ms = sum(e.device_time_total for e in opt
+                  if e.device_type != DeviceType.CPU) / 1e3
+    groups["optimizer"] = opt_ms
+    groups["other"] = groups.get("other", 0.0) - opt_ms
+    return {"wall_ms": wall_ms, "device_ms": dict(groups),
+            "device_busy_ms": busy, "device_kernels": launched,
+            "optimizer_span_ms": span_ms,
+            "idle_share": None if not busy else 1.0 - busy / wall_ms}
+
+
+def profile_train_step(dev, cfg, batch_size: int, seq: int):
+    """One warm-up train step, then one under ``torch.profiler``, of a
+    fresh model of ``cfg`` (the pieces ``train`` builds)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models.api import build_model
+    from repro_torch.optim.optimizers import make_optimizer
+    api = build_model(cfg, device=dev, trainable=True)
+    params = api.init(1)
+    opt = make_optimizer(cfg.optimizer, lr=1e-3)
+    state = opt.init(dict(params.named_parameters()))
+    step = build_train_step(api, opt)
+    shape = ShapeConfig("train", seq, batch_size, "train")
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in
+                synth_batch(cfg, shape, i, DataConfig(seed=1)).items()}
+               for i in range(2)]
+    params, state, _ = step(params, state, batches[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batches[1])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    if not bool(torch.isfinite(m["loss"])):
+        raise AssertionError("profiled train step: non-finite loss")
+    return _train_groups(prof, wall_ms)
+
+
+def _free_card():
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_phase(dev):
+    """Phase 10: ``train`` Zamba2-1.2B at full width and depth in bf16,
+    with the launch counters set to 0 just before and read just after;
+    then one step under the profiler."""
+    import math
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train
+
+    arch, steps, batch, seq = TRAIN
+    cfg = get_config(arch)
+    _free_card()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    losses, stats = train(arch, steps=steps, batch=batch, seq=seq,
+                          tiny=False, device=dev, log_every=1)
+    launches = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if launches != TRAIN_LAUNCHES:
+        raise AssertionError(f"train {arch}: launches {launches}, the "
+                             f"forward has {TRAIN_LAUNCHES}")
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train {arch}: losses {losses}")
+    step_s = min(stats.step_seconds[1:])
+    res = {"arch": arch, "steps": steps, "batch": batch, "seq": seq,
+           "launches": launches, "losses": losses,
+           "step_seconds": stats.step_seconds, "step_s": step_s,
+           "tokens_per_s": batch * seq / step_s, "peak_memory_gb": peak_gb}
+    log(f"[train] {arch} bf16 full width and depth, {batch} x {seq} tokens "
+        f"a step, AdamW: step {step_s:.4f} s (min of steps 2-{steps}; all "
+        f"{[round(x, 4) for x in stats.step_seconds]}), "
+        f"{res['tokens_per_s']:.1f} tokens/s, peak memory {peak_gb:.2f} GB, "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f}, launches {launches}")
+    _free_card()
+    res["profile"] = profile_train_step(dev, cfg, batch, seq)
+    log(f"[profile] train {arch}: {json.dumps(res['profile'])}")
+    _free_card()
+    return res
+
+
+def train_consistency(dev):
+    """Phase 11: the f32 training path on the card (the FMA flash kernel
+    with its lse, the f32 SSD kernel, both backwards) against the same
+    loss and gradients through the plain versions on the host's CPU, same
+    weights and batch, TF32 off."""
+    import copy
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import build_model
+
+    layers, batch, seq = TRAIN_CONSISTENCY
+    cfg = dataclasses.replace(get_config(TRAIN[0]), num_layers=layers)
+    api = build_model(cfg, device=dev, dtype=torch.float32, trainable=True)
+    host_api = build_model(cfg, device="cpu", dtype=torch.float32)
+    params = api.init(0)
+    host_params = copy.deepcopy(params).cpu()
+    data = synth_batch(cfg, ShapeConfig("c", seq, batch, "train"), 0,
+                       DataConfig(seed=0))
+    ops.reset_launch_counts()
+    loss = api.loss_fn(params, {k: torch.from_numpy(v).to(dev)
+                                for k, v in data.items()})
+    loss.backward()
+    launches = ops.launch_counts()
+    t0 = time.perf_counter()
+    host_loss = host_api.loss_fn(host_params, {k: torch.from_numpy(v)
+                                               for k, v in data.items()})
+    host_loss.backward()
+    host_s = time.perf_counter() - t0
+    loss, host_loss = float(loss.detach()), float(host_loss.detach())
+    loss_err = abs(loss - host_loss) / abs(host_loss)
+    host = dict(host_params.named_parameters())
+    worst, worst_leaf = 0.0, None
+    for name, p in params.named_parameters():
+        want = host[name].grad
+        err = float((p.grad.cpu() - want).abs().max()
+                    / (want.abs().max() + 1e-30))
+        if err > worst:
+            worst, worst_leaf = err, name
+    res = {"layers": layers, "batch": batch, "seq": seq,
+           "loss": loss, "host_loss": host_loss,
+           "loss_rel_err": loss_err, "worst_grad_err": worst,
+           "worst_leaf": worst_leaf, "launches": launches,
+           "host_seconds": host_s}
+    log(f"[consistency] train {TRAIN[0]} f32 {layers} layers, {batch} x "
+        f"{seq} tokens: card vs host CPU loss rel err {loss_err:.3e}, worst "
+        f"gradient leaf {worst_leaf} {worst:.3e} of its max |g|, launches "
+        f"{launches} (host forward + backward {host_s:.2f} s)")
+    if launches != {"flash_attention": layers // cfg.attn_every,
+                    "flash_attention_wgmma": 0, "ssd_intra_chunk": layers}:
+        raise AssertionError(f"train consistency: launches {launches}")
+    if not (loss_err <= TRAIN_LOSS_TOL and worst <= TRAIN_GRAD_TOL):
+        raise AssertionError(f"train consistency: loss rel err "
+                             f"{loss_err:.3e} (limit {TRAIN_LOSS_TOL}), "
+                             f"gradient {worst_leaf} {worst:.3e} (limit "
+                             f"{TRAIN_GRAD_TOL})")
+    del api, params, host_params
+    _free_card()
+    return res
+
+
+def checkpoint_phase(dev):
+    """Phase 12: checkpoint, an injected failure and its recovery, and a
+    resume, at full width cut in depth: the resumed steps' losses against
+    the same steps of one uninterrupted run."""
+    import math
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train
+
+    layers, batch, seq = CKPT_RUN
+    cfg = dataclasses.replace(get_config(TRAIN[0]), num_layers=layers)
+    run = dict(batch=batch, seq=seq, tiny=False, device=dev, log_every=1)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
+        t0 = time.perf_counter()
+        failed, stats = train(cfg, steps=6, ckpt_dir=d, ckpt_every=2,
+                              fail_at=3, **run)
+        recovery_s = time.perf_counter() - t0
+        resumed, _ = train(cfg, steps=8, ckpt_dir=d, resume=True, **run)
+        on_disk = sum(os.path.getsize(os.path.join(r, f))
+                      for r, _, fs in os.walk(d) for f in fs)
+    whole, _ = train(cfg, steps=8, **run)
+    errs = [abs(a - b) / abs(b) for a, b in zip(resumed, whole[6:])]
+    res = {"layers": layers, "batch": batch, "seq": seq,
+           "restarts": stats.restarts, "failed_run_losses": failed,
+           "resumed_losses": resumed, "uninterrupted_losses": whole,
+           "resume_rel_errs": errs, "recovery_run_s": recovery_s,
+           "checkpoint_bytes_on_disk": on_disk}
+    log(f"[checkpoint] {TRAIN[0]} {layers} layers bf16: restarts "
+        f"{stats.restarts}, losses {[round(x, 4) for x in failed]}; resumed "
+        f"steps 6-7 {resumed} vs uninterrupted {whole[6:]} (rel err "
+        f"{max(errs):.3e}); {on_disk} bytes of checkpoints kept; the "
+        f"failing run {recovery_s:.1f} s")
+    if stats.restarts != 1 or not all(math.isfinite(x) for x in failed):
+        raise AssertionError(f"checkpoint: restarts {stats.restarts}, "
+                             f"losses {failed}")
+    if len(resumed) != 2 or not max(errs) <= RESUME_TOL:
+        raise AssertionError(f"checkpoint: resumed {resumed} vs "
+                             f"uninterrupted {whole[6:]}")
+    _free_card()
     return res
 
 
@@ -1467,6 +1765,14 @@ def main(argv=None) -> int:
     detail["serve"] = serve_res
     detail["consistency"] = consistency_phase(dev)
 
+    # 10.-12. training ---------------------------------------------------------
+    t_phase = time.perf_counter()
+    train_res = train_phase(dev)
+    detail["train"] = train_res
+    detail["train_consistency"] = train_consistency(dev)
+    detail["checkpoint"] = checkpoint_phase(dev)
+    log(f"[train] phases 10-12 in {time.perf_counter() - t_phase:.1f} s")
+
     # 10. the kernels line ---------------------------------------------------
     kernels = []
     fused_launches = detail["fused"]["resnet"]["launches"]
@@ -1518,6 +1824,13 @@ def main(argv=None) -> int:
         "ssd_intra_chunk", model_rows["ssd_intra_chunk"],
         {"zamba2-1.2b": SERVE["zamba2-1.2b"]["ssd_intra_chunk"]}, serve_res,
         ssd_scan.SOURCE, ssd_scan.REPLACES["ssd_intra_chunk"]))
+    # the training path's launches (phase 10) join the serve prefills'
+    for k in kernels[-2:]:
+        k["uses"] = ["serve", "train"]
+        k["launches_train"] = train_res["launches"][k["name"]]
+        k["launches"] += k["launches_train"]
+    kernels[-2]["launches_wgmma"] += \
+        train_res["launches"]["flash_attention_wgmma"]
     detail["kernels"] = kernels
     for k in kernels:
         if k["name"] in EARLIER_MS:
@@ -1538,7 +1851,8 @@ def main(argv=None) -> int:
         "launches per full calibration sweep; flash_attention per serve "
         "prefill of Qwen2.5-3B, Zamba2-1.2B and Qwen2-MoE-A2.7B together, "
         "ssd_intra_chunk per serve prefill of Zamba2-1.2B; each summed "
-        "over its launches)")
+        "over its launches; their launches count phase 8's serve prefills "
+        "and phase 10's training steps)")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()

@@ -46,9 +46,15 @@ namespace {
 // registers).
 // ---------------------------------------------------------------------------
 
+// lse: null, or [B, H, Sq] float32 that receives each query row's
+// log-sum-exp of its (scaled, soft-capped, masked) scores in natural-log
+// units, m + log(max(l, 1e-30)), for the backward (kernels/ops.py
+// flash_attention_vjp); the reference's _chunked_attention_jnp(...,
+// return_lse=True).
 struct FlashArgs {
   int B, H, KV, Sq, Sk, causal, window;
   float scale, softcap;
+  float* lse;
 };
 
 template <typename T, int D>
@@ -103,6 +109,9 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (q0 + row >= a.Sq) return;
   st.template store<T, false>(o + ((size_t)bh * a.Sq + q0 + row) * D, sub);
+  // m and l are already reduced over the row's 4 lanes (SoftmaxRow::step)
+  if (a.lse != nullptr && sub == 0)
+    a.lse[(size_t)bh * a.Sq + q0 + row] = st.m + logf(fmaxf(st.l, 1e-30f));
 }
 
 template <typename T, int D>
@@ -384,6 +393,18 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       l_b += __shfl_xor_sync(0xffffffffu, l_b, 1);
       l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
       const float den_a = fmaxf(l_a, 1e-30f), den_b = fmaxf(l_b, 1e-30f);
+      if (a.lse != nullptr && pass + 1 == T::PASSES && quad == 0) {
+        // m is in log2 units here: lse = (m2 + log2(l)) ln 2; a row with no
+        // unmasked key (m2 = -inf) gets the plain version's -1e30
+        constexpr float LN2 = 0.6931471805599453f;
+        const int row_a = q0 + wg * 64 + r_a;
+        if (row_a < a.Sq)
+          a.lse[(size_t)bh * a.Sq + row_a] =
+              m_a == -INFINITY ? -1e30f : (m_a + log2f(den_a)) * LN2;
+        if (row_a + 8 < a.Sq)
+          a.lse[(size_t)bh * a.Sq + row_a + 8] =
+              m_b == -INFINITY ? -1e30f : (m_b + log2f(den_b)) * LN2;
+      }
       if (pass + 1 < T::PASSES) {
         // Q is still needed: straight to global memory
 #pragma unroll
@@ -957,13 +978,14 @@ cudaError_t launch_ssd(const void* x, const float* dt, const float* acum,
 // ---------------------------------------------------------------------------
 
 // p: B, H, KV, Sq, Sk, D, causal, window, dtype, path (0 the FMA tile, 1
-// the tensor-core kernel, bf16 only); f: scale, softcap
+// the tensor-core kernel, bf16 only); f: scale, softcap; lse: null, or the
+// float32 [B, H, Sq] log-sum-exp output (FlashArgs)
 extern "C" int kapla_flash_attention(const void* q, const void* k,
-                                     const void* v, void* o,
+                                     const void* v, void* o, float* lse,
                                      const long long* p, const double* f,
                                      void* stream) {
   FlashArgs a{(int)p[0], (int)p[1], (int)p[2], (int)p[3], (int)p[4],
-              (int)p[6], (int)p[7], (float)f[0], (float)f[1]};
+              (int)p[6], (int)p[7], (float)f[0], (float)f[1], lse};
   const int D = (int)p[5], dtype = (int)p[8], path = (int)p[9];
   if (a.KV <= 0 || a.H % a.KV != 0 || a.Sq <= 0 || a.Sk <= 0)
     return (int)cudaErrorInvalidValue;

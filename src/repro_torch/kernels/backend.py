@@ -49,7 +49,7 @@ MODEL_SOURCE = CSRC / "model_kernels.cu"
 ENTRY_POINTS = {
     SOURCE.name: {"kapla_fc": 6, "kapla_conv": 5, "kapla_pool": 4,
                   "kapla_eltwise": 4, "kapla_attention": 7},
-    MODEL_SOURCE.name: {"kapla_flash_attention": 7,
+    MODEL_SOURCE.name: {"kapla_flash_attention": 8,
                         "kapla_ssd_intra_chunk": 9},
 }
 

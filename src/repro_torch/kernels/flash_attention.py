@@ -13,7 +13,11 @@ each (dtype, head dim) runs: ``"wgmma"``, the tensor-core kernel
 (``flash_wgmma_kernel``: TMA, wgmma, bf16 P in P V), or ``"fma"``, the
 f32 FMA tile on the CUDA cores (``flash_kernel``).  ``LAUNCHES`` counts
 kernel launches: ``flash_attention`` all of them, ``flash_attention_wgmma``
-those of the tensor-core kernel.
+those of the tensor-core kernel.  With ``return_lse=True`` both kernels
+(and the plain version) also return each query row's log-sum-exp,
+``m + log(max(l, 1e-30))`` in natural-log units, float32 [B, H, Sq], as
+the reference's ``_chunked_attention_jnp(..., return_lse=True)`` does: the
+backward of ``ops.flash_attention_vjp`` rebuilds the probabilities from it.
 """
 from __future__ import annotations
 
@@ -75,12 +79,15 @@ def _mask(q0: int, bq: int, k0: int, bk: int, q_offset: int, causal: bool,
 def plain_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           causal: bool = True, window: int = 0,
                           logit_softcap: float = 0.0,
-                          scale: Optional[float] = None) -> torch.Tensor:
+                          scale: Optional[float] = None,
+                          return_lse: bool = False):
     """Walks (q-block, kv-block) tiles of the kernel's sizes in order with
     the online-softmax update of ``_flash_kernel``: scores in f32, scaled,
     soft-capped, masked to ``NEG_INF``; ``p`` zeroed by the mask;
     ``acc / max(l, 1e-30)``.  Batches and heads are vectorized; GQA groups
-    the query heads of a KV head.  Ragged last blocks are allowed."""
+    the query heads of a KV head.  Ragged last blocks are allowed.  With
+    ``return_lse`` also ``m + log(max(l, 1e-30))`` of the walk, float32
+    [B, H, Sq]."""
     ref.full_fp32(q)
     B, H, Sq, D = q.shape
     KV, Sk = k.shape[1], k.shape[2]
@@ -91,6 +98,7 @@ def plain_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kf = k.float()[:, :, None]                     # [B, KV, 1, Sk, D]
     vf = v.float()[:, :, None]
     out = torch.empty((B, KV, qpk, Sq, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, KV, qpk, Sq), dtype=torch.float32, device=q.device)
     for q0 in range(0, Sq, BLOCK_Q):
         qb = qg[:, :, :, q0:q0 + BLOCK_Q]
         bq = qb.shape[3]
@@ -116,7 +124,9 @@ def plain_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             acc = acc * alpha[..., None] + torch.matmul(p, vb)
         out[:, :, :, q0:q0 + bq] = (
             acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
-    return out.reshape(B, H, Sq, D)
+        lse[:, :, :, q0:q0 + bq] = m + torch.log(torch.clamp(l, min=1e-30))
+    out = out.reshape(B, H, Sq, D)
+    return (out, lse.reshape(B, H, Sq)) if return_lse else out
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -150,20 +160,24 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: int = 0,
                     logit_softcap: float = 0.0,
-                    scale: Optional[float] = None) -> torch.Tensor:
+                    scale: Optional[float] = None,
+                    return_lse: bool = False):
     """q: [B, H, Sq, D]; k, v: [B, KV, Sk, D], H % KV == 0, contiguous,
     float32 or bfloat16.  The CUDA kernel on the card, the plain version on
-    the CPU."""
+    the CPU.  With ``return_lse``: (out, lse [B, H, Sq] float32); without,
+    the kernel gets a null ``lse`` and writes none."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return plain_flash_attention(q, k, v, causal, window, logit_softcap,
-                                     scale)
+                                     scale, return_lse)
     if not q.is_cuda:
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     B, H, Sq, D = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     path = flash_path(q.dtype, D)
     out = torch.empty_like(q)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     if path == "wgmma" and any(t.data_ptr() % 16 for t in (q, k, v, out)):
         raise ValueError("flash_attention: the tensor-core kernel's TMA "
                          "needs 16-byte aligned q, k, v and output")
@@ -175,12 +189,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         fn = backend.library(backend.MODEL_SOURCE).kapla_flash_attention
         backend.check_launch("kapla_flash_attention", fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), prm,
-            fprm, backend.stream_handle(q.device)))
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), prm, fprm,
+            backend.stream_handle(q.device)))
     LAUNCHES["flash_attention"] += 1
     if path == "wgmma":
         LAUNCHES["flash_attention_wgmma"] += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 __all__ = ["BLOCK_K", "BLOCK_Q", "HEAD_DIMS", "LAUNCHES", "PATHS",

@@ -1,13 +1,17 @@
 """Public kernel API of the model zoo: attention and the SSD scan, through
 the hand-written CUDA kernels on the card and their plain PyTorch versions
-on the CPU.
+on the CPU, differentiable for training.
 
-The port of ``repro/kernels/ops.py`` (``:167-322``), serving only (no
-autograd).  The tensor's device decides what runs: ``attention`` calls
-``flash_attention`` and ``ssd`` calls ``ssd_intra_chunk``, which launch
-their kernels for CUDA tensors and take their plain versions for CPU ones.
-``decode_attention``, ``quantize_kv`` and ``ssd_decode`` are plain PyTorch,
-as they are plain jnp in the JAX package.
+The port of ``repro/kernels/ops.py`` (``:84-322``).  The tensor's device
+decides what runs: ``attention`` calls ``flash_attention`` and ``ssd`` calls
+``ssd_intra_chunk``, which launch their kernels for CUDA tensors and take
+their plain versions for CPU ones.  Where a gradient is wanted,
+``attention`` goes through ``flash_attention_vjp`` (the kernel's forward
+with its log-sum-exp, and the reference's recomputing backward in PyTorch)
+and ``ssd``'s intra-chunk term through ``ssd_scan.ssd_intra_chunk_vjp``;
+neither backward launches a kernel, as neither is a Pallas kernel in the
+JAX package.  ``decode_attention``, ``quantize_kv`` and ``ssd_decode`` are
+plain PyTorch, as they are plain jnp in the JAX package.
 """
 from __future__ import annotations
 
@@ -19,7 +23,7 @@ from . import flash_attention as fa
 from . import ref
 from . import ssd_scan
 from .flash_attention import NEG_INF, flash_attention
-from .ssd_scan import ssd_intra_chunk
+from .ssd_scan import ssd_intra_chunk_vjp
 
 
 def launch_counts() -> Dict[str, int]:
@@ -37,13 +41,108 @@ def reset_launch_counts() -> None:
 # Attention
 # ---------------------------------------------------------------------------
 
+class _FlashAttention(torch.autograd.Function):
+    """Flash attention with the reference's custom VJP
+    (``repro/kernels/ops.py:84-165``): the forward saves (q, k, v, out,
+    lse) and the backward RECOMPUTES each key chunk's probabilities from
+    ``lse``, so no per-chunk intermediate of the forward is kept."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, logit_softcap, scale,
+                block_k):
+        out, lse = flash_attention(q, k, v, causal=causal, window=window,
+                                   logit_softcap=logit_softcap, scale=scale,
+                                   return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.cfg = (causal, window, logit_softcap, scale, block_k)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, *ctx.cfg)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, causal: bool, window: int,
+                        logit_softcap: float, scale: float,
+                        block_k: int = 512):
+    """The reference's ``attn_bwd``, in float32 PyTorch: ``delta = Σ do·o``,
+    then per key chunk of ``block_k`` the probabilities
+    ``p = exp(s - lse)`` under the forward's mask and soft-cap,
+    ``ds = p (dp - delta)`` (times ``1 - t²`` when soft-capped), and dk,
+    dv folded over the GQA groups.  Returns (dq, dk, dv) in the inputs'
+    types."""
+    B, H, Sq, D = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    qpk = H // KV
+    bk = min(block_k, Sk)
+    if Sk % bk:
+        raise ValueError(f"flash_attention_vjp: keys {Sk} are not a "
+                         f"multiple of the key chunk {bk} (q "
+                         f"{tuple(q.shape)}, k {tuple(k.shape)})")
+    qf = q.float()
+    dof = do.float()
+    delta = (dof * o.float()).sum(-1)                       # [B,H,Sq]
+    qpos = torch.arange(Sq, device=q.device) + (Sk - Sq)
+    dq = torch.zeros((B, H, Sq, D), dtype=torch.float32, device=q.device)
+    dks, dvs = [], []
+    for k0 in range(0, Sk, bk):
+        kc = k[:, :, k0:k0 + bk].repeat_interleave(qpk, dim=1).float()
+        vc = v[:, :, k0:k0 + bk].repeat_interleave(qpk, dim=1).float()
+        s = torch.matmul(qf, kc.transpose(-1, -2)) * scale
+        if logit_softcap > 0:
+            t = torch.tanh(s / logit_softcap)
+            s = t * logit_softcap
+        kpos = torch.arange(k0, k0 + bk, device=q.device)
+        mask = torch.ones((Sq, bk), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= kpos[None, :] <= qpos[:, None]
+        if window > 0:
+            mask &= kpos[None, :] > qpos[:, None] - window
+        p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+        dv_c = torch.matmul(p.transpose(-1, -2), dof)
+        dp = torch.matmul(dof, vc.transpose(-1, -2))
+        ds = p * (dp - delta[..., None])
+        if logit_softcap > 0:
+            ds = ds * (1.0 - torch.square(t))
+        ds = ds * scale
+        dq = dq + torch.matmul(ds, kc)
+        dk_c = torch.matmul(ds.transpose(-1, -2), qf)
+        # GQA: fold q-head groups back onto shared KV heads
+        dks.append(dk_c.reshape(B, KV, qpk, bk, D).sum(2))
+        dvs.append(dv_c.reshape(B, KV, qpk, bk, D).sum(2))
+    dk = torch.cat(dks, dim=2)
+    dv = torch.cat(dvs, dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_vjp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, window: int = 0,
+                        logit_softcap: float = 0.0,
+                        scale: Optional[float] = None,
+                        block_k: int = 512) -> torch.Tensor:
+    """Differentiable flash attention: ``flash_attention`` forward (the
+    kernel on the card, writing its log-sum-exp), ``flash_attention_bwd``
+    backward.  q: [B,H,Sq,D]; k,v: [B,KV,Sk,D], contiguous."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    return _FlashAttention.apply(q, k, v, bool(causal), int(window),
+                                 float(logit_softcap), float(scale),
+                                 int(block_k))
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = True, window: int = 0,
               logit_softcap: float = 0.0,
               scale: Optional[float] = None) -> torch.Tensor:
-    """Multi-head GQA attention.  q: [B,H,S,D]; k,v: [B,KV,S,D]."""
-    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                           causal=causal, window=window,
+    """Multi-head GQA attention.  q: [B,H,S,D]; k,v: [B,KV,S,D].  With
+    grad enabled and any of q, k, v requiring it: ``flash_attention_vjp``;
+    otherwise ``flash_attention`` (no log-sum-exp written)."""
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return flash_attention_vjp(q, k, v, causal=causal, window=window,
+                                   logit_softcap=logit_softcap, scale=scale)
+    return flash_attention(q, k, v, causal=causal, window=window,
                            logit_softcap=logit_softcap, scale=scale)
 
 
@@ -148,7 +247,7 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
                            c_c, h0, torch.exp(acum))
 
     # intra-chunk quadratic term: the CUDA kernel on the card
-    y_intra = ssd_intra_chunk(
+    y_intra = ssd_intra_chunk_vjp(
         x_c.permute(0, 3, 1, 2, 4).contiguous(),              # [B,H,NC,Lc,P]
         dt_c.permute(0, 3, 1, 2).contiguous(),
         acum.permute(0, 3, 1, 2).contiguous(), b_c.contiguous(),
@@ -162,5 +261,6 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
 ssd_decode = ref.ssd_decode_ref
 
 
-__all__ = ["attention", "decode_attention", "launch_counts", "quantize_kv",
+__all__ = ["attention", "decode_attention", "flash_attention_bwd",
+           "flash_attention_vjp", "launch_counts", "quantize_kv",
            "reset_launch_counts", "ssd", "ssd_decode"]

@@ -11,7 +11,11 @@ in ``ops.ssd``.  ``ssd_intra_chunk`` launches the kernel for CUDA tensors (or
 raises) and takes ``plain_ssd_intra_chunk`` for CPU tensors.  ``LAUNCHES``
 counts kernel launches.  ``ssd_launch`` computes the kernel's geometry (head
 group, tiles, shared memory, grid); the kernel takes any chunk length and
-head dim.
+head dim.  ``ssd_intra_chunk_vjp`` is the differentiable form the training
+path takes: its forward is ``ssd_intra_chunk`` (the kernel on the card), its
+backward a closed form in float32 PyTorch (``ssd_intra_chunk_bwd``); the
+reference differentiates the same term by autodiff of its jnp path, with no
+Pallas backward.
 """
 from __future__ import annotations
 
@@ -243,5 +247,61 @@ def ssd_intra_chunk(x: torch.Tensor, dt: torch.Tensor, acum: torch.Tensor,
     return out
 
 
+def ssd_intra_chunk_bwd(dy: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
+                        acum: torch.Tensor, b: torch.Tensor, c: torch.Tensor):
+    """The gradients of ``y = G x`` per (b, h, chunk), in float32, with
+    ``S = C Bᵀ`` and ``D = exp(acum_l - acum_m)`` on and below the
+    diagonal (the exponent zeroed above it, as the forward does),
+    ``G = tril(S D dt_m)`` and ``dG = tril(dY Xᵀ)``:
+
+      dX = Gᵀ dY;  d dt_m = Σ_l dG S D;  dS = Σ_h dG D dt_m, so
+      dC = dS B and dB = dSᵀ C (B and C have no head axis);
+      with E = dG G: d acum = rowsum(E) - colsum(E).
+
+    Returns (dx in x's type, d dt, d acum, db, dc in float32)."""
+    Lc = x.shape[3]
+    tri = torch.ones((Lc, Lc), dtype=torch.bool, device=x.device).tril()
+    bf, cf, acum = b.float(), c.float(), acum.float()
+    S = torch.matmul(cf, bf.transpose(-1, -2))[:, None]   # [B,1,NC,l,m]
+    D = torch.where(tri, torch.exp(torch.where(
+        tri, acum[..., :, None] - acum[..., None, :], 0.0)), 0.0)
+    SD = S * D                                             # [B,H,NC,l,m]
+    G = SD * dt.float()[..., None, :]
+    dyf = dy.float()
+    dG = torch.where(tri, torch.matmul(dyf, x.float().transpose(-1, -2)),
+                     0.0)
+    dx = torch.matmul(G.transpose(-1, -2), dyf)
+    ddt = (dG * SD).sum(-2)
+    dS = (dG * D * dt.float()[..., None, :]).sum(1)        # [B,NC,l,m]
+    dc = torch.matmul(dS, bf)
+    db = torch.matmul(dS.transpose(-1, -2), cf)
+    E = dG * G
+    dacum = E.sum(-1) - E.sum(-2)
+    return dx.to(x.dtype), ddt, dacum, db, dc
+
+
+class _SsdIntraChunk(torch.autograd.Function):
+    """Forward: ``ssd_intra_chunk`` (the kernel on the card, the plain
+    version on the CPU); backward: ``ssd_intra_chunk_bwd``, recomputed from
+    the saved inputs, launching no kernel."""
+
+    @staticmethod
+    def forward(ctx, x, dt, acum, b, c):
+        ctx.save_for_backward(x, dt, acum, b, c)
+        return ssd_intra_chunk(x, dt, acum, b, c)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return ssd_intra_chunk_bwd(dy, *ctx.saved_tensors)
+
+
+def ssd_intra_chunk_vjp(x: torch.Tensor, dt: torch.Tensor,
+                        acum: torch.Tensor, b: torch.Tensor,
+                        c: torch.Tensor) -> torch.Tensor:
+    """``ssd_intra_chunk`` with a gradient (same arguments and result)."""
+    return _SsdIntraChunk.apply(x, dt, acum, b, c)
+
+
 __all__ = ["LAUNCHES", "REPLACES", "SOURCE", "SsdLaunch",
-           "plain_ssd_intra_chunk", "ssd_intra_chunk", "ssd_launch"]
+           "plain_ssd_intra_chunk", "ssd_intra_chunk", "ssd_intra_chunk_bwd",
+           "ssd_intra_chunk_vjp", "ssd_launch"]

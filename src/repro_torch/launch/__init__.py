@@ -1,1 +1,2 @@
-"""Serving entry points of the model zoo (``serve.py``, ``steps.py``)."""
+"""Training and serving entry points of the model zoo (``train.py``,
+``serve.py``, ``steps.py``)."""

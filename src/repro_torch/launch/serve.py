@@ -17,32 +17,10 @@ import numpy as np
 import torch
 
 from ..configs import get_config
-from ..configs.base import ModelConfig
 from ..kernels import backend
 from ..models.api import Model, build_model
 from .steps import build_prefill_step, build_serve_step
-
-
-def tiny_config(cfg: ModelConfig) -> ModelConfig:
-    """The JAX package's ``repro/launch/train.py`` ``tiny_config``, kept
-    here until training is ported."""
-    over = dict(num_layers=2, d_model=128, d_ff=256, vocab_size=1024,
-                head_dim=32)
-    if cfg.num_heads:
-        over.update(num_heads=4,
-                    num_kv_heads=2 if cfg.num_kv_heads < cfg.num_heads
-                    else 4)
-    if cfg.family == "moe":
-        over.update(num_experts=8, top_k=2, moe_d_ff=64,
-                    num_shared_experts=min(1, cfg.num_shared_experts),
-                    first_dense_layers=min(1, cfg.first_dense_layers))
-    if cfg.family in ("ssm", "hybrid"):
-        over.update(ssm_state=16, ssm_head_dim=32)
-    if cfg.attn_every:
-        over.update(attn_every=1)
-    if cfg.local_window:
-        over.update(local_window=32)
-    return dataclasses.replace(cfg, **over)
+from .train import tiny_config
 
 
 @dataclasses.dataclass

@@ -1,4 +1,4 @@
-"""Unified model API of the model zoo, for serving.
+"""Unified model API of the model zoo, for serving and training.
 
 The port of ``repro/models/api.py`` for the families ``dense`` (Gemma2's
 paired local/global windows and both soft-caps included), ``moe`` (first
@@ -10,6 +10,7 @@ dense layers, routed and shared experts: ``moe.py``), ``ssm`` and
   prefill(params, inputs, max_len)        -> (last-token logits, cache)
   init_cache(batch, max_len)              -> cache
   decode_step(params, cache, tok, n)      -> (logits, cache)
+  loss_fn(params, batch)                  -> scalar loss (train path)
 
 The JAX package scans over layer-stacked parameters; here every block is an
 ``nn.Module`` in a ``ModuleList`` and the layers run in a Python loop.
@@ -18,8 +19,14 @@ Weights keep the JAX layout (``[in, out]``, applied as ``x @ w``), so
 without transposing anything.  Caches are updated in place by
 ``decode_step`` (the JAX version returns updated copies).  An MoE model's
 blocks are its ``first_dense_layers`` dense blocks (the JAX tree's
-``dense_blocks``) followed by its MoE blocks, in layer order.  ``loss_fn``
-comes with training (``ROADMAP.md``).
+``dense_blocks``) followed by its MoE blocks, in layer order.
+
+Serving keeps every leaf frozen (``requires_grad=False``); a model built
+with ``trainable=True`` makes them trainable, as ``train_params`` does for
+given parameters.  ``cfg.remat == "block"`` wraps each block's forward in
+``torch.utils.checkpoint``, as the JAX version wraps its scan body in
+``jax.checkpoint``; the hybrid's shared block is not wrapped there either,
+and its gradient accumulates over its ``num_layers // attn_every`` calls.
 """
 from __future__ import annotations
 
@@ -30,11 +37,12 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..kernels import backend, ops
 from .attention import attn_decode, attn_forward, init_attn
-from .common import dense_init, rms_norm
+from .common import chunked_cross_entropy, dense_init, rms_norm
 from . import moe, ssm
 from .moe import init_moe, moe_ffn, shared_expert_ffn
 from .ssm import (STATE_KEYS, init_mamba, mamba_decode, mamba_forward,
@@ -99,6 +107,14 @@ class Model(nn.Module):
 
 def _frozen(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
+
+
+def train_params(params: Model) -> Model:
+    """Make every leaf of ``params`` trainable (``requires_grad``), in
+    place; returns ``params``."""
+    for p in params.parameters():
+        p.requires_grad_(True)
+    return params
 
 
 def _init_mlp(g: torch.Generator, d: int, f: int, dtype):
@@ -207,12 +223,16 @@ class ModelAPI:
     prefill: Callable
     init_cache: Callable
     decode_step: Callable
+    loss_fn: Callable
+    train_params: Callable = train_params
 
 
 def build_model(cfg: ModelConfig, device=None,
-                dtype: torch.dtype = torch.bfloat16) -> ModelAPI:
+                dtype: torch.dtype = torch.bfloat16,
+                trainable: bool = False) -> ModelAPI:
     """The model's API on ``device`` (the card unless the caller passes
-    ``"cpu"``) in ``dtype``."""
+    ``"cpu"``) in ``dtype``; ``init`` gives trainable leaves with
+    ``trainable``, frozen ones (serving) without."""
     _check_family(cfg)
     dev = backend.resolve_device(device)
     V = cfg.padded_vocab
@@ -245,8 +265,9 @@ def build_model(cfg: ModelConfig, device=None,
                       for _ in range(L)]
         shared = Block(_init_dense_block(g, cfg, dtype)) \
             if cfg.family == "hybrid" else None
-        return Model(embed, torch.zeros((d,), dtype=dtype, device=dev),
-                     lm_head, blocks, shared)
+        model = Model(embed, torch.zeros((d,), dtype=dtype, device=dev),
+                      lm_head, blocks, shared)
+        return train_params(model) if trainable else model
 
     # ---- helpers --------------------------------------------------------
     # sqrt(d) rounded to the model dtype, as the JAX version casts it; a
@@ -279,23 +300,34 @@ def build_model(cfg: ModelConfig, device=None,
     def _mamba_block_fwd(bp: Block, h):
         return h + mamba_forward(bp["mamba"], rms_norm(h, bp["ln"]), cfg)
 
-    # ---- forward (prefill) ----------------------------------------------
+    def _remat(fn, *args):
+        """``fn(*args)``, recomputed in the backward under ``remat ==
+        "block"`` when a gradient is being recorded."""
+        if cfg.remat == "block" and torch.is_grad_enabled():
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+
+    # ---- forward (train / prefill) --------------------------------------
     def forward(params: Model, inputs: torch.Tensor,
-                collect_kv: bool = False, last_only: bool = False):
+                collect_kv: bool = False, last_only: bool = False,
+                return_hidden: bool = False):
         """Logits [B, S, V] (``last_only``: [B, 1, V]); with
-        ``collect_kv`` also the list of per-attention-layer (k, v)."""
+        ``collect_kv`` also the list of per-attention-layer (k, v); with
+        ``return_hidden`` the final-normed hidden state [B, S, d] instead
+        of the logits."""
         h = _embed(params, inputs)
         kv_all = []
         if cfg.family in ("dense", "moe"):
             for i, bp in enumerate(params.blocks):
-                h, kv = _dense_block_fwd(bp, h, window_of(i), collect_kv)
+                h, kv = _remat(_dense_block_fwd, bp, h, window_of(i),
+                               collect_kv)
                 kv_all.append(kv)
         elif cfg.family == "ssm":
             for bp in params.blocks:
-                h = _mamba_block_fwd(bp, h)
+                h = _remat(_mamba_block_fwd, bp, h)
         else:                                       # hybrid
             for i, bp in enumerate(params.blocks):
-                h = _mamba_block_fwd(bp, h)
+                h = _remat(_mamba_block_fwd, bp, h)
                 if (i + 1) % cfg.attn_every == 0:
                     h, kv = _dense_block_fwd(params.shared, h, 0,
                                              collect_kv)
@@ -303,8 +335,20 @@ def build_model(cfg: ModelConfig, device=None,
         if last_only:
             h = h[:, -1:]          # slice before the vocab projection
         h = rms_norm(h, params.final_norm)
+        if return_hidden:
+            return h
         logits = _logits(params, h)
         return (logits, kv_all) if collect_kv else logits
+
+    # ---- loss ------------------------------------------------------------
+    def loss_fn(params: Model, batch: Mapping[str, torch.Tensor]):
+        """The mean token cross-entropy (plus z-loss) of ``batch``
+        (``inputs``, ``targets``), through the chunked CE: the [tokens,
+        vocab] f32 logits never materialize."""
+        h = forward(params, batch["inputs"], return_hidden=True)
+        return chunked_cross_entropy(h, params.lm_head,
+                                     batch["targets"].to(h.device),
+                                     softcap=cfg.final_logit_softcap)
 
     # ---- KV / state caches ----------------------------------------------
     def init_cache(batch: int, max_len: int) -> Dict[str, torch.Tensor]:
@@ -392,8 +436,9 @@ def build_model(cfg: ModelConfig, device=None,
         h = rms_norm(h, params.final_norm)
         return _logits(params, h), cache
 
-    return ModelAPI(cfg, init, forward, prefill, init_cache, decode_step)
+    return ModelAPI(cfg, init, forward, prefill, init_cache, decode_step,
+                    loss_fn)
 
 
 __all__ = ["Block", "FAMILIES", "Model", "ModelAPI", "build_model",
-           "params_from_reference"]
+           "params_from_reference", "train_params"]

@@ -52,6 +52,17 @@ def test_copy_is_byte_identical(rel):
         (SRC / "repro" / rel).read_bytes()
 
 
+def test_data_pipeline_is_the_reference_without_its_jax_import():
+    """``data/pipeline.py`` is a copy with one line dropped: the
+    reference's ``import jax`` (unused there), which the port may not
+    import."""
+    ref = (SRC / "repro" / "data" / "pipeline.py").read_text()
+    assert "import jax\n" in ref.splitlines(keepends=True)
+    want = "".join(line for line in ref.splitlines(keepends=True)
+                   if line != "import jax\n")
+    assert (SRC / "repro_torch" / "data" / "pipeline.py").read_text() == want
+
+
 def test_every_config_file_is_copied():
     ref = {p.name for p in (SRC / "repro" / "configs").glob("*.py")}
     assert {f"configs/{n}" for n in ref} <= set(COPIES)

@@ -265,6 +265,80 @@ def test_flash_tensor_core_path_matches_plain_on_card(D, H, KV, Sq, Sk,
     assert _max_rel(out, want) <= 8e-3
 
 
+#: the log-sum-exp output on both paths: (dtype, D, H, KV, Sq, Sk, causal,
+#: window, cap); bf16 at D 64/128/256 runs the tensor-core kernel, f32 and
+#: bf16 at D 32 the FMA tile
+LSE_CASES = [("bf16", 64, 8, 1, 256, 256, True, 0, 0.0),
+             ("bf16", 128, 4, 4, 200, 333, True, 0, 0.0),
+             ("bf16", 256, 4, 4, 333, 333, True, 96, 50.0),
+             ("bf16", 64, 8, 1, 64, 333, False, 0, 0.0),
+             ("f32", 64, 4, 2, 130, 200, True, 0, 30.0),
+             ("f32", 128, 2, 1, 64, 256, False, 0, 0.0),
+             ("bf16", 32, 4, 4, 130, 130, True, 40, 0.0)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,D,H,KV,Sq,Sk,causal,window,cap", LSE_CASES)
+def test_flash_lse_matches_plain_on_card(dtype, D, H, KV, Sq, Sk, causal,
+                                         window, cap):
+    """Both kernels write each row's m + log(max(l, 1e-30)) within 1e-4 of
+    the plain walk's (both f32 from the same operands), and the output is
+    what it is without the lse."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    dev = _card()
+    dt = torch.float32 if dtype == "f32" else torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(D + Sk)
+    q = torch.randn((2, H, Sq, D), generator=g, device=dev).to(dt)
+    k = torch.randn((2, KV, Sk, D), generator=g, device=dev).to(dt)
+    v = torch.randn((2, KV, Sk, D), generator=g, device=dev).to(dt)
+    ops.reset_launch_counts()
+    out, lse = fa.flash_attention(q, k, v, causal, window, cap,
+                                  return_lse=True)
+    want, want_lse = fa.plain_flash_attention(q, k, v, causal, window, cap,
+                                              return_lse=True)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == 1
+    assert lse.dtype == torch.float32 and lse.shape == want_lse.shape
+    assert float((lse - want_lse).abs().max()) <= 1e-4
+    assert torch.equal(out, fa.flash_attention(q, k, v, causal, window, cap))
+    assert _max_rel(out, want) <= (1e-5 if dtype == "f32" else 8e-3)
+
+
+@pytest.mark.gpu
+def test_zamba2_train_step_at_reduced_depth_on_card():
+    """One bf16 train step of Zamba2-1.2B at full width, 6 layers (one
+    shared-attention call): the forward launches flash once (tensor-core
+    path) and SSD 6 times, the backward launches no kernel, and the loss,
+    the gradient norm and every updated parameter are finite."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models.api import build_model
+    from repro_torch.optim.optimizers import make_optimizer
+    dev = _card()
+    cfg = dataclasses.replace(get_config("zamba2-1.2b"), num_layers=6)
+    api = build_model(cfg, device=dev, trainable=True)
+    params = api.init(0)
+    opt = make_optimizer(cfg.optimizer, lr=1e-3)
+    state = opt.init(dict(params.named_parameters()))
+    g = torch.Generator(device=dev).manual_seed(0)
+    batch = {k: torch.randint(1, cfg.vocab_size, (2, 256), generator=g,
+                              device=dev, dtype=torch.int32)
+             for k in ("inputs", "targets")}
+    before = params.embed.detach().clone()
+    ops.reset_launch_counts()
+    params, state, m = build_train_step(api, opt)(params, state, batch)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == {"flash_attention": 1,
+                                   "flash_attention_wgmma": 1,
+                                   "ssd_intra_chunk": 6}
+    assert bool(torch.isfinite(m["loss"])) and float(m["grad_norm"]) > 0
+    assert all(bool(torch.isfinite(p).all()) for p in params.parameters())
+    assert not torch.equal(params.embed, before)
+
+
 def _fc_plan(N, C, K, block, grid):
     """An fc plan with the given block and grid order (outer -> inner)."""
     from repro_torch.lower.plan import GridAxis, KernelPlan

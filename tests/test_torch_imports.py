@@ -45,6 +45,12 @@ import repro_torch.lower.fuse
 import repro_torch.obs.__main__
 import repro_torch.quickstart
 import repro_torch.service.__main__
+import repro_torch.checkpoint.ckpt
+import repro_torch.data.pipeline
+import repro_torch.launch.serve
+import repro_torch.launch.train
+import repro_torch.optim.compression
+import repro_torch.optim.optimizers
 from repro_torch.core.solver import solve
 from repro_torch.hw.presets import eyeriss_multinode
 from repro_torch.lower import lower_network

@@ -1,0 +1,182 @@
+"""The port's model zoo in training against the JAX package, in f32 on
+the CPU at ``tiny_config``, with the JAX weights carried across by
+``params_from_reference``: ``loss_fn`` and every gradient leaf of seven
+archs (the JAX stacked leaves cut per layer), ``remat="block"``, three
+whole train steps against the reference's jitted ``train_step``, and
+``input_structs``."""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax
+import jax.numpy as jnp
+
+from repro.configs import get_config
+from repro.configs.base import ShapeConfig
+from repro.data.pipeline import DataConfig, synth_batch
+from repro.launch.steps import build_train_step as j_build_train_step
+from repro.launch.steps import input_structs as j_input_structs
+from repro.launch.train import tiny_config
+from repro.models.api import build_model as j_build_model
+from repro.optim.optimizers import make_optimizer as j_make_optimizer
+from repro_torch.configs import get_config as t_get_config
+from repro_torch.launch.steps import build_train_step, input_structs
+from repro_torch.models import api as tapi
+from repro_torch.optim.optimizers import make_optimizer
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread for these tiny shapes: the suite runs several
+    workers on the same cores, and each worker's default thread pool (one
+    thread a core) then oversubscribes them many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _np(t):
+    return t.detach().float().numpy() if isinstance(t, torch.Tensor) \
+        else np.asarray(jnp.asarray(t, jnp.float32))
+
+
+def _err(got, want):
+    """Max abs error of ``got`` over the max |want|."""
+    got, want = _np(got).astype(np.float64), _np(want).astype(np.float64)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    return float(np.max(np.abs(got - want)) / (np.abs(want).max() + 1e-30))
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+# ---------------------------------------------------------------------------
+# models: loss_fn and every gradient leaf
+# ---------------------------------------------------------------------------
+
+GRAD_ARCHS = ["qwen2.5-3b", "gemma2-2b", "mamba2-1.3b", "zamba2-1.2b",
+              "qwen2-moe-a2.7b", "musicgen-large", "kimi-k2-1t-a32b"]
+B, S = 2, 16
+
+
+def _batch(cfg, seed=0):
+    rng = np.random.default_rng(seed)
+    if cfg.frontend == "embed":
+        inputs = (rng.standard_normal((B, S, cfg.d_model)) * 0.5
+                  ).astype(np.float32)
+    else:
+        inputs = rng.integers(1, cfg.vocab_size, (B, S)).astype(np.int32)
+    return {"inputs": inputs,
+            "targets": rng.integers(0, cfg.vocab_size, (B, S)
+                                    ).astype(np.int32)}
+
+
+def _reference_leaf(cfg, tree, name: str):
+    """The JAX leaf (a layer of a stacked leaf) the port's parameter
+    ``name`` came from (``params_from_reference``'s layout)."""
+    parts = name.split(".")
+    if parts[0] == "blocks":
+        i, rest = int(parts[1]), parts[2:]
+        fd = cfg.first_dense_layers if cfg.family == "moe" else 0
+        node, i = (tree["dense_blocks"], i) if i < fd \
+            else (tree["blocks"], i - fd)
+        for p in rest:
+            node = node[p]
+        return np.asarray(node)[i]
+    node = tree
+    for p in parts:
+        node = node[p]
+    return np.asarray(node)
+
+
+def _both(cfg, seed=0):
+    japi = j_build_model(cfg, dtype=jnp.float32)
+    jparams = japi.init(jax.random.PRNGKey(seed))
+    tree = jax.tree_util.tree_map(np.asarray, jparams)
+    api = tapi.build_model(cfg, device="cpu", dtype=torch.float32)
+    params = api.train_params(tapi.params_from_reference(
+        cfg, tree, device="cpu", dtype=torch.float32))
+    return japi, jparams, api, params
+
+
+@pytest.mark.parametrize("arch", GRAD_ARCHS)
+def test_loss_and_every_gradient_leaf_match_jax(arch):
+    cfg = tiny_config(get_config(arch))
+    japi, jparams, api, params = _both(cfg)
+    batch = _batch(cfg)
+    jloss, jgrads = jax.jit(jax.value_and_grad(japi.loss_fn))(
+        jparams, {k: jnp.asarray(v) for k, v in batch.items()})
+    jgrads = jax.tree_util.tree_map(np.asarray, jgrads)
+    loss = api.loss_fn(params, {k: _t(v) for k, v in batch.items()})
+    loss.backward()
+    assert _err(loss, jloss) <= 1e-5
+    named = dict(params.named_parameters())
+    assert sum(p.numel() for p in named.values()) == sum(
+        x.size for x in jax.tree_util.tree_leaves(jgrads))
+    for name, p in named.items():
+        want = _reference_leaf(cfg, jgrads, name)
+        got = p.grad if p.grad is not None else torch.zeros_like(p)
+        assert tuple(got.shape) == want.shape, name
+        err = float(np.abs(_np(got) - want).max())
+        assert err <= 1e-4 * float(np.abs(want).max()), (name, err)
+
+
+def test_remat_block_gives_the_same_gradients():
+    """kimi-k2's ``remat="block"`` recomputes each block in the backward;
+    the gradients are those of the plain forward."""
+    cfg = tiny_config(get_config("kimi-k2-1t-a32b"))
+    assert cfg.remat == "block"
+    grads = []
+    for c in (cfg, dataclasses.replace(cfg, remat="none")):
+        _, _, api, params = _both(c)
+        api.loss_fn(params, {k: _t(v) for k, v in
+                             _batch(c).items()}).backward()
+        grads.append({n: p.grad for n, p in params.named_parameters()})
+    for n, g in grads[0].items():
+        assert torch.allclose(g, grads[1][n], rtol=0, atol=1e-6), n
+
+
+# ---------------------------------------------------------------------------
+# the whole slice: train steps against the reference's jitted train_step
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "kimi-k2-1t-a32b"])
+def test_train_steps_match_jax(arch):
+    cfg = tiny_config(get_config(arch))
+    japi, jparams, api, params = _both(cfg, seed=1)
+    jopt = j_make_optimizer(cfg.optimizer, lr=1e-3)
+    jstep = jax.jit(j_build_train_step(japi, jopt))
+    jstate = jopt.init(jparams)
+    opt = make_optimizer(cfg.optimizer, lr=1e-3)
+    step = build_train_step(api, opt)
+    state = opt.init(dict(params.named_parameters()))
+    shape = ShapeConfig("t", S, B, "train")
+    for i in range(3):
+        batch = synth_batch(cfg, shape, i, DataConfig(seed=0))
+        jparams, jstate, jm = jstep(
+            jparams, jstate, {k: jnp.asarray(v) for k, v in batch.items()})
+        params, state, m = step(params, state,
+                                {k: _t(v) for k, v in batch.items()})
+        assert _err(m["loss"], jm["loss"]) <= 1e-4, i
+        assert _err(m["grad_norm"], jm["grad_norm"]) <= 1e-4, i
+    assert int(state["step"]) == 3
+
+
+@pytest.mark.parametrize("arch,mode", [("qwen2.5-3b", "train"),
+                                       ("musicgen-large", "train"),
+                                       ("mamba2-1.3b", "prefill"),
+                                       ("zamba2-1.2b", "decode")])
+def test_input_structs_match_jax(arch, mode):
+    shape = ShapeConfig("c", 64, 4, mode)
+    want = j_input_structs(get_config(arch), shape)
+    got = input_structs(t_get_config(arch), shape)
+    assert set(got) == set(want)
+    for k, s in want.items():
+        assert got[k].device.type == "meta"
+        assert tuple(got[k].shape) == s.shape
+        assert str(got[k].dtype).split(".")[-1] == str(s.dtype)
