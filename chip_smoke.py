@@ -130,9 +130,27 @@ Phases, in order; any failure exits non-zero:
    resumed from its directory must match the same steps of one
    uninterrupted run within 1e-3 relative (the embedding gather's
    backward adds with atomics on the card, so not bit for bit);
-13. print ``{"kernels": [...]}`` (flash and SSD count phase 8's and phase
-   10's launches), the card's name and power limit, and last
-   ``{"ok": true, "device": {...}}``.
+13. the dry-run (``launch/dryrun.py``, ``[dryrun]``): (a) every cell, 10
+   archs x 4 shapes x both production meshes, traced on meta with the
+   H100's roofline (``H100Spec()``), 0 failures, skips only the
+   reference's (``python -m repro_torch.launch.dryrun --both-meshes`` run
+   in process), records to ``chiprun_out/dryrun_torch.json``, its output
+   to ``chiprun_out/dryrun_torch.log``; (b) ``[dryrun-check]``: the
+   Zamba2-1.2B train step (phase 10's configuration) and the Qwen2.5-3B
+   prefill, 8 x 512 in bf16 at full width and depth, each traced on meta
+   and then run once on the card under the same counter
+   (``launch/op_cost.py``), the launch counters set to 0 just before and
+   read just after: the FLOPs, bytes and kernel units counted on the card
+   equal the meta trace's; the meta trace's peak within
+   ``DRYRUN_PEAK_TOL`` of the card's peak allocation over the step; the
+   plan (``core/autoshard.py`` on the one-card mesh) beside the measured
+   peak; the roofline step time beside the measured step seconds (min of
+   ``DRYRUN_TIMED`` steps after the counted one), the roofline fraction
+   and the model FLOPs over the step at 989 TFLOP/s, with the card's name
+   and power limit;
+14. print ``{"kernels": [...]}`` (flash and SSD count phase 8's, phase
+   10's and phase 13's launches), the card's name and power limit, and
+   last ``{"ok": true, "device": {...}}``.
 
 Every ``[kernel]`` line and ``kernels`` entry names the path that ran:
 ``wgmma`` (flash attention's tensor-core kernel, bf16), ``mma-3xtf32`` (fc,
@@ -240,6 +258,22 @@ TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-4, 1e-3
 #: a resumed step's loss against the same step of an uninterrupted run
 CKPT_RUN = (6, 2, 256)
 RESUME_TOL = 1e-3
+#: the dry-run phase (``launch/dryrun.py``): (a) every cell, 10 archs x 4
+#: shapes x both meshes, traced on meta with ``H100Spec()``; (b) two steps
+#: held against the card at full width and depth in bf16 on the one-card
+#: mesh: arch, mode, batch, sequence and the kernel launches of one step
+#: (Zamba2's is phase 10's configuration: AdamW, remat "none")
+DRYRUN_CHECKS = (
+    ("zamba2-1.2b", "train", 8, 512,
+     {"flash_attention": 6, "flash_attention_wgmma": 6,
+      "ssd_intra_chunk": 38}),
+    ("qwen2.5-3b", "prefill", 8, 512,
+     {"flash_attention": 36, "flash_attention_wgmma": 36,
+      "ssd_intra_chunk": 0}))
+#: the meta trace's peak against the card's peak allocation over the step
+#: (relative), and the timed steps after the counted one
+DRYRUN_PEAK_TOL = 0.25
+DRYRUN_TIMED = 3
 #: attention plans held against the plain version besides the calibration
 #: sweep's: layer name, (batch, heads, sequence, head dim), template.  The
 #: first (the Zamba2-1.2B shared block on the 16x16 template) times the
@@ -879,18 +913,6 @@ SSD_CASES = [("mamba2-1.3b", 8, 512, 64, 64, 128, 128, "bf16"),
              ("lc256-p128", 4, 1024, 32, 128, 64, 256, "f32")]
 
 
-def attention_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
-    """Unmasked (query, key) pairs of one head: query row r sits at
-    r + Sk - Sq and sees keys in [lo, hi]."""
-    n = 0
-    for r in range(Sq):
-        qpos = r + Sk - Sq
-        hi = min(Sk - 1, qpos) if causal else Sk - 1
-        lo = max(0, qpos - window + 1) if window > 0 else 0
-        n += max(0, hi - lo + 1)
-    return n
-
-
 def kernel_row(name, path, out, want, ms, plain_ms, library_ms, ops, nbytes,
                peak_ops, peak_bw, dtype):
     """One checked and timed kernel case on ``path``; raises past the
@@ -925,6 +947,8 @@ def model_kernel_phase(dev, path_ops, peak_bw):
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan
+    from repro_torch.launch.op_cost import (flash_bytes, flash_ops,
+                                            ssd_bytes, ssd_ops)
 
     g = torch.Generator(device=dev).manual_seed(0)
     types = {"bf16": torch.bfloat16, "f32": torch.float32}
@@ -982,8 +1006,8 @@ def model_kernel_phase(dev, path_ops, peak_bw):
                                      f"same function (abs err {lib_err})")
             library_ms = stream_ms(library)
         elem = 2 if dtype == "bf16" else 4
-        ops = 4 * B * H * D * attention_pairs(Sq, Sk, causal, window)
-        nbytes = elem * (2 * B * H * Sq * D + 2 * B * KV * Sk * D)
+        ops = flash_ops(B, H, Sq, Sk, D, causal, window)
+        nbytes = flash_bytes(B, H, KV, Sq, Sk, D, elem)
         path = fa.flash_path(t, D)
         flash.append({**kernel_row(
             f"flash {case}", path, out, want, ms, plain_ms, library_ms, ops,
@@ -1008,10 +1032,8 @@ def model_kernel_phase(dev, path_ops, peak_bw):
         out = kern()
         want, plain_ms = host_ms(plain)
         ms = stream_ms(kern)
-        tri = Lc * (Lc + 1) // 2             # pairs l >= m of one chunk
-        ops = 2 * B * NC * tri * N + 2 * B * H * NC * tri * P
-        nbytes = 2 * x.element_size() * B * H * NC * Lc * P \
-            + 4 * 2 * B * H * NC * Lc + 4 * 2 * B * NC * Lc * N
+        ops = ssd_ops(B, H, NC, Lc, P, N)
+        nbytes = ssd_bytes(B, H, NC, Lc, P, N, x.element_size())
         path = PATHS["ssd_intra_chunk"]
         ssd.append(kernel_row(f"ssd {case}", path, out, want, ms, plain_ms,
                               None, ops, nbytes, path_ops[path], peak_bw,
@@ -1464,6 +1486,191 @@ def checkpoint_phase(dev):
     return res
 
 
+def card_power() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` reads them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+
+
+def dryrun_cells(out_dir: Path):
+    """Phase 13a: ``python -m repro_torch.launch.dryrun --both-meshes`` in
+    process: every arch and shape on both production meshes, on meta, with
+    the H100's roofline; its output to ``chiprun_out/dryrun_torch.log``,
+    its records to ``chiprun_out/dryrun_torch.json``."""
+    import contextlib
+    from repro_torch.launch import dryrun
+
+    out_dir.mkdir(exist_ok=True)
+    path = out_dir / "dryrun_torch.json"
+    t0 = time.perf_counter()
+    with open(out_dir / "dryrun_torch.log", "w") as f, \
+            contextlib.redirect_stdout(f):
+        rc = dryrun.main(["--both-meshes", "--out", str(path)])
+    seconds = time.perf_counter() - t0
+    if rc:
+        raise AssertionError(f"dryrun: main returned {rc} "
+                             f"(chiprun_out/dryrun_torch.log)")
+    records = json.loads(path.read_text())
+    n_ok = sum(r["status"] == "ok" for r in records)
+    log(f"[dryrun] {len(records)} cells (every arch x shape x both meshes):"
+        f" {n_ok} traced, {len(records) - n_ok} skipped, 0 failed, in "
+        f"{seconds:.1f} s (chiprun_out/dryrun_torch.json, .log)")
+    return {"cells": len(records), "ok": n_ok, "seconds": seconds}
+
+
+def dryrun_check(dev, arch, mode, batch, seq, expect, smi):
+    """Phase 13b: one step of ``arch`` traced on meta and run on the card
+    under the same counter: the counts equal, the meta peak within
+    ``DRYRUN_PEAK_TOL`` of the card's, the plan beside the measured peak,
+    the roofline beside the measured step seconds."""
+    import math
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.autoshard import plan_sharding
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.hw.gpu import H100Spec
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.op_cost import OpCounter
+    from repro_torch.launch.roofline import analyze, model_flops_for
+    from repro_torch.launch.steps import build_prefill_step, build_train_step
+    from repro_torch.models.api import build_model
+    from repro_torch.optim.optimizers import make_optimizer
+
+    pod = H100Spec()
+    cfg = get_config(arch)
+    shape = ShapeConfig(f"{mode}_{batch}x{seq}", seq, batch, mode)
+    train = mode == "train"
+    meta = dryrun.trace_step(cfg, shape)
+    plan = plan_sharding(cfg, shape, make_local_mesh(device=dev),
+                         meta.params, meta.opt_state,
+                         cache_shapes=meta.cache, pod=pod)
+    _free_card()
+    base = torch.cuda.memory_allocated()
+    api = build_model(cfg, device=dev, trainable=train)
+    params = api.init(0)
+    if train:
+        opt = make_optimizer(cfg.optimizer, lr=1e-3)
+        carry = [params, opt.init(dict(params.named_parameters()))]
+        step = build_train_step(api, opt)
+        batches = [{k: torch.from_numpy(v).to(dev) for k, v in synth_batch(
+            cfg, shape, i, DataConfig(seed=0)).items()}
+            for i in range(1 + DRYRUN_TIMED)]
+
+        def run(i):
+            carry[0], carry[1], m = step(carry[0], carry[1], batches[i])
+            return m["loss"]
+        args = lambda i: (carry[0], carry[1], batches[i])   # noqa: E731
+    else:
+        step = build_prefill_step(api, seq)
+        prompts = torch.from_numpy(np.random.default_rng(0).integers(
+            1, min(cfg.vocab_size, 32000), size=(batch, seq)).astype(
+            np.int32)).to(dev)
+
+        def run(i):
+            with torch.no_grad():
+                return step(params, prompts)[0]
+        args = lambda i: (params, prompts)                   # noqa: E731
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with OpCounter(dev) as counter:
+        counter.hold(args(0))
+        out = run(0)
+        torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    card = counter.cost()
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"dryrun {arch} {mode}: non-finite output")
+    del out
+    units = {k: v for k, v in launches.items()
+             if k != "flash_attention_wgmma" and v}
+    if launches != expect or card.kernel_units != units:
+        raise AssertionError(f"dryrun {arch} {mode}: launches {launches} "
+                             f"(expected {expect}), counted units "
+                             f"{card.kernel_units}")
+    if (card.flops, card.bytes, card.kernel_units) != \
+            (meta.cost.flops, meta.cost.bytes, meta.cost.kernel_units):
+        raise AssertionError(
+            f"dryrun {arch} {mode}: card counts flops {card.flops} bytes "
+            f"{card.bytes} units {card.kernel_units}, meta flops "
+            f"{meta.cost.flops} bytes {meta.cost.bytes} units "
+            f"{meta.cost.kernel_units}")
+    peak_err = (meta.cost.peak_bytes - peak) / peak
+    trace_b = dryrun.trace_hbm_bytes(meta, plan, 1)
+    if not abs(peak_err) <= DRYRUN_PEAK_TOL:
+        raise AssertionError(f"dryrun {arch} {mode}: meta peak "
+                             f"{meta.cost.peak_bytes} B vs the card's "
+                             f"{peak} B ({peak_err:+.3f})")
+    times = []
+    for i in range(1, 1 + DRYRUN_TIMED):
+        _, ms = host_ms(lambda: run(i))
+        times.append(ms / 1e3)
+    step_s = min(times)
+    rep = analyze(arch, shape.name, "1x1", 1,
+                  {"flops": card.flops, "bytes accessed": card.bytes}, "",
+                  model_flops_for(cfg, shape), pod=pod, coll=(0.0, {}))
+    roof_s = max(rep.t_compute, rep.t_memory)
+    useful = rep.model_flops / (step_s * pod.peak_flops_bf16)
+    res = {"arch": arch, "mode": mode, "batch": batch, "seq": seq,
+           "flops": card.flops, "bytes": card.bytes,
+           "kernel_units": card.kernel_units, "ops": card.ops,
+           "launches": launches, "meta_ops": meta.cost.ops,
+           "meta_peak_bytes": meta.cost.peak_bytes, "card_peak_bytes": peak,
+           "peak_rel_err": peak_err, "held_bytes": card.held_bytes,
+           "meta_held_bytes": meta.cost.held_bytes,
+           "free_copy_bytes": card.free_copy_bytes,
+           "meta_free_copy_bytes": meta.cost.free_copy_bytes,
+           "by_op": card.by_op, "plan_hbm_gib": plan.hbm_gb_per_chip,
+           "trace_hbm_bytes": trace_b,
+           "plan_valid": plan.valid, "plan_bytes": plan.bytes_per_chip,
+           "t_compute": rep.t_compute, "t_memory": rep.t_memory,
+           "roofline_s": roof_s, "roofline_fraction": rep.roofline_fraction,
+           "bottleneck": rep.bottleneck, "model_flops": rep.model_flops,
+           "useful_ratio": rep.hlo_useful_ratio, "step_seconds": times,
+           "step_s": step_s, "model_flops_share": useful,
+           "trace_s": meta.seconds, "card": smi}
+    log(f"[dryrun-check] {arch} {mode} {batch} x {seq} bf16 full width: "
+        f"counts on the card equal the meta trace's: {card.flops} flops, "
+        f"{card.bytes} bytes, units {card.kernel_units} (launches "
+        f"{launches})")
+    top = sorted(card.by_op.items(), key=lambda kv: -kv[1][1])[:10]
+    shares = ", ".join(f"{k} {b / card.bytes:.1%}" for k, (_, b) in top)
+    log(f"[dryrun-check] {arch} {mode}: bytes by op (card counts): "
+        f"{shares}; copying "
+        f"reshapes counted free: {card.free_copy_bytes / 1e9:.3f} GB "
+        f"({card.free_copy_bytes / card.bytes:.2%} of the counted bytes; "
+        f"meta {meta.cost.free_copy_bytes / 1e9:.3f} GB)")
+    log(f"[dryrun-check] {arch} {mode}: memory: meta peak "
+        f"{meta.cost.peak_bytes / 1e9:.3f} GB (arguments "
+        f"{meta.cost.held_bytes / 1e9:.3f}), card peak over the step "
+        f"{peak / 1e9:.3f} GB ({peak_err:+.3f}, limit {DRYRUN_PEAK_TOL})")
+    log(f"[dryrun-check] {arch} {mode}: plan: {plan.hbm_gb_per_chip:.3f} "
+        f"GiB a chip ({plan.hbm_gb_per_chip * 2**30 / 1e9:.3f} GB: "
+        + ", ".join(f"{k} {v / 1e9:.3f}" for k, v in
+                    plan.bytes_per_chip.items())
+        + f"), valid {plan.valid}; the trace's {trace_b / 1e9:.3f} GB; "
+        f"beside the measured peak {peak / 1e9:.3f} GB")
+    log(f"[dryrun-check] {arch} {mode}: time: roofline "
+        f"{roof_s * 1e3:.3f} ms (compute {rep.t_compute * 1e3:.3f}, memory "
+        f"{rep.t_memory * 1e3:.3f}; {rep.bottleneck}), measured step "
+        f"{step_s * 1e3:.3f} ms (min of {DRYRUN_TIMED}), roofline_fraction "
+        f"{rep.roofline_fraction:.4f}, model flops / (step x 989 TFLOP/s) "
+        f"{useful:.4f} | {smi}")
+    if not all(math.isfinite(x) for x in times):
+        raise AssertionError(f"dryrun {arch} {mode}: step times {times}")
+    del params, api, step, run, args
+    if train:
+        del carry, batches
+    _free_card()
+    return res
+
+
 def model_kernel_entry(name, rows, uses, serve_res, source, replaces):
     """The kernels-line entry of a model-zoo kernel: times summed over the
     launches of the two serve prefills, at their shapes."""
@@ -1773,7 +1980,17 @@ def main(argv=None) -> int:
     detail["checkpoint"] = checkpoint_phase(dev)
     log(f"[train] phases 10-12 in {time.perf_counter() - t_phase:.1f} s")
 
-    # 10. the kernels line ---------------------------------------------------
+    # 13. the dry-run: cells on meta; two steps held against the card ------
+    t_phase = time.perf_counter()
+    smi = card_power()
+    detail["dryrun"] = {"cells": dryrun_cells(out_dir), "checks": [
+        dryrun_check(dev, *check, smi) for check in DRYRUN_CHECKS]}
+    dry_launches = collections.Counter()
+    for check in detail["dryrun"]["checks"]:
+        dry_launches.update(check["launches"])
+    log(f"[dryrun] phase 13 in {time.perf_counter() - t_phase:.1f} s")
+
+    # 14. the kernels line ---------------------------------------------------
     kernels = []
     fused_launches = detail["fused"]["resnet"]["launches"]
     for kind in ("fc", "conv", "pool", "eltwise"):
@@ -1824,13 +2041,16 @@ def main(argv=None) -> int:
         "ssd_intra_chunk", model_rows["ssd_intra_chunk"],
         {"zamba2-1.2b": SERVE["zamba2-1.2b"]["ssd_intra_chunk"]}, serve_res,
         ssd_scan.SOURCE, ssd_scan.REPLACES["ssd_intra_chunk"]))
-    # the training path's launches (phase 10) join the serve prefills'
+    # the training path's launches (phase 10) and the dry-run's counted
+    # steps (phase 13) join the serve prefills'
     for k in kernels[-2:]:
-        k["uses"] = ["serve", "train"]
+        k["uses"] = ["serve", "train", "dryrun"]
         k["launches_train"] = train_res["launches"][k["name"]]
-        k["launches"] += k["launches_train"]
+        k["launches_dryrun"] = dry_launches[k["name"]]
+        k["launches"] += k["launches_train"] + k["launches_dryrun"]
     kernels[-2]["launches_wgmma"] += \
-        train_res["launches"]["flash_attention_wgmma"]
+        train_res["launches"]["flash_attention_wgmma"] \
+        + dry_launches["flash_attention_wgmma"]
     detail["kernels"] = kernels
     for k in kernels:
         if k["name"] in EARLIER_MS:
@@ -1851,11 +2071,8 @@ def main(argv=None) -> int:
         "launches per full calibration sweep; flash_attention per serve "
         "prefill of Qwen2.5-3B, Zamba2-1.2B and Qwen2-MoE-A2.7B together, "
         "ssd_intra_chunk per serve prefill of Zamba2-1.2B; each summed "
-        "over its launches; their launches count phase 8's serve prefills "
-        "and phase 10's training steps)")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
+        "over its launches; their launches count phase 8's serve prefills, "
+        "phase 10's training steps and phase 13's counted steps)")
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -8,6 +8,11 @@ The one source of truth for the port's device choice:
 ``resolve_device("cpu")``
     the CPU, where every kernel wrapper takes its plain PyTorch version
     (the port's counterpart of Pallas interpret mode).
+``resolve_device("meta")``
+    shapes and types only, as ``jax.eval_shape`` traces: nothing is
+    allocated or computed, and a kernel wrapper returns outputs of the
+    right shape and type and launches nothing.  The dry-run traces its
+    steps there (``launch/dryrun.py``).
 
 The kernels live in two sources under ``repro_torch/csrc/``:
 ``lower_kernels.cu`` (the layer and network tiers: fc, conv, pool,
@@ -24,6 +29,7 @@ compiler's message.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -31,9 +37,10 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Union
+from typing import Dict, Iterator, Union
 
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 REPO_ROOT = Path(__file__).resolve().parents[3]
@@ -64,12 +71,14 @@ _libs: Dict[str, ctypes.CDLL] = {}
 def resolve_device(device: Union[None, str, torch.device] = None
                    ) -> torch.device:
     """The device a run goes to: ``None`` means the card and raises when
-    there is none; ``"cpu"`` selects the plain PyTorch versions."""
+    there is none; ``"cpu"`` selects the plain PyTorch versions;
+    ``"meta"`` shapes only."""
     dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):
         return dev
     if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}; expected cuda or cpu")
+        raise ValueError(f"unsupported device {dev}; expected cuda, cpu or "
+                         "meta")
     if not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device: repro_torch runs on the card by default; pass "
@@ -161,6 +170,22 @@ def check_launch(name: str, status: int) -> None:
     if status != 0:
         raise RuntimeError(f"{name}: CUDA error {status} at launch")
 
+
+@contextlib.contextmanager
+def kernel_call(name: str, *args, **params) -> Iterator[None]:
+    """Wraps one call of a hand kernel's wrapper (``name``, its arguments).
+    An active dispatch mode with a ``kernel_call`` method (the cost counter
+    of ``launch/op_cost.py``) counts the call as one unit, whatever runs
+    inside it: the kernel on the card, the plain version on the CPU, a fake
+    output on ``meta``.  Without one it does nothing."""
+    for mode in reversed(_get_current_dispatch_mode_stack()):
+        hook = getattr(mode, "kernel_call", None)
+        if hook is not None:
+            with hook(name, *args, **params):
+                yield
+            return
+    yield
+
 __all__ = ["DTYPE_CODES", "ENTRY_POINTS", "MODEL_SOURCE", "SOURCE", "build",
-           "build_dir", "check_launch", "find_nvcc", "library",
+           "build_dir", "check_launch", "find_nvcc", "kernel_call", "library",
            "library_path", "resolve_device", "stream_handle"]

@@ -164,12 +164,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     return_lse: bool = False):
     """q: [B, H, Sq, D]; k, v: [B, KV, Sk, D], H % KV == 0, contiguous,
     float32 or bfloat16.  The CUDA kernel on the card, the plain version on
-    the CPU.  With ``return_lse``: (out, lse [B, H, Sq] float32); without,
-    the kernel gets a null ``lse`` and writes none."""
+    the CPU, outputs of the right shape and type on ``meta`` (nothing
+    launched).  With ``return_lse``: (out, lse [B, H, Sq] float32);
+    without, the kernel gets a null ``lse`` and writes none.  A cost
+    counter (``launch/op_cost.py``) counts the call as one unit."""
     _check(q, k, v)
-    if q.device.type == "cpu":
-        return plain_flash_attention(q, k, v, causal, window, logit_softcap,
-                                     scale, return_lse)
+    with backend.kernel_call("flash_attention", q, k, v, causal=causal,
+                             window=window, return_lse=return_lse):
+        if q.device.type == "cpu":
+            return plain_flash_attention(q, k, v, causal, window,
+                                         logit_softcap, scale, return_lse)
+        if q.is_meta:            # what the card would take, nothing run
+            flash_path(q.dtype, q.shape[3])
+            out = torch.empty_like(q)
+            return (out, torch.empty(q.shape[:3], dtype=torch.float32,
+                                     device=q.device)) if return_lse else out
+        return _launch(q, k, v, causal, window, logit_softcap, scale,
+                       return_lse)
+
+
+def _launch(q, k, v, causal, window, logit_softcap, scale, return_lse):
+    """One launch of the kernel ``flash_path`` picks, on the card."""
     if not q.is_cuda:
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     B, H, Sq, D = q.shape

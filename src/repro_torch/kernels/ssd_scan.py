@@ -218,11 +218,22 @@ def ssd_intra_chunk(x: torch.Tensor, dt: torch.Tensor, acum: torch.Tensor,
     acum: [B, H, NC, Lc]      (within-chunk cumsum of dt * A, float32)
     b, c: [B, NC, Lc, N]      (G=1: shared across heads, float32)
     returns y_intra: [B, H, NC, Lc, P] in x's dtype.  The CUDA kernel on
-    the card (geometry from ``ssd_launch``), the plain version on the CPU.
+    the card (geometry from ``ssd_launch``), the plain version on the CPU,
+    an output of the right shape and type on ``meta`` (nothing launched).
+    A cost counter (``launch/op_cost.py``) counts the call as one unit.
     """
     _check(x, dt, acum, b, c)
-    if x.device.type == "cpu":
-        return plain_ssd_intra_chunk(x, dt, acum, b, c)
+    with backend.kernel_call("ssd_intra_chunk", x, b):
+        if x.device.type == "cpu":
+            return plain_ssd_intra_chunk(x, dt, acum, b, c)
+        if x.is_meta:            # what the card would take, nothing run
+            ssd_launch(*x.shape, b.shape[-1], x.element_size())
+            return torch.empty_like(x)
+        return _launch(x, dt, acum, b, c)
+
+
+def _launch(x, dt, acum, b, c):
+    """One launch of ``ssd_intra_kernel`` on the card."""
     if not x.is_cuda:
         raise ValueError(f"ssd_intra_chunk: unsupported device {x.device}")
     B, H, NC, Lc, P = x.shape

@@ -42,7 +42,7 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ModelConfig
 from ..kernels import backend, ops
 from .attention import attn_decode, attn_forward, init_attn
-from .common import chunked_cross_entropy, dense_init, rms_norm
+from .common import chunked_cross_entropy, dense_init, generator, rms_norm
 from . import moe, ssm
 from .moe import init_moe, moe_ffn, shared_expert_ffn
 from .ssm import (STATE_KEYS, init_mamba, mamba_decode, mamba_forward,
@@ -136,12 +136,13 @@ def _init_dense_block(g: torch.Generator, cfg: ModelConfig, dtype):
             "mlp": _init_mlp(g, cfg.d_model, cfg.d_ff, dtype)}
 
 
-def _init_moe_block(g: torch.Generator, cfg: ModelConfig, dtype):
+def _init_moe_block(g: torch.Generator, cfg: ModelConfig, dtype,
+                    model_axis_size: int = 1):
     dev = g.device
     return {"ln1": torch.zeros((cfg.d_model,), dtype=dtype, device=dev),
             "attn": init_attn(g, cfg, dtype),
             "ln2": torch.zeros((cfg.d_model,), dtype=dtype, device=dev),
-            "moe": init_moe(g, cfg, 1, dtype)}
+            "moe": init_moe(g, cfg, model_axis_size, dtype)}
 
 
 def _ffn(cfg: ModelConfig, bp: Block, x: torch.Tensor) -> torch.Tensor:
@@ -229,12 +230,16 @@ class ModelAPI:
 
 def build_model(cfg: ModelConfig, device=None,
                 dtype: torch.dtype = torch.bfloat16,
-                trainable: bool = False) -> ModelAPI:
+                trainable: bool = False, mesh=None) -> ModelAPI:
     """The model's API on ``device`` (the card unless the caller passes
-    ``"cpu"``) in ``dtype``; ``init`` gives trainable leaves with
-    ``trainable``, frozen ones (serving) without."""
+    ``"cpu"``, or ``"meta"`` for shapes only) in ``dtype``; ``init`` gives
+    trainable leaves with ``trainable``, frozen ones (serving) without.
+    With a ``mesh`` (``launch/mesh.py``) the routed experts are padded to a
+    multiple of its ``model`` axis, as the reference pads them for its
+    ``shard_map``; every expert still runs on one device."""
     _check_family(cfg)
     dev = backend.resolve_device(device)
+    model_axis_size = mesh.shape.get("model", 1) if mesh is not None else 1
     V = cfg.padded_vocab
     d = cfg.d_model
     L = cfg.num_layers
@@ -247,8 +252,7 @@ def build_model(cfg: ModelConfig, device=None,
 
     # ---- init ---------------------------------------------------------------
     def init(seed: int = 0) -> Model:
-        g = torch.Generator(device=dev)
-        g.manual_seed(seed)
+        g = generator(dev, seed)
         embed = dense_init(g, (V, d), d, dtype)
         lm_head = dense_init(g, (d, V), d, dtype)
         if cfg.family == "dense":
@@ -258,7 +262,7 @@ def build_model(cfg: ModelConfig, device=None,
             fd = cfg.first_dense_layers
             blocks = [Block(_init_dense_block(g, cfg, dtype))
                       for _ in range(fd)]
-            blocks += [Block(_init_moe_block(g, cfg, dtype))
+            blocks += [Block(_init_moe_block(g, cfg, dtype, model_axis_size))
                        for _ in range(L - fd)]
         else:
             blocks = [Block(_init_mamba_block(g, cfg, dtype))

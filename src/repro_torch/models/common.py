@@ -4,7 +4,9 @@ The port of ``repro/models/common.py``.  ``rms_norm`` is a
 ``torch.autograd.Function`` with the reference's hand-written backward;
 ``chunked_cross_entropy`` recomputes each chunk's logits in the backward
 (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint`` does.
-``dense_init`` draws from an explicit ``torch.Generator``.
+``dense_init`` draws from an explicit ``torch.Generator`` (``generator``
+makes one); on the ``meta`` device, which has no generator, it draws
+nothing and returns a tensor of the right shape and type.
 """
 from __future__ import annotations
 
@@ -74,11 +76,30 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+class MetaGenerator:
+    """Stands in for a ``torch.Generator`` on ``meta``, which has none:
+    ``dense_init`` draws nothing from it."""
+    device = torch.device("meta")
+
+
+def generator(device: torch.device, seed: int):
+    """A generator on ``device`` seeded with ``seed`` (a ``MetaGenerator``
+    on ``meta``)."""
+    if device.type == "meta":
+        return MetaGenerator()
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    return g
+
+
 def dense_init(generator: torch.Generator, shape: Sequence[int],
                fan_in: Optional[int] = None,
                dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """Normal(0, 1/fan_in) weights drawn in f32 from ``generator`` on its
-    device, cast to ``dtype``."""
+    device, cast to ``dtype``; on ``meta`` an empty tensor of that shape
+    and type, drawing nothing."""
+    if generator.device.type == "meta":
+        return torch.empty(tuple(shape), dtype=dtype, device="meta")
     fan_in = fan_in if fan_in is not None else shape[-2] if len(shape) > 1 \
         else shape[0]
     std = 1.0 / math.sqrt(fan_in)
@@ -136,4 +157,4 @@ def _apply_head(h: torch.Tensor, lm_head: torch.Tensor,
 
 
 __all__ = ["chunked_cross_entropy", "cross_entropy_loss", "dense_init",
-           "rms_norm", "rope"]
+           "generator", "rms_norm", "rope"]

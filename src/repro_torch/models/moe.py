@@ -148,7 +148,8 @@ def moe_ffn(p: Mapping, x: torch.Tensor, cfg: ModelConfig,
     count = getattr(_counting, "count", None)
     if count is not None:
         count.pairs += T * k
-        count._dropped.append((~keep).sum())
+        if not keep.is_meta:         # a meta trace has no routing to count
+            count._dropped.append((~keep).sum())
 
     # ---- capacity buffers: each kept pair's token at (expert, rank); a
     # dropped pair writes the spare last row, which is cut off.  Masks

@@ -36,7 +36,7 @@ COPIES = [
     "core/solver/annealing.py", "core/solver/multinode.py",
     "service/signature.py", "service/store.py", "service/client.py",
     "service/server.py",
-    "lower/plan.py", "lower/netplan.py",
+    "lower/plan.py", "lower/netplan.py", "launch/roofline.py",
     "configs/__init__.py", "configs/base.py", "configs/registry.py",
     "configs/gemma2_2b.py", "configs/internlm2_20b.py",
     "configs/internvl2_26b.py", "configs/kimi_k2.py",

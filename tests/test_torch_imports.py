@@ -51,6 +51,12 @@ import repro_torch.launch.serve
 import repro_torch.launch.train
 import repro_torch.optim.compression
 import repro_torch.optim.optimizers
+import repro_torch.hw.gpu
+import repro_torch.core.autoshard
+import repro_torch.launch.mesh
+import repro_torch.launch.op_cost
+import repro_torch.launch.dryrun
+import repro_torch.launch.roofline
 from repro_torch.core.solver import solve
 from repro_torch.hw.presets import eyeriss_multinode
 from repro_torch.lower import lower_network
