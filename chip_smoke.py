@@ -94,14 +94,24 @@ Phases, in order; any failure exits non-zero:
    backward reads) against the plain version's, max abs error <=
    ``LSE_TOL`` (both f32 from the same operands), its output within the
    same limits, and the kernel's time with the lse store;
-8. serve Qwen2.5-3B, Zamba2-1.2B and Qwen2-MoE-A2.7B at full width in bf16
-   (8 requests, 512-token prompts, 32 generated tokens) through ``serve``,
-   with the launch counters set to 0 just before and read just after:
+8. serve Qwen2.5-3B, Zamba2-1.2B and Qwen2-MoE-A2.7B at full width and
+   depth in bf16 (8 requests, 512-token prompts, 32 generated tokens)
+   through ``serve``, which captures the prefill and one decode step as
+   CUDA graphs over one static cache and replays them
+   (``launch/serve.py`` ``CompiledServing``), with the launch counters
+   set to 0 just before and read just after: twice a prefill's kernels
+   (its warm-up call before the capture, and its replay), a prefill being
    flash 36 for Qwen; flash 6 and SSD 38 for Zamba2; flash 24 for
-   Qwen2-MoE, every flash launch on the tensor-core path (decode runs no
-   kernel); finite
-   logits, tokens [8, 32]; then one prefill and 8 decode steps under
-   ``torch.profiler``;
+   Qwen2-MoE, every flash launch on the tensor-core path; the captured
+   prefill graph holds exactly those launches and the decode graph none
+   (decode runs no kernel); finite logits, tokens [8, 32]; the prefill's
+   seconds, the capture's apart, the SSM prompt replay's, decode tok/s and
+   the peak memory with the graph pools.  Then, from one prefill, the same
+   8 decode steps as graph replays and through the eager step
+   (``build_serve_step``, from a copy of the same cache), each timed and
+   once under ``torch.profiler`` (idle share, device kernels): every run's
+   tokens equal; and the captured prefill's logits against the eager
+   prefill's (max abs difference printed), both profiled;
 9. consistency, float32, full width, reduced depth (Qwen 4 layers, Zamba2
    12): the prefill's last-token logits (through the kernels) against a
    replay of the prompt through ``decode_step`` (no kernel), max rel error
@@ -148,8 +158,9 @@ Phases, in order; any failure exits non-zero:
    ``DRYRUN_TIMED`` steps after the counted one), the roofline fraction
    and the model FLOPs over the step at 989 TFLOP/s, with the card's name
    and power limit;
-14. print ``{"kernels": [...]}`` (flash and SSD count phase 8's, phase
-   10's and phase 13's launches), the card's name and power limit, and
+14. print ``{"kernels": [...]}`` (flash and SSD count phase 8's serves'
+   prefills, warm-up and replay, phase 10's and phase 13's launches), the
+   card's name and power limit, and
    last ``{"ok": true, "device": {...}}``.
 
 Every ``[kernel]`` line and ``kernels`` entry names the path that ran:
@@ -216,6 +227,11 @@ PATHS = {"fc": "mma-3xtf32", "conv": "mma-3xtf32", "pool": "fma",
 EARLIER_MS = {"fc": 0.3468, "conv": 91.81,
               "attention": 1.1872, "eltwise": 1.823,
               "ssd_intra_chunk": 14.25}
+#: the Zamba2 train step's peaks (GB) while the optimizer returned new
+#: state beside the old: phase 10's and phase 13b's (meta trace and
+#: card), copied from PERF.md (NVIDIA H100 80GB HBM3, 700.00 W), logged
+#: beside this run's and not measured here
+EARLIER_PEAK_GB = {"train": 50.01, "dryrun-meta": 40.574, "dryrun": 40.577}
 #: the kernels whose ptxas registers and spills ``[ptxas]`` reports
 REDESIGNED = ("flash_wgmma_kernel", "fc_kernel", "fc_reduce_kernel",
               "conv_kernel", "attention_mma_kernel", "eltwise_kernel",
@@ -232,6 +248,10 @@ SERVE = {"qwen2.5-3b": {"flash_attention": 36, "flash_attention_wgmma": 36,
                              "flash_attention_wgmma": 24,
                              "ssd_intra_chunk": 0}}
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_GEN = 8, 512, 32
+#: prefills a serve runs: the warm-up call before its capture, and the
+#: replay; the decode steps held captured against eager, and profiled
+SERVE_PREFILLS = 2
+SERVE_PROFILE_STEPS = 8
 #: the consistency phase: arch -> depth
 CONSISTENCY = {"qwen2.5-3b": 4, "zamba2-1.2b": 12}
 #: the MoE consistency row: arch, depth, requests and prompt length (short
@@ -1057,64 +1077,127 @@ def kernel_group(name: str) -> str:
     return "other"
 
 
-def profile_serving(api, params, prompts, max_len: int, steps: int):
-    """One prefill and ``steps`` decode steps under ``torch.profiler``:
-    device time by group (the two kernels, matmuls, the rest) and the
-    number of device kernels and copies, against the wall clock of each."""
+def device_profile_of(fn):
+    """``fn()`` under ``torch.profiler``, ending in a synchronise: device
+    time by group (the two kernels, matmuls, the rest), the device kernels
+    and copies counted, and the idle share against the wall clock."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    groups = collections.Counter()
+    top = collections.Counter()
+    launched = 0
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if not us or "cuda" not in str(
+                getattr(e, "device_type", "")).lower():
+            continue
+        groups[kernel_group(e.key)] += us / 1e3
+        top[e.key[:80]] += us / 1e3
+        launched += e.count
+    busy = sum(groups.values())
+    return {"wall_ms": wall_ms, "device_ms": dict(groups),
+            "device_busy_ms": busy, "device_kernels": launched,
+            "idle_share": None if not busy else 1.0 - busy / wall_ms,
+            "top_kernels_ms": dict(top.most_common(8))}
+
+
+def profile_serving(api, params, steps, inputs, prompt, n_steps: int):
+    """From one prefill, ``n_steps`` decode steps twice: replays of the
+    captured decode graph (``steps``, ``launch/serve.py``
+    ``CompiledServing``) and the eager step (``build_serve_step``) from a
+    copy of the same cache; each timed unprofiled (host clock, ending in a
+    synchronise) and once under ``torch.profiler``.  The prefill too: the
+    captured replay and the eager ``api.prefill``.  Returns the numbers,
+    the prefill logits' max abs difference and whether every run gave the
+    same tokens."""
+    import torch
     from repro_torch.launch.steps import build_serve_step
-    step = build_serve_step(api)
-    out = {}
+    out = {"captured": {}, "eager": {}}
+    max_len = steps.max_len
     with torch.inference_mode():
-        for what in ("prefill", "decode"):
+        # the prefill, captured and eager
+        out["captured"]["prefill"] = device_profile_of(
+            lambda: steps.prefill(inputs))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want, cache = api.prefill(params, inputs, max_len)
+        torch.cuda.synchronize()
+        out["eager"]["prefill_s"] = time.perf_counter() - t0
+        out["eager"]["prefill"] = device_profile_of(
+            lambda: api.prefill(params, inputs, max_len))
+        logits = steps.prefill(inputs).clone()
+        out["prefill_logits_max_abs_diff"] = float(
+            (logits.float() - want.float()).abs().max())
+        del cache, want
+        # the first token (and the SSM/hybrid prompt replay), then a copy
+        # of the state both runs start from
+        steps.start(logits, prompt)
+        start = ({k: t.clone() for k, t in steps.cache.items()},
+                 steps.tokens.clone(), int(steps.cache_len))
+
+        def captured():
+            for k, t in steps.cache.items():
+                t.copy_(start[0][k])
+            steps.tokens.copy_(start[1])
+            steps.cache_len.fill_(start[2])
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                if what == "prefill":
-                    logits, cache = api.prefill(params, prompts, max_len)
-                else:
-                    tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
-                    for i in range(steps):
-                        tok, cache = step(params, cache, tok,
-                                          prompts.shape[1] + i)
-                torch.cuda.synchronize()
-                wall_ms = (time.perf_counter() - t0) * 1e3
-            groups = collections.Counter()
-            top = collections.Counter()
-            launched = 0
-            for e in prof.key_averages():
-                us = getattr(e, "self_device_time_total", None)
-                if us is None:
-                    us = getattr(e, "self_cuda_time_total", 0)
-                if not us or "cuda" not in str(
-                        getattr(e, "device_type", "")).lower():
-                    continue
-                groups[kernel_group(e.key)] += us / 1e3
-                top[e.key[:80]] += us / 1e3
-                launched += e.count
-            busy = sum(groups.values())
-            out[what] = {"wall_ms": wall_ms, "device_ms": dict(groups),
-                         "device_busy_ms": busy,
-                         "device_kernels": launched,
-                         "idle_share": None if not busy
-                         else 1.0 - busy / wall_ms,
-                         "top_kernels_ms": dict(top.most_common(8))}
-            if what == "decode":
-                out[what]["steps"] = steps
+            t0 = time.perf_counter()
+            toks = [steps.decode().clone() for _ in range(n_steps)]
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0, torch.cat(toks, 1)
+
+        serve_step = build_serve_step(api)
+
+        def eager():
+            cache = {k: t.clone() for k, t in start[0].items()}
+            tok = start[1]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            toks = []
+            for i in range(n_steps):
+                tok, cache = serve_step(params, cache, tok, start[2] + i)
+                toks.append(tok)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0, torch.cat(toks, 1)
+
+        tokens = []
+        for what, fn in (("captured", captured), ("eager", eager)):
+            secs, toks = fn()
+            profiled = []
+            out[what]["decode"] = device_profile_of(
+                lambda: profiled.append(fn()[1]))
+            tokens += [toks, profiled[0]]
+            out[what]["decode"]["steps"] = n_steps
+            out[what]["decode_s"] = secs
+            out[what]["decode_tok_s"] = toks.numel() / secs
+        out["tokens_equal"] = all(torch.equal(t, tokens[0])
+                                  for t in tokens[1:])
+        out["tokens_head"] = tokens[0][:2].tolist()
+        del start
     return out
 
 
 def serve_phase(dev):
-    """Phase 8: every arch of ``SERVE`` at full width in bf16."""
+    """Phase 8: every arch of ``SERVE`` at full width in bf16, through the
+    captured prefill and decode; then the same 8 decode steps captured and
+    eager from one prefill."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
-    from repro_torch.launch.serve import serve
+    from repro_torch.launch.serve import CompiledServing, serve
     from repro_torch.models.api import build_model
 
+    smi = card_power()
     results = {}
     for arch, expect in SERVE.items():
         cfg = get_config(arch)
@@ -1129,33 +1212,77 @@ def serve_phase(dev):
                     gen=SERVE_GEN, tiny=False, seed=0, device=dev,
                     params=params)
         launches = ops.launch_counts()
-        if launches != expect:
-            raise AssertionError(f"{arch}: launches {launches}, the model "
-                                 f"has {expect}")
+        # the prefill's warm-up call before its capture, and its replay
+        want = {k: SERVE_PREFILLS * n for k, n in expect.items()}
+        if launches != want:
+            raise AssertionError(f"{arch}: launches {launches}, the serve "
+                                 f"makes {want}")
         if res.tokens.shape != (SERVE_REQUESTS, SERVE_GEN):
             raise AssertionError(f"{arch}: tokens {res.tokens.shape}")
         if not bool(torch.isfinite(res.logits).all()):
             raise AssertionError(f"{arch}: non-finite prefill logits")
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        rng = np.random.default_rng(0)
+        prompts = torch.from_numpy(rng.integers(
             1, min(cfg.vocab_size, 1000),
             size=(SERVE_REQUESTS, SERVE_PROMPT)).astype(np.int32)).to(dev)
-        prof = profile_serving(api, params, prompts,
-                               SERVE_PROMPT + SERVE_GEN, 8)
+        # serve's graphs went with its return: the same steps anew, for
+        # the graphs' launches and the profile
+        with torch.inference_mode():
+            steps = CompiledServing(api, params, prompts,
+                                    SERVE_PROMPT + SERVE_GEN)
+        if steps.prefill_graph.graph is None or \
+                steps.decode_graph.graph is None:
+            raise AssertionError(f"{arch}: a step was not captured")
+        if steps.prefill_graph.launches != \
+                {k: n for k, n in expect.items() if n} or \
+                steps.decode_graph.launches:
+            raise AssertionError(
+                f"{arch}: captured prefill launches "
+                f"{steps.prefill_graph.launches}, decode "
+                f"{steps.decode_graph.launches}; the model has {expect} "
+                "and no decode kernel")
+        prof = profile_serving(api, params, steps, prompts, prompts,
+                               SERVE_PROFILE_STEPS)
+        if not prof["tokens_equal"]:
+            raise AssertionError(f"{arch}: captured and eager decode steps "
+                                 "gave different tokens")
         results[arch] = {
             "params": n_params, "weights_gb": n_params * 2 / 1e9,
-            "launches": launches, "prefill_s": res.prefill_seconds,
+            "launches": launches,
+            "captured_prefill_launches": steps.prefill_graph.launches,
+            "prefill_s": res.prefill_seconds,
+            "capture_s": res.capture_seconds,
+            "prompt_replay_s": res.prompt_seconds,
             "decode_s": res.decode_seconds,
             "decode_tok_s": res.decode_tokens_per_second,
-            "peak_memory_gb": peak_gb, "tokens_head": res.tokens[:2].tolist(),
-            "profile": prof}
+            "peak_memory_gb": peak_gb, "pool_gb": res.pool_bytes / 1e9,
+            "tokens_head": res.tokens[:2].tolist(), "profile": prof,
+            "card": smi}
+        cap, eag = prof["captured"], prof["eager"]
         log(f"[serve] {arch} bf16 full width ({n_params / 1e9:.3f} B "
-            f"params): {SERVE_REQUESTS} x {SERVE_PROMPT} prefill "
-            f"{res.prefill_seconds:.4f} s, decode "
-            f"{res.decode_tokens_per_second:.2f} tok/s, launches {launches}, "
-            f"peak memory {peak_gb:.2f} GB")
+            f"params), captured: {SERVE_REQUESTS} x {SERVE_PROMPT} prefill "
+            f"{res.prefill_seconds:.4f} s (capture of both steps "
+            f"{res.capture_seconds:.2f} s apart; prompt replay "
+            f"{res.prompt_seconds:.3f} s), decode "
+            f"{res.decode_tokens_per_second:.2f} tok/s over "
+            f"{SERVE_GEN - 1} steps, launches {launches}, peak memory "
+            f"{peak_gb:.2f} GB with the graph pools "
+            f"({res.pool_bytes / 1e9:.3f} GB) ({smi})")
+        log(f"[serve-compare] {arch}, {SERVE_PROFILE_STEPS} decode steps "
+            f"from one prefill: captured {cap['decode_tok_s']:.2f} tok/s, "
+            f"idle {cap['decode']['idle_share']:.3f}, "
+            f"{cap['decode']['device_kernels']} device kernels; eager "
+            f"{eag['decode_tok_s']:.2f} tok/s, idle "
+            f"{eag['decode']['idle_share']:.3f}, "
+            f"{eag['decode']['device_kernels']} device kernels; tokens "
+            f"equal; prefill captured {res.prefill_seconds:.4f} s (idle "
+            f"{cap['prefill']['idle_share']:.3f}) vs eager "
+            f"{eag['prefill_s']:.4f} s (idle "
+            f"{eag['prefill']['idle_share']:.3f}), logits max abs diff "
+            f"{prof['prefill_logits_max_abs_diff']:.3e} ({smi})")
         log(f"[profile] {arch}: {json.dumps(prof)}")
-        del api, params, res
+        del api, params, res, steps
         torch.cuda.empty_cache()
     return results
 
@@ -1372,7 +1499,9 @@ def train_phase(dev):
     log(f"[train] {arch} bf16 full width and depth, {batch} x {seq} tokens "
         f"a step, AdamW: step {step_s:.4f} s (min of steps 2-{steps}; all "
         f"{[round(x, 4) for x in stats.step_seconds]}), "
-        f"{res['tokens_per_s']:.1f} tokens/s, peak memory {peak_gb:.2f} GB, "
+        f"{res['tokens_per_s']:.1f} tokens/s, peak memory {peak_gb:.2f} GB "
+        f"(with the update's new state beside the old: "
+        f"{EARLIER_PEAK_GB['train']} GB), "
         f"loss {losses[0]:.4f} -> {losses[-1]:.4f}, launches {launches}")
     _free_card()
     res["profile"] = profile_train_step(dev, cfg, batch, seq)
@@ -1649,7 +1778,10 @@ def dryrun_check(dev, arch, mode, batch, seq, expect, smi):
     log(f"[dryrun-check] {arch} {mode}: memory: meta peak "
         f"{meta.cost.peak_bytes / 1e9:.3f} GB (arguments "
         f"{meta.cost.held_bytes / 1e9:.3f}), card peak over the step "
-        f"{peak / 1e9:.3f} GB ({peak_err:+.3f}, limit {DRYRUN_PEAK_TOL})")
+        f"{peak / 1e9:.3f} GB ({peak_err:+.3f}, limit {DRYRUN_PEAK_TOL})"
+        + (f"; with the update's new state beside the old: meta "
+           f"{EARLIER_PEAK_GB['dryrun-meta']} GB, card "
+           f"{EARLIER_PEAK_GB['dryrun']} GB" if train else ""))
     log(f"[dryrun-check] {arch} {mode}: plan: {plan.hbm_gb_per_chip:.3f} "
         f"GiB a chip ({plan.hbm_gb_per_chip * 2**30 / 1e9:.3f} GB: "
         + ", ".join(f"{k} {v / 1e9:.3f}" for k, v in
@@ -2071,8 +2203,9 @@ def main(argv=None) -> int:
         "launches per full calibration sweep; flash_attention per serve "
         "prefill of Qwen2.5-3B, Zamba2-1.2B and Qwen2-MoE-A2.7B together, "
         "ssd_intra_chunk per serve prefill of Zamba2-1.2B; each summed "
-        "over its launches; their launches count phase 8's serve prefills, "
-        "phase 10's training steps and phase 13's counted steps)")
+        "over its launches; their launches count phase 8's serve prefills "
+        "(each serve's warm-up call and its captured replay), phase 10's "
+        "training steps and phase 13's counted steps)")
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

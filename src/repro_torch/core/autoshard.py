@@ -15,8 +15,9 @@ rule keeps the reference's meaning; what differs is the tree it reads:
 * a leaf's path is its ``named_parameters()`` name split on ``.``
   (``blocks.3.attn.wq`` -> ``("blocks", "3", "attn", "wq")``), an
   optimizer-state leaf's the state tree's keys split the same way (AdamW
-  ``("m", "blocks", "3", "attn", "wq")``, Adafactor ``("f", ..., "wq",
-  "vr")``), a cache leaf's its key;
+  ``("m", "blocks", "3", "attn", "wq")``; Adafactor, whose state is kept
+  over the reference's layer stacks, the reference's own path and shape,
+  ``("f", "blocks", "attn", "wq", "vr")``), a cache leaf's its key;
 * shapes come from ``meta`` tensors, the counterpart of ``jax.eval_shape``;
 * the reference stacks every block leaf on a leading layer dim, the port
   keeps one leaf per layer.  Each rule gives the same spec once that layer
@@ -25,7 +26,8 @@ rule keeps the reference's meaning; what differs is the tree it reads:
   (mamba2-1.3b's 48 layers over a data axis of 16).  Here it shards the
   first such dim of the per-layer leaf, and nothing where none divides (a
   small per-head vector).  The bytes per chip are the same wherever a dim
-  divides.
+  divides.  Adafactor's stacked state keeps the layer dim, so its specs
+  are the reference's, layer dim included.
 
 A spec is a ``P``: one entry per dim, ``None``, an axis name or a tuple of
 axis names.  ``ShardingPlan.param_shardings(mesh)`` gives, per leaf, the

@@ -186,6 +186,63 @@ def kernel_call(name: str, *args, **params) -> Iterator[None]:
             return
     yield
 
-__all__ = ["DTYPE_CODES", "ENTRY_POINTS", "MODEL_SOURCE", "SOURCE", "build",
-           "build_dir", "check_launch", "find_nvcc", "kernel_call", "library",
-           "library_path", "resolve_device", "stream_handle"]
+
+# ---------------------------------------------------------------------------
+# launch counts under CUDA-graph capture
+# ---------------------------------------------------------------------------
+
+_recording = threading.local()
+
+
+class LaunchTally(dict):
+    """The launches of each kind recorded while this thread captures a
+    CUDA graph (kind -> count; 0 for a kind not recorded), and the table
+    (a module's ``LAUNCHES``) each kind belongs to."""
+
+    def __init__(self):
+        super().__init__()
+        self.tables: Dict[str, Dict[str, int]] = {}
+
+    def __missing__(self, kind: str) -> int:
+        return 0
+
+    def add(self, table: Dict[str, int], kind: str, n: int) -> None:
+        self[kind] = self[kind] + n
+        self.tables[kind] = table
+
+    def replay(self) -> None:
+        """Add the recorded launches to their tables: a graph replay runs
+        every kernel it captured once."""
+        for kind, n in self.items():
+            self.tables[kind][kind] += n
+
+
+def count_launch(table: Dict[str, int], kind: str, n: int = 1) -> None:
+    """Add ``n`` launches of ``kind`` to ``table``, or, while this thread
+    captures a CUDA graph (``recording_launches``), to the capture's tally,
+    which every replay of the graph adds to ``table``: the counts stay
+    those of kernels that ran, not of kernels captured."""
+    tally = getattr(_recording, "tally", None)
+    if tally is None:
+        table[kind] += n
+    else:
+        tally.add(table, kind, n)
+
+
+@contextlib.contextmanager
+def recording_launches() -> Iterator[LaunchTally]:
+    """Within the block, this thread's launches go to the yielded tally
+    and not to their tables: a launch inside a graph capture runs nothing
+    until the graph replays."""
+    prev = getattr(_recording, "tally", None)
+    _recording.tally = tally = LaunchTally()
+    try:
+        yield tally
+    finally:
+        _recording.tally = prev
+
+
+__all__ = ["DTYPE_CODES", "ENTRY_POINTS", "LaunchTally", "MODEL_SOURCE",
+           "SOURCE", "build", "build_dir", "check_launch", "count_launch",
+           "find_nvcc", "kernel_call", "library", "library_path",
+           "recording_launches", "resolve_device", "stream_handle"]

@@ -207,9 +207,9 @@ def _launch(q, k, v, causal, window, logit_softcap, scale, return_lse):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(), prm, fprm,
             backend.stream_handle(q.device)))
-    LAUNCHES["flash_attention"] += 1
+    backend.count_launch(LAUNCHES, "flash_attention")
     if path == "wgmma":
-        LAUNCHES["flash_attention_wgmma"] += 1
+        backend.count_launch(LAUNCHES, "flash_attention_wgmma")
     return (out, lse) if return_lse else out
 
 

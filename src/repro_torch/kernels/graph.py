@@ -1,0 +1,84 @@
+"""One step captured as a CUDA graph and replayed, shared by the fused
+tier (``lower/fuse.py``) and the serving loop (``launch/serve.py``).
+
+``CapturedStep(step, device)`` runs ``step`` (a function of no arguments
+returning a dict of tensors) once outside the capture, so that every first
+call happens there: a library's build and load, each kernel's
+shared-memory attribute, the tensor-map encoder's lookup, the TF32 switch
+of ``ref.full_fp32``, the launch-geometry caches.  It then captures one
+call into a ``torch.cuda.CUDAGraph`` with a private memory pool; the
+outputs are the captured call's tensors, rewritten by every replay.  A
+step must read no device value on the host, allocate nothing outside the
+pool and read only tensors whose addresses stay fixed (parameters, static
+buffers): a replay runs the captured kernels on those addresses.  A
+failed capture raises; nothing falls back to running the step eagerly.
+
+Launch counters stay truthful: the capture records the launches of each
+kind (``backend.recording_launches``) and every replay adds them to their
+tables, so the counts are of kernels that ran.  On the CPU there is no
+graph: every call runs ``step``.
+"""
+from __future__ import annotations
+
+import time
+from typing import Callable, Dict, Optional
+
+import torch
+
+from .backend import recording_launches
+
+
+class CapturedStep:
+    """One captured step: the graph, its static outputs, the launches of
+    each kind a replay makes, the bytes its pool took and the capture's
+    seconds (the warm-up call and the capture).  On the CPU the step runs
+    each time."""
+
+    def __init__(self, step: Callable[[], Dict[str, torch.Tensor]],
+                 device: torch.device):
+        self.step = step
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.outputs: Dict[str, torch.Tensor] = {}
+        self.launches: Dict[str, int] = {}
+        self._tally = None
+        self.pool_bytes = 0             # the card's memory the pool took
+        self.capture_seconds = 0.0
+        if device.type != "cuda":
+            return
+        t0 = time.perf_counter()
+        with torch.cuda.device(device):
+            # first calls stay out of the capture
+            side = torch.cuda.Stream(device)
+            side.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(side):
+                step()
+            torch.cuda.current_stream(device).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            # the private pool takes segments of its own: what the card
+            # reserves across the capture is the pool.  The capture
+            # empties the allocator's cache first; so does this, so that
+            # the warm-up's freed blocks do not offset the pool
+            torch.cuda.synchronize(device)
+            torch.cuda.empty_cache()
+            before = torch.cuda.memory_reserved(device)
+            with recording_launches() as tally:
+                with torch.cuda.graph(graph,
+                                      capture_error_mode="thread_local"):
+                    self.outputs = step()
+            self.pool_bytes = max(
+                0, torch.cuda.memory_reserved(device) - before)
+            torch.cuda.synchronize(device)
+        self.capture_seconds = time.perf_counter() - t0
+        self.graph = graph
+        self._tally = tally
+        self.launches = {k: n for k, n in tally.items() if n}
+
+    def __call__(self) -> Dict[str, torch.Tensor]:
+        if self.graph is None:
+            return self.step()
+        self.graph.replay()
+        self._tally.replay()
+        return dict(self.outputs)
+
+
+__all__ = ["CapturedStep"]

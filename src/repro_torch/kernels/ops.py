@@ -156,38 +156,42 @@ def quantize_kv(x: torch.Tensor):
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, cache_len: int,
+                     v_cache: torch.Tensor, cache_len: torch.Tensor,
                      window: int = 0, logit_softcap: float = 0.0,
                      scale: Optional[float] = None,
                      k_scale: Optional[torch.Tensor] = None,
                      v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Single-token decode vs. a KV cache.
 
-    q: [B, H, 1, D]; caches: [B, KV, Smax, D]; cache_len: current length
-    (the new token's K/V must already be written at cache_len - 1).
-    With k_scale/v_scale the caches are int8 payloads dequantized on the
-    fly (per-position scales [B, KV, Smax, 1]).  Only the first
-    ``cache_len`` positions are read: the rest are masked in the JAX
-    version, where their softmax weight is exactly 0."""
+    q: [B, H, 1, D]; caches: [B, KV, Smax, D]; cache_len: [] int tensor,
+    the current length (the new token's K/V must already be written at
+    cache_len - 1).  With k_scale/v_scale the caches are int8 payloads
+    dequantized on the fly (per-position scales [B, KV, Smax, 1]).  As the
+    reference, it reads all ``Smax`` positions and masks those at or past
+    ``cache_len`` (and, with a window, those before ``cache_len -
+    window``), so the length stays on the device and the step can be
+    captured; a masked position's softmax weight is exactly 0."""
     ref.full_fp32(q)
     B, H, _, D = q.shape
-    KV = k_cache.shape[1]
+    KV, Smax = k_cache.shape[1], k_cache.shape[2]
     qpk = H // KV
     scale = scale if scale is not None else D ** -0.5
     qg = (q.float() * scale).reshape(B, KV, qpk, D)
-    kf = k_cache[:, :, :cache_len].float()
+    kf = k_cache.float()
     if k_scale is not None:
-        kf = kf * k_scale[:, :, :cache_len].float()
-    s = torch.matmul(qg, kf.transpose(-1, -2))            # [B, KV, qpk, n]
+        kf = kf * k_scale.float()
+    s = torch.matmul(qg, kf.transpose(-1, -2))            # [B, KV, qpk, Smax]
     if logit_softcap > 0:
         s = torch.tanh(s / logit_softcap) * logit_softcap
+    kpos = torch.arange(Smax, device=q.device)
+    mask = kpos < cache_len
     if window > 0:
-        kpos = torch.arange(cache_len, device=q.device)
-        s = torch.where(kpos >= cache_len - window, s, NEG_INF)
+        mask = mask & (kpos >= cache_len - window)
+    s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    vf = v_cache[:, :, :cache_len].float()
+    vf = v_cache.float()
     if v_scale is not None:
-        vf = vf * v_scale[:, :, :cache_len].float()
+        vf = vf * v_scale.float()
     o = torch.matmul(p, vf)
     return o.reshape(B, H, 1, D).to(q.dtype)
 

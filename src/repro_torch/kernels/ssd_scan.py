@@ -254,7 +254,7 @@ def _launch(x, dt, acum, b, c):
             x.data_ptr(), dt.data_ptr(), acum.data_ptr(), b.data_ptr(),
             c.data_ptr(), out.data_ptr(), None if ws is None
             else ws.data_ptr(), prm, backend.stream_handle(x.device)))
-    LAUNCHES["ssd_intra_chunk"] += 1
+    backend.count_launch(LAUNCHES, "ssd_intra_chunk")
     return out
 
 

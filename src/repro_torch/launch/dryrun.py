@@ -8,10 +8,11 @@ meta parameters, optimizer state and cache, ``launch/steps.py``
 ``input_structs``, ``plan_sharding`` (``core/autoshard.py``), and the step
 traced once on ``meta`` under ``launch/op_cost.py``'s counter, which gives
 its global FLOPs, bytes and peak bytes.  One trace per (arch, shape)
-serves both meshes.  A decode step is traced at ``cache_len = seq_len -
-1``: its token goes into the last slot, and it attends over all
-``seq_len`` positions, the full static cache the reference's compiled
-program attends over.
+serves both meshes.  A decode step is traced with ``input_structs``'
+meta ``cache_len``, as the reference's is compiled with an abstract one:
+it attends over all ``seq_len`` positions of the static cache and masks
+those at or past the length on the device, as the reference's program
+does.
 
 The per-device numbers are the global counts divided by the chips: a
 perfect partition, since the port has no SPMD partitioner (every record
@@ -50,7 +51,7 @@ from ..configs import SHAPES, get_config, list_archs, shape_applicable
 from ..configs.base import ModelConfig, ShapeConfig
 from ..core.autoshard import plan_sharding
 from ..hw.gpu import H100Spec
-from ..models.api import build_model
+from ..models.api import build_model, layer_stacks
 from ..optim.optimizers import make_optimizer
 from .mesh import make_production_mesh
 from .op_cost import CompCost, OpCounter, leaf_tensors, storage_bytes
@@ -86,7 +87,8 @@ def trace_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None) -> Trace:
     batch = input_structs(cfg, shape)
     opt_state, cache = {}, None
     if train:
-        optimizer = make_optimizer(cfg.optimizer)
+        optimizer = make_optimizer(cfg.optimizer,
+                                   stacks=layer_stacks(cfg, params))
         opt_state = optimizer.init(dict(params.named_parameters()))
         step, args = build_train_step(api, optimizer), (params, opt_state,
                                                         batch)
@@ -97,7 +99,7 @@ def trace_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None) -> Trace:
     else:
         cache = api.init_cache(shape.global_batch, shape.seq_len)
         step = build_serve_step(api)
-        args = (params, cache, batch["tokens"], shape.seq_len - 1)
+        args = (params, cache, batch["tokens"], batch["cache_len"])
     with OpCounter("meta") as counter:
         counter.hold(args)
         out = step(*args)

@@ -14,12 +14,12 @@ from ..optim.optimizers import Optimizer, global_norm
 def build_train_step(api: ModelAPI, optimizer: Optimizer):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``: the loss and its gradients (``backward``), the gradients
-    in ``named_parameters()`` order, ``optimizer.update``, whose new
-    parameters are written into ``params`` in place (the reference
-    returns new arrays and donates the old ones), and the metrics
-    ``loss`` and ``grad_norm``, the global norm of the gradients before
-    clipping.  The update runs inside a ``record_function("optimizer")``
-    range, which a profile reads."""
+    in ``named_parameters()`` order, ``optimizer.update``, which writes the
+    new parameters and optimizer state into ``params`` and ``opt_state``
+    in place (the reference returns new arrays and donates the old ones),
+    and the metrics ``loss`` and ``grad_norm``, the global norm of the
+    gradients before clipping.  The update runs inside a
+    ``record_function("optimizer")`` range, which a profile reads."""
     def train_step(params: Model, opt_state, batch):
         named = dict(params.named_parameters())
         for p in named.values():
@@ -29,10 +29,8 @@ def build_train_step(api: ModelAPI, optimizer: Optimizer):
         grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
                  for n, p in named.items()}
         with torch.no_grad(), torch.profiler.record_function("optimizer"):
-            new_params, opt_state = optimizer.update(
-                grads, opt_state, {n: p.detach() for n, p in named.items()})
-            for n, p in named.items():
-                p.copy_(new_params[n])
+            optimizer.update(grads, opt_state,
+                             {n: p.detach() for n, p in named.items()})
             metrics = {"loss": loss.detach(), "grad_norm": global_norm(grads)}
         for p in named.values():
             p.grad = None
@@ -41,6 +39,10 @@ def build_train_step(api: ModelAPI, optimizer: Optimizer):
 
 
 def build_serve_step(api: ModelAPI):
+    """``serve_step(params, cache, tokens, cache_len) -> (next tokens
+    [B, 1], cache)``: one decode step and its greedy token; ``cache_len``
+    is a 0-d int32 tensor on the model's device (or an eager caller's
+    Python int), so the step can be captured."""
     def serve_step(params, cache, tokens, cache_len):
         logits, cache = api.decode_step(params, cache, tokens, cache_len)
         next_tok = logits[:, -1].argmax(-1).to(tokens.dtype)
@@ -49,8 +51,10 @@ def build_serve_step(api: ModelAPI):
 
 
 def build_prefill_step(api: ModelAPI, max_len: int):
-    def prefill_step(params, inputs):
-        return api.prefill(params, inputs, max_len)
+    """``prefill_step(params, inputs, cache=None) -> (logits, cache)``;
+    with ``cache`` the prefill fills that cache in place."""
+    def prefill_step(params, inputs, cache=None):
+        return api.prefill(params, inputs, max_len, cache=cache)
     return prefill_step
 
 

@@ -25,7 +25,7 @@ from ..configs import ShapeConfig, get_config
 from ..configs.base import ModelConfig
 from ..data.pipeline import DataConfig, Prefetcher, synth_batch
 from ..kernels import backend
-from ..models.api import build_model
+from ..models.api import build_model, layer_stacks
 from ..optim.optimizers import make_optimizer
 from ..runtime.fault import (NodeFailure, RecoveryPolicy, RecoveryStats,
                              StepHeartbeat, run_with_recovery)
@@ -77,9 +77,9 @@ def train(arch: Union[str, ModelConfig], steps: int = 50, batch: int = 8,
         cfg = tiny_config(cfg)
     shape = ShapeConfig(f"train_{seq}", seq, batch, "train")
     api = build_model(cfg, device=dev, dtype=dtype, trainable=True)
-    optimizer = make_optimizer(cfg.optimizer, lr=1e-3)
-
     params = api.init(seed)
+    optimizer = make_optimizer(cfg.optimizer, lr=1e-3,
+                               stacks=layer_stacks(cfg, params))
     opt_state = optimizer.init(dict(params.named_parameters()))
     start_step = 0
     if resume and ckpt_dir and ckpt.latest_step(ckpt_dir) is not None:

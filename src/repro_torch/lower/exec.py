@@ -21,12 +21,10 @@ captured into a CUDA graph (``fuse.py``) counts at each replay.
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import dataclasses
 import functools
 import itertools
-import threading
 import time
 from typing import Callable, Dict, Iterator, List, Mapping, Optional, \
     Sequence, Tuple
@@ -101,33 +99,9 @@ _INPUT_NAMES = {"fc": ("I", "W"), "conv": ("I", "W"), "pool": ("I",),
                 "eltwise": ("A", "B"), "attention": ("Q", "K", "V")}
 
 
-_recording = threading.local()
-
-
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-
-
-def _count(kind: str, n: int = 1) -> None:
-    """Add ``n`` launches of ``kind`` to ``LAUNCHES``, or, while this thread
-    captures a CUDA graph (``recording_launches``), to the capture's tally,
-    which every replay of the graph adds to ``LAUNCHES``."""
-    tally = getattr(_recording, "tally", None)
-    (LAUNCHES if tally is None else tally)[kind] += n
-
-
-@contextlib.contextmanager
-def recording_launches() -> Iterator[Dict[str, int]]:
-    """Within the block, this thread's launches go to the yielded tally
-    and not to ``LAUNCHES``: a launch inside a graph capture runs nothing
-    until the graph replays."""
-    prev = getattr(_recording, "tally", None)
-    _recording.tally = tally = dict.fromkeys(LAUNCHES, 0)
-    try:
-        yield tally
-    finally:
-        _recording.tally = prev
 
 
 def _check_kind(plan: KernelPlan) -> None:
@@ -351,7 +325,7 @@ def run_fc(plan: KernelPlan, x: torch.Tensor,
             x.data_ptr(), w.data_ptr(), out.data_ptr(),
             None if ws is None else ws.data_ptr(), _fc_params(launch, vec),
             backend.stream_handle(x.device)))
-    _count("fc")
+    backend.count_launch(LAUNCHES, "fc")
     return out
 
 
@@ -710,7 +684,7 @@ def run_conv(plan: KernelPlan, x: torch.Tensor,
             backend.check_launch("kapla_conv", lib.kapla_conv(
                 x[n0:n1].data_ptr(), w.data_ptr(), out[n0:n1].data_ptr(),
                 prm, backend.stream_handle(x.device)))
-            _count("conv")
+            backend.count_launch(LAUNCHES, "conv")
     return out
 
 
@@ -756,7 +730,7 @@ def run_pool(plan: KernelPlan, x: torch.Tensor) -> torch.Tensor:
         backend.check_launch("kapla_pool", lib.kapla_pool(
             x.data_ptr(), out.data_ptr(), prm,
             backend.stream_handle(x.device)))
-    _count("pool")
+    backend.count_launch(LAUNCHES, "pool")
     return out
 
 
@@ -823,7 +797,7 @@ def run_eltwise(plan: KernelPlan,
                 ptrs, dsts[k].data_ptr(),
                 _params([len(srcs), out.numel(), int(vec)]),
                 backend.stream_handle(dev)))
-            _count("eltwise")
+            backend.count_launch(LAUNCHES, "eltwise")
     return out
 
 
@@ -930,8 +904,8 @@ def run_attention(plan: KernelPlan, q: torch.Tensor, k: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), prm,
             (ctypes.c_double * 1)(D ** -0.5),
             backend.stream_handle(q.device)))
-    _count("attention")
-    _count("attention_mma", launch[-1])
+    backend.count_launch(LAUNCHES, "attention")
+    backend.count_launch(LAUNCHES, "attention_mma", launch[-1])
     return out if Dk == D else out[..., :D].contiguous()
 
 

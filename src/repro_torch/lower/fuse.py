@@ -37,8 +37,9 @@ card its outputs equal the per-layer tier's bit for bit.
 On the CPU (``device="cpu"``) there is no graph: the same steps run through
 the plain versions, so the tier's structure (buffers, variants, keep rules,
 cache) is testable there.  Launch counters stay truthful under replay: a
-capture records the launches of each kind (``exec.recording_launches``)
-and every replay adds them to ``exec.LAUNCHES``.
+capture records the launches of each kind (``backend.recording_launches``)
+and every replay adds them to ``exec.LAUNCHES`` (``kernels/graph.py``
+``CapturedStep``, which the serving loop shares).
 """
 from __future__ import annotations
 
@@ -54,9 +55,10 @@ import numpy as np
 import torch
 
 from ..kernels.backend import resolve_device
+from ..kernels.graph import CapturedStep
 from ..obs import metrics, trace
-from .exec import (LAUNCHES, input_shapes, recording_launches, run_attention,
-                   run_conv, run_eltwise, run_fc, run_pool)
+from .exec import (input_shapes, run_attention, run_conv, run_eltwise, run_fc,
+                   run_pool)
 from .netexec import _check_executable, _layer_fn, network_input_shapes
 from .netplan import NetworkPlan
 from .plan import KernelPlan
@@ -75,58 +77,6 @@ _m_compile = metrics.histogram(
 class TensorSpec(NamedTuple):
     shape: Tuple[int, ...]
     dtype: torch.dtype
-
-
-# ---------------------------------------------------------------------------
-# capture and replay of one step
-# ---------------------------------------------------------------------------
-
-class _Graph:
-    """One captured step: the graph, its static outputs and the launches
-    of each kind a replay makes.  On the CPU the step runs each time."""
-
-    def __init__(self, step: Callable[[], Dict[str, torch.Tensor]],
-                 device: torch.device):
-        self.step = step
-        self.graph: Optional[torch.cuda.CUDAGraph] = None
-        self.outputs: Dict[str, torch.Tensor] = {}
-        self.launches: Dict[str, int] = {}
-        self.pool_bytes = 0             # the card's memory the pool took
-        if device.type != "cuda":
-            return
-        with torch.cuda.device(device):
-            # first calls stay out of the capture: the library's build,
-            # each kernel's shared-memory attribute, eltwise's occupancy
-            # query and the launch-geometry caches happen here
-            side = torch.cuda.Stream(device)
-            side.wait_stream(torch.cuda.current_stream(device))
-            with torch.cuda.stream(side):
-                step()
-            torch.cuda.current_stream(device).wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            # the private pool takes segments of its own: what the card
-            # reserves across the capture is the pool.  The capture
-            # empties the allocator's cache first; so does this, so that
-            # the warm-up's freed blocks do not offset the pool
-            torch.cuda.synchronize(device)
-            torch.cuda.empty_cache()
-            before = torch.cuda.memory_reserved(device)
-            with recording_launches() as tally:
-                with torch.cuda.graph(graph,
-                                      capture_error_mode="thread_local"):
-                    self.outputs = step()
-            self.pool_bytes = max(
-                0, torch.cuda.memory_reserved(device) - before)
-        self.graph = graph
-        self.launches = {k: n for k, n in tally.items() if n}
-
-    def __call__(self) -> Dict[str, torch.Tensor]:
-        if self.graph is None:
-            return self.step()
-        self.graph.replay()
-        for kind, n in self.launches.items():
-            LAUNCHES[kind] += n
-        return dict(self.outputs)
 
 
 class _Buffers:
@@ -199,13 +149,13 @@ def plan_graph_runner(plan: KernelPlan, device=None
     shapes = input_shapes(plan)
     args = [bufs.add(n, shapes[n]) for n in names]
     lock = threading.Lock()
-    graph: List[_Graph] = []
+    graph: List[CapturedStep] = []
 
     def run(inputs: Mapping) -> torch.Tensor:
         with lock:
             bufs.bind(inputs, names)
             if not graph:
-                graph.append(_Graph(lambda: {"O": fn(*args)}, dev))
+                graph.append(CapturedStep(lambda: {"O": fn(*args)}, dev))
             return graph[0]()["O"]
     return run
 
@@ -307,7 +257,7 @@ class FusedNetwork:
         self.capture_seconds: Dict[Tuple, float] = {}
         self.segment_io = [_segment_io(nplan, seg)
                            for seg in nplan.segments]
-        self._graphs: Dict[Tuple, _Graph] = {}
+        self._graphs: Dict[Tuple, CapturedStep] = {}
         self._pool_bytes = 0
         self._lock = threading.Lock()
         self._bufs = _Buffers(self.device)
@@ -345,7 +295,7 @@ class FusedNetwork:
             return {n: vals[n] for n in kept}
         return step
 
-    def _build(self, key: Tuple) -> _Graph:
+    def _build(self, key: Tuple) -> CapturedStep:
         if key[0] == "seg":
             seg = self.nplan.segments[key[1]]
             step = self._chain(seg.layer_names, self.segment_io[key[1]][1])
@@ -355,7 +305,7 @@ class FusedNetwork:
             step = self._chain(self.nplan.order,
                                [n for s in self.segment_io for n in s[1]])
         t0 = time.perf_counter()
-        graph = _Graph(step, self.device)
+        graph = CapturedStep(step, self.device)
         dt = time.perf_counter() - t0
         self.traces += 1
         self._pool_bytes += graph.pool_bytes
@@ -371,7 +321,7 @@ class FusedNetwork:
             if name not in self._feed:           # a boundary tensor
                 self._bufs.add(name, output_shape(self.nplan.plans[name]))
 
-    def _graph(self, key: Tuple) -> Tuple[_Graph, bool]:
+    def _graph(self, key: Tuple) -> Tuple[CapturedStep, bool]:
         """The variant's graph, and whether this call built it."""
         graph = self._graphs.get(key)
         if graph is not None:

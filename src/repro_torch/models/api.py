@@ -7,9 +7,9 @@ dense layers, routed and shared experts: ``moe.py``), ``ssm`` and
 
   init(seed)                              -> params (a ``Model`` module)
   forward(params, inputs)                 -> logits
-  prefill(params, inputs, max_len)        -> (last-token logits, cache)
+  prefill(params, inputs, max_len[, cache]) -> (last-token logits, cache)
   init_cache(batch, max_len)              -> cache
-  decode_step(params, cache, tok, n)      -> (logits, cache)
+  decode_step(params, cache, tok, n)      -> (logits, cache), n: [] int32
   loss_fn(params, batch)                  -> scalar loss (train path)
 
 The JAX package scans over layer-stacked parameters; here every block is an
@@ -17,7 +17,10 @@ The JAX package scans over layer-stacked parameters; here every block is an
 Weights keep the JAX layout (``[in, out]``, applied as ``x @ w``), so
 ``params_from_reference`` takes the JAX ``api.init`` tree (as numpy arrays)
 without transposing anything.  Caches are updated in place by
-``decode_step`` (the JAX version returns updated copies).  An MoE model's
+``decode_step``, at the 0-d tensor position it is given (the JAX version
+returns updated copies), and ``prefill`` fills a given cache in place, so
+a serving loop can capture both over one static cache
+(``launch/serve.py``).  An MoE model's
 blocks are its ``first_dense_layers`` dense blocks (the JAX tree's
 ``dense_blocks``) followed by its MoE blocks, in layer order.
 
@@ -212,6 +215,26 @@ def params_from_reference(cfg: ModelConfig, tree: Mapping[str, Any],
                  shared)
 
 
+def layer_stacks(cfg: ModelConfig, params: Model) -> Dict[str, List[str]]:
+    """The reference's layer-stacked leaves as the port's parameter names,
+    in layer order: ``{"blocks.attn.wq": ["blocks.0.attn.wq", ...]}``.
+    The cut is ``params_from_reference``'s: an MoE model's first
+    ``first_dense_layers`` blocks are the stack ``dense_blocks``, the rest
+    ``blocks`` (Gemma2's local/global pairs included); the top-level leaves
+    and the hybrid's ``shared`` block are in no stack."""
+    fd = cfg.first_dense_layers if cfg.family == "moe" else 0
+    layered = []
+    for name, _ in params.named_parameters():
+        parts = name.split(".")
+        if parts[0] == "blocks":
+            layered.append((int(parts[1]), ".".join(parts[2:]), name))
+    stacks: Dict[str, List[str]] = {}
+    for i, rest, name in sorted(layered, key=lambda x: x[0]):
+        stack = "dense_blocks" if i < fd else "blocks"
+        stacks.setdefault(f"{stack}.{rest}", []).append(name)
+    return stacks
+
+
 # ---------------------------------------------------------------------------
 # ModelAPI
 # ---------------------------------------------------------------------------
@@ -379,17 +402,25 @@ def build_model(cfg: ModelConfig, device=None,
         return cache
 
     # ---- prefill ------------------------------------------------------------
-    def prefill(params: Model, inputs: torch.Tensor, max_len: int):
+    def prefill(params: Model, inputs: torch.Tensor, max_len: int,
+                cache: Optional[Dict[str, torch.Tensor]] = None):
         """Run the full prompt, return (last-token logits, filled cache).
-        ssm/hybrid return a fresh cache: the serving loop replays the prompt
-        through ``decode_step`` to build the state, as the JAX one does."""
+        With ``cache`` (``init_cache(B, max_len)``'s tensors) the cache is
+        zeroed and written in place, never reallocated, so a captured
+        prefill and a captured decode step share one set of cache tensors;
+        without, a new one is made.  ssm/hybrid leave it zeroed: the
+        serving loop replays the prompt through ``decode_step`` to build
+        the state, as the JAX one does."""
         B, S = inputs.shape[0], inputs.shape[1]
+        if cache is None:
+            cache = init_cache(B, max_len)
+        else:
+            for t in cache.values():
+                t.zero_()
         if cfg.family not in ("dense", "moe"):
-            return forward(params, inputs, last_only=True), \
-                init_cache(B, max_len)
+            return forward(params, inputs, last_only=True), cache
         logits, kv_all = forward(params, inputs, collect_kv=True,
                                  last_only=True)
-        cache = init_cache(B, max_len)
         for i, (k, v) in enumerate(kv_all):
             k, v = k.to(dtype), v.to(dtype)
             if cfg.kv_cache_dtype == "int8":
@@ -402,8 +433,8 @@ def build_model(cfg: ModelConfig, device=None,
         return logits[:, -1:], cache
 
     # ---- decode -------------------------------------------------------------
-    def _attn_block_decode(bp: Block, h, cache, i: int, cache_len: int,
-                           window: int):
+    def _attn_block_decode(bp: Block, h, cache, i: int,
+                           cache_len: torch.Tensor, window: int):
         a_in = rms_norm(h, bp["ln1"])
         scales = (cache["k_scale"][i], cache["v_scale"][i]) \
             if "k_scale" in cache else (None, None)
@@ -422,10 +453,14 @@ def build_model(cfg: ModelConfig, device=None,
         return h + out
 
     def decode_step(params: Model, cache: Dict[str, torch.Tensor],
-                    tokens: torch.Tensor, cache_len: int):
-        """tokens: [B, 1] ids; cache_len: tokens already in the cache.
-        Returns (logits [B,1,V], the cache, updated in place)."""
-        cache_len = int(cache_len)
+                    tokens: torch.Tensor, cache_len):
+        """tokens: [B, 1] ids; cache_len: [] int32 tensor on the model's
+        device, the tokens already in the cache, as the reference's.  The
+        step reads no device value on the host, so it can be captured.  A
+        Python int (an eager caller's) becomes a device tensor here, once
+        a call: never pass one inside a capture.  Returns (logits [B,1,V],
+        the cache, updated in place)."""
+        cache_len = torch.as_tensor(cache_len, dtype=torch.int32, device=dev)
         h = _embed(params, tokens)
         if cfg.family in ("dense", "moe"):
             for i, bp in enumerate(params.blocks):
@@ -445,4 +480,4 @@ def build_model(cfg: ModelConfig, device=None,
 
 
 __all__ = ["Block", "FAMILIES", "Model", "ModelAPI", "build_model",
-           "params_from_reference", "train_params"]
+           "layer_stacks", "params_from_reference", "train_params"]

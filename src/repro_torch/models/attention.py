@@ -2,8 +2,8 @@
 
 The port of ``repro/models/attention.py``.  Weights keep the JAX layout
 (``[in, out]``, applied as ``x @ w``).  ``attn_decode`` writes the new K/V
-entry into the caches in place (the JAX version returns updated copies) and
-returns the same tensors.
+entry into the caches in place at a tensor position (the JAX version
+returns updated copies) and returns the same tensors.
 """
 from __future__ import annotations
 
@@ -69,26 +69,28 @@ def attn_forward(p: Mapping[str, torch.Tensor], x: torch.Tensor,
 
 def attn_decode(p: Mapping[str, torch.Tensor], x: torch.Tensor,
                 cfg: ModelConfig, k_cache: torch.Tensor,
-                v_cache: torch.Tensor, cache_len: int, window: int = 0,
-                k_scale=None, v_scale=None):
+                v_cache: torch.Tensor, cache_len: torch.Tensor,
+                window: int = 0, k_scale=None, v_scale=None):
     """One-token decode.  x: [B, 1, d]; caches: [B, KV, Smax, hd], written
-    at ``cache_len`` in place.  With int8 caches, k_scale/v_scale are
+    at ``cache_len`` (a 0-d int tensor on the caches' device) in place, by
+    ``index_copy_`` along the position dim: no host int is read, so the
+    step can be captured.  With int8 caches, k_scale/v_scale are
     per-position scale planes [B, KV, Smax, 1] and new entries are
     quantized on write.  Returns (out [B,1,d], caches...) — scales appended
     when present."""
     B = x.shape[0]
-    positions = torch.full((1, 1), cache_len, device=x.device)
-    q, k, v = _project_qkv(p, x, cfg, positions)
+    q, k, v = _project_qkv(p, x, cfg, cache_len.reshape(1, 1))
     k_entry = k.transpose(1, 2)                # [B, KV, 1, hd]
     v_entry = v.transpose(1, 2)
+    at = cache_len.reshape(1).long()
     quant = k_scale is not None
     if quant:
         k_entry, ks_new = ops.quantize_kv(k_entry)
         v_entry, vs_new = ops.quantize_kv(v_entry)
-        k_scale[:, :, cache_len:cache_len + 1] = ks_new.to(k_scale.dtype)
-        v_scale[:, :, cache_len:cache_len + 1] = vs_new.to(v_scale.dtype)
-    k_cache[:, :, cache_len:cache_len + 1] = k_entry.to(k_cache.dtype)
-    v_cache[:, :, cache_len:cache_len + 1] = v_entry.to(v_cache.dtype)
+        k_scale.index_copy_(2, at, ks_new.to(k_scale.dtype))
+        v_scale.index_copy_(2, at, vs_new.to(v_scale.dtype))
+    k_cache.index_copy_(2, at, k_entry.to(k_cache.dtype))
+    v_cache.index_copy_(2, at, v_entry.to(v_cache.dtype))
     o = ops.decode_attention(q.transpose(1, 2), k_cache, v_cache,
                              cache_len + 1, window=window,
                              logit_softcap=cfg.attn_logit_softcap,

@@ -93,7 +93,9 @@ _counting = threading.local()
 def counting_drops() -> Iterator[DropCount]:
     """Count the routed and dropped pairs of the ``moe_ffn`` calls made in
     the block, on this thread (the dropped count is kept on the device
-    until read, so counting adds no synchronisation)."""
+    until read, so counting adds no synchronisation).  A call captured into
+    a CUDA graph raises: its count tensor would be rewritten by every
+    replay, so only eager steps are counted."""
     outer = getattr(_counting, "count", None)
     _counting.count = count = DropCount()
     try:
@@ -147,6 +149,10 @@ def moe_ffn(p: Mapping, x: torch.Tensor, cfg: ModelConfig,
     order, e_sorted, pos, keep, tok_sorted, gate_sorted = _route(p, xt, cfg)
     count = getattr(_counting, "count", None)
     if count is not None:
+        if x.is_cuda and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "counting_drops while capturing a CUDA graph: every replay "
+                "would rewrite the captured count; count an eager step")
         count.pairs += T * k
         if not keep.is_meta:         # a meta trace has no routing to count
             count._dropped.append((~keep).sum())

@@ -8,11 +8,10 @@ sharded attention, FSDP or not), report the per-chip HBM and the step
 estimate within 1e-4 relative, and give every leaf the reference's spec
 with the layer entry dropped, wherever the reference's data axes are not
 on that layer entry (there ZeRO shards a later dim of the port's per-layer
-leaf, or nothing where none divides).  Under Adafactor a per-layer 1-D
-leaf (a norm) has an unfactored ``v`` [n] where the reference's stacked
-[L, n] leaf has ``vr`` [L] and ``vc`` [n]: its spec is held against
-``vc``'s, and its bytes (L x n against L + n floats) stay within the
-tolerance.
+leaf, or nothing where none divides).  Adafactor's state is kept over the
+reference's stacks (``models.api.layer_stacks``), so its leaves have the
+reference's paths and shapes, layer dim included, and are held against
+the reference's specs whole.
 """
 import math
 
@@ -33,7 +32,7 @@ from repro_torch.core.autoshard import (P, named_leaves, placements,
                                         plan_sharding)
 from repro_torch.hw.gpu import H100Spec
 from repro_torch.launch.mesh import Mesh, make_local_mesh
-from repro_torch.models.api import build_model
+from repro_torch.models.api import build_model, layer_stacks
 from repro_torch.optim.optimizers import make_optimizer
 
 MESH = Mesh((16, 16), ("data", "model"))
@@ -58,7 +57,8 @@ class _Shapes:
             cfg = t_get_config(arch)
             api = build_model(cfg, device="meta")
             params = api.init(0)
-            opt = make_optimizer(cfg.optimizer).init(
+            opt = make_optimizer(
+                cfg.optimizer, stacks=layer_stacks(cfg, params)).init(
                 dict(params.named_parameters()))
             self._port[arch] = (cfg, api, params, opt)
         return self._port[arch]
@@ -189,10 +189,13 @@ def test_cache_spec_uses_real_mesh_shape(shapes):
 
 def _ref_path(path, cfg):
     """The reference leaf of a port leaf path, and the port leaf's layer
-    within it (None: not stacked)."""
+    within it (None: not stacked, or a state leaf kept over the whole
+    stack)."""
     if "blocks" not in path:
         return path, None
     i = path.index("blocks")
+    if not path[i + 1].isdigit():
+        return path, None
     layer = int(path[i + 1])
     rest = path[:i] + path[i + 2:]
     fd = cfg.first_dense_layers if cfg.family == "moe" else 0
@@ -220,10 +223,6 @@ def _compare_specs(port_tree, ref_tree, cfg):
     n_layer_dim = 0
     for path, spec in flat:
         rpath, layer = _ref_path(path, cfg)
-        if rpath not in ref and rpath[-1] == "v" and layer is not None:
-            # Adafactor: a per-layer 1-D leaf keeps an unfactored v [n];
-            # the reference's stacked [L, n] leaf has vr [L] and vc [n]
-            rpath, layer = rpath[:-1] + ("vc",), None
         rspec = tuple(ref[rpath])
         if layer is not None:
             if rspec and _data_on(rspec[0]):

@@ -72,11 +72,11 @@ def test_qwen_train_cell_full_width(traces):
     # remat="block": each layer's flash forward runs again in the backward
     assert rec["trace"]["kernel_units"] == {
         "flash_attention": 2 * cfg.num_layers}
-    # the parameters are updated in place; the new results are the new
-    # optimizer state (beside the old one) and the metrics
+    # the parameters and the optimizer state are updated in place, as the
+    # reference donates them; the new results are the two f32 metrics
     tr = traces[("qwen2.5-3b", "train_4k", False, 16)]
-    opt_b = storage_bytes(tr.opt_state)
-    assert opt_b < rec["trace"]["new_output_bytes"] <= opt_b + 64
+    assert storage_bytes(tr.opt_state) > 0
+    assert rec["trace"]["new_output_bytes"] == 8
     coll = rec["roofline"]["coll_by_kind"]
     assert coll["all-reduce"] > 0 and ("reduce-scatter" in coll) == \
         rec["plan"]["zero"]

@@ -29,6 +29,7 @@ from repro_torch.core.directives import LayerScheme as TLayerScheme
 from repro_torch.core.solver import solve as t_solve
 from repro_torch.core.solver.kapla import NetworkSchedule as TSchedule
 from repro_torch.hw.presets import eyeriss_multinode as t_eyeriss
+from repro_torch.kernels import backend
 from repro_torch.lower import (LAUNCHES, FusedNetwork, cache_stats,
                                clear_cache, compiled_plan_fn,
                                from_reference_inputs, fused_runner,
@@ -419,10 +420,10 @@ def test_cpu_fused_tier_launches_no_kernel():
 
 def test_recording_launches_diverts_the_count():
     reset_launch_counts()
-    with tex.recording_launches() as tally:
-        tex._count("conv")
-        tex._count("attention_mma", 2)
-    tex._count("fc")
+    with backend.recording_launches() as tally:
+        backend.count_launch(LAUNCHES, "conv")
+        backend.count_launch(LAUNCHES, "attention_mma", 2)
+    backend.count_launch(LAUNCHES, "fc")
     assert tally["conv"] == 1 and tally["attention_mma"] == 2
     assert LAUNCHES["conv"] == 0 and LAUNCHES["fc"] == 1
     reset_launch_counts()
