@@ -121,25 +121,35 @@ Phases, in order; any failure exits non-zero:
    equal on both;
 10. train Zamba2-1.2B at full width and depth in bf16 through
    ``launch/train.py`` ``train`` (4 steps, 8 x 512 tokens, AdamW, no
-   checkpoints), with the launch counters set to 0 just before and read
+   checkpoints), whose step is one CUDA graph (``launch/steps.py``
+   ``CompiledTraining``: step 1 is the capture's warm-up call, steps 2-4
+   replays; a failed capture fails the run, nothing falls back to the
+   eager step), with the launch counters set to 0 just before and read
    just after: flash 24 (all ``wgmma``) and SSD 152, 6 and 38 a step, all
    in the forward (the backwards are PyTorch, as the reference's are jnp);
-   every loss finite; the step seconds (min of steps 2-4), tokens/s and
-   peak memory; then one step of a fresh model under ``torch.profiler``:
-   device ms by group (the two kernels, matmul, the optimizer's
-   ``record_function`` range, the rest) and the idle share;
+   one optimizer update a step; every loss finite; the step seconds (min
+   of steps 2-4), tokens/s, peak memory, the capture's seconds and its
+   pool's bytes; then, on a fresh model, one eager step under
+   ``torch.profiler`` (device ms by group: the two kernels, matmul, the
+   optimizer's ``record_function`` range, the rest; the idle share) and
+   one replay of the captured step (busy, idle share, kernels);
 11. the f32 training path on the card against the host's CPU: Zamba2 at
    full width cut to 6 layers (one shared-attention call), 2 x 128
    tokens, the same weights, TF32 off: the loss within 1e-4 relative,
    every gradient leaf within 1e-3 of its leaf's max |g| (the FMA flash
    kernel with its lse, the f32 SSD kernel and both backwards against the
    plain versions);
-12. checkpoints at full width cut to 6 layers (2 x 256 tokens): ``train``
-   with a checkpoint every 2 steps and a failure injected at step 3 must
-   recover once (``restarts == 1``) with finite losses; 2 more steps
-   resumed from its directory must match the same steps of one
-   uninterrupted run within 1e-3 relative (the embedding gather's
-   backward adds with atomics on the card, so not bit for bit);
+12. checkpoints at full width cut to 6 layers (2 x 256 tokens), through
+   the captured step: ``train`` with a checkpoint every 2 steps and a
+   failure injected at step 3 must recover once (``restarts == 1``; the
+   restore writes into the graph's own tensors) with finite losses and
+   one update a step; 2 more steps resumed from its directory must match
+   the same steps of one uninterrupted run within 1e-3 relative (the
+   embedding gather's backward adds with atomics on the card, so not bit
+   for bit); (b) ``python -m repro_torch.train_tiny_lm`` at its defaults,
+   in process (tiny Qwen2.5-3B, 200 steps of 8 x 128, a checkpoint every
+   50, a failure at step 100): ``restarts=1``, finite losses, 200
+   updates, two flash launches a step run;
 13. the dry-run (``launch/dryrun.py``, ``[dryrun]``): (a) every cell, 10
    archs x 4 shapes x both production meshes, traced on meta with the
    H100's roofline (``H100Spec()``), 0 failures, skips only the
@@ -157,7 +167,8 @@ Phases, in order; any failure exits non-zero:
    peak; the roofline step time beside the measured step seconds (min of
    ``DRYRUN_TIMED`` steps after the counted one), the roofline fraction
    and the model FLOPs over the step at 989 TFLOP/s, with the card's name
-   and power limit;
+   and power limit; ``[train-compare]``: the Zamba2 step eager (13b's
+   timed steps) beside phase 10's replays and both profiles;
 14. print ``{"kernels": [...]}`` (flash and SSD count phase 8's serves'
    prefills, warm-up and replay, phase 10's and phase 13's launches), the
    card's name and power limit, and
@@ -1428,13 +1439,19 @@ def _train_groups(prof, wall_ms):
 
 
 def profile_train_step(dev, cfg, batch_size: int, seq: int):
-    """One warm-up train step, then one under ``torch.profiler``, of a
-    fresh model of ``cfg`` (the pieces ``train`` builds)."""
+    """A fresh model of ``cfg`` (the pieces ``train`` builds): one eager
+    warm-up step, then one eager step under ``torch.profiler``
+    (``build_train_step``: the groups of ``_train_groups``, the
+    optimizer's range among them); then the same state through
+    ``CompiledTraining``: its first step (the warm-up call and the
+    capture), one replay, and one replay under the profiler (busy, idle
+    share, kernels; a replay has no optimizer range on the host)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data.pipeline import DataConfig, synth_batch
-    from repro_torch.launch.steps import build_train_step
+    from repro_torch.launch.steps import (CompiledTraining, build_train_step,
+                                          input_structs)
     from repro_torch.models.api import build_model
     from repro_torch.optim.optimizers import make_optimizer
     api = build_model(cfg, device=dev, trainable=True)
@@ -1443,20 +1460,36 @@ def profile_train_step(dev, cfg, batch_size: int, seq: int):
     state = opt.init(dict(params.named_parameters()))
     step = build_train_step(api, opt)
     shape = ShapeConfig("train", seq, batch_size, "train")
-    batches = [{k: torch.from_numpy(v).to(dev) for k, v in
-                synth_batch(cfg, shape, i, DataConfig(seed=1)).items()}
-               for i in range(2)]
-    params, state, _ = step(params, state, batches[0])
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        params, state, m = step(params, state, batches[1])
+    host = [synth_batch(cfg, shape, i, DataConfig(seed=1)) for i in range(5)]
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+               for b in host[:2]]
+
+    def profiled(fn):
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    if not bool(torch.isfinite(m["loss"])):
-        raise AssertionError("profiled train step: non-finite loss")
-    return _train_groups(prof, wall_ms)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            m = fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        if not bool(torch.isfinite(m["loss"])):
+            raise AssertionError("profiled train step: non-finite loss")
+        return _train_groups(prof, wall_ms)
+
+    step(params, state, batches[0])
+    eager = profiled(lambda: step(params, state, batches[1])[2])
+    del batches
+    compiled = CompiledTraining(api, params, state, opt,
+                                input_structs(cfg, shape))
+    compiled.step(host[2])
+    compiled.step(host[3])
+    replay = profiled(lambda: compiled.step(host[4]))
+    replay["capture_seconds"] = compiled.capture_seconds
+    replay["pool_bytes"] = compiled.pool_bytes
+    if int(state["step"]) != 5:
+        raise AssertionError(f"profiled train steps: {int(state['step'])} "
+                             f"updates, 5 steps")
+    return {"eager": eager, "replay": replay}
 
 
 def _free_card():
@@ -1491,17 +1524,25 @@ def train_phase(dev):
                              f"forward has {TRAIN_LAUNCHES}")
     if len(losses) != steps or not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"train {arch}: losses {losses}")
+    if stats.updates != steps or not stats.capture_seconds > 0:
+        raise AssertionError(f"train {arch}: {stats.updates} updates over "
+                             f"{steps} steps, capture "
+                             f"{stats.capture_seconds} s: not one graph")
     step_s = min(stats.step_seconds[1:])
     res = {"arch": arch, "steps": steps, "batch": batch, "seq": seq,
            "launches": launches, "losses": losses,
            "step_seconds": stats.step_seconds, "step_s": step_s,
-           "tokens_per_s": batch * seq / step_s, "peak_memory_gb": peak_gb}
+           "tokens_per_s": batch * seq / step_s, "peak_memory_gb": peak_gb,
+           "capture_seconds": stats.capture_seconds,
+           "pool_bytes": stats.pool_bytes, "updates": stats.updates}
     log(f"[train] {arch} bf16 full width and depth, {batch} x {seq} tokens "
-        f"a step, AdamW: step {step_s:.4f} s (min of steps 2-{steps}; all "
+        f"a step, AdamW, captured (step 1: the warm-up step and the "
+        f"capture, {stats.capture_seconds:.3f} s; steps 2-{steps}: "
+        f"replays): step {step_s:.4f} s (min of steps 2-{steps}; all "
         f"{[round(x, 4) for x in stats.step_seconds]}), "
         f"{res['tokens_per_s']:.1f} tokens/s, peak memory {peak_gb:.2f} GB "
         f"(with the update's new state beside the old: "
-        f"{EARLIER_PEAK_GB['train']} GB), "
+        f"{EARLIER_PEAK_GB['train']} GB), pool {stats.pool_bytes} B, "
         f"loss {losses[0]:.4f} -> {losses[-1]:.4f}, launches {launches}")
     _free_card()
     res["profile"] = profile_train_step(dev, cfg, batch, seq)
@@ -1596,11 +1637,15 @@ def checkpoint_phase(dev):
     whole, _ = train(cfg, steps=8, **run)
     errs = [abs(a - b) / abs(b) for a, b in zip(resumed, whole[6:])]
     res = {"layers": layers, "batch": batch, "seq": seq,
-           "restarts": stats.restarts, "failed_run_losses": failed,
+           "restarts": stats.restarts, "updates": stats.updates,
+           "capture_seconds": stats.capture_seconds,
+           "failed_run_losses": failed,
            "resumed_losses": resumed, "uninterrupted_losses": whole,
            "resume_rel_errs": errs, "recovery_run_s": recovery_s,
            "checkpoint_bytes_on_disk": on_disk}
-    log(f"[checkpoint] {TRAIN[0]} {layers} layers bf16: restarts "
+    log(f"[checkpoint] {TRAIN[0]} {layers} layers bf16, captured (one "
+        f"graph a run, restored into in place; capture "
+        f"{stats.capture_seconds:.3f} s): restarts "
         f"{stats.restarts}, losses {[round(x, 4) for x in failed]}; resumed "
         f"steps 6-7 {resumed} vs uninterrupted {whole[6:]} (rel err "
         f"{max(errs):.3e}); {on_disk} bytes of checkpoints kept; the "
@@ -1608,9 +1653,55 @@ def checkpoint_phase(dev):
     if stats.restarts != 1 or not all(math.isfinite(x) for x in failed):
         raise AssertionError(f"checkpoint: restarts {stats.restarts}, "
                              f"losses {failed}")
+    if stats.updates != 6 or not stats.capture_seconds > 0:
+        raise AssertionError(f"checkpoint: {stats.updates} updates, "
+                             f"capture {stats.capture_seconds} s")
     if len(resumed) != 2 or not max(errs) <= RESUME_TOL:
         raise AssertionError(f"checkpoint: resumed {resumed} vs "
                              f"uninterrupted {whole[6:]}")
+    _free_card()
+    return res
+
+
+def tiny_lm_phase():
+    """Phase 12b: ``python -m repro_torch.train_tiny_lm`` at its defaults
+    (tiny Qwen2.5-3B, 200 steps of 8 x 128, a checkpoint every 50 steps, a
+    failure at step 100), in process, with the launch counters set to 0
+    just before and read just after: one recovery, finite losses, one
+    flash launch per layer a step run."""
+    import contextlib
+    import io
+    import math
+    from repro_torch import train_tiny_lm
+    from repro_torch.kernels import ops
+
+    out = io.StringIO()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        losses, stats = train_tiny_lm.main([])
+    seconds = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    last = out.getvalue().strip().splitlines()[-1]
+    res = {"steps_run": len(losses), "restarts": stats.restarts,
+           "updates": stats.updates, "first_loss": losses[0],
+           "last_loss": losses[-1], "launches": launches,
+           "capture_seconds": stats.capture_seconds, "seconds": seconds,
+           "step_s": statistics.median(stats.step_seconds[1:]),
+           "last_line": last}
+    log(f"[train_tiny_lm] {last} | {len(losses)} steps run, "
+        f"{stats.updates} updates, launches {launches}, capture "
+        f"{stats.capture_seconds:.3f} s, median step "
+        f"{res['step_s'] * 1e3:.3f} ms, {seconds:.1f} s in all")
+    if stats.restarts != 1 or "(restarts=1)" not in out.getvalue() \
+            or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train_tiny_lm: restarts {stats.restarts}, "
+                             f"{last}")
+    if stats.updates != 200 or launches["flash_attention"] \
+            != 2 * len(losses):
+        raise AssertionError(f"train_tiny_lm: {stats.updates} updates, "
+                             f"launches {launches} over {len(losses)} "
+                             f"steps")
     _free_card()
     return res
 
@@ -2110,6 +2201,7 @@ def main(argv=None) -> int:
     detail["train"] = train_res
     detail["train_consistency"] = train_consistency(dev)
     detail["checkpoint"] = checkpoint_phase(dev)
+    detail["train_tiny_lm"] = tiny_lm_phase()
     log(f"[train] phases 10-12 in {time.perf_counter() - t_phase:.1f} s")
 
     # 13. the dry-run: cells on meta; two steps held against the card ------
@@ -2121,6 +2213,23 @@ def main(argv=None) -> int:
     for check in detail["dryrun"]["checks"]:
         dry_launches.update(check["launches"])
     log(f"[dryrun] phase 13 in {time.perf_counter() - t_phase:.1f} s")
+    # the same step eager (phase 13b) and replayed (phase 10), one run
+    eager = next(c for c in detail["dryrun"]["checks"]
+                 if c["mode"] == "train")
+    prof = train_res["profile"]
+    log(f"[train-compare] {TRAIN[0]} {TRAIN[2]} x {TRAIN[3]} bf16: eager "
+        f"step (phase 13b) {eager['step_s']:.4f} s (min of "
+        f"{[round(x, 4) for x in eager['step_seconds']]}), replayed (phase "
+        f"10) {train_res['step_s']:.4f} s (min of "
+        f"{[round(x, 4) for x in train_res['step_seconds'][1:]]}); "
+        f"profiled: eager busy {prof['eager']['device_busy_ms']:.2f} of "
+        f"{prof['eager']['wall_ms']:.2f} ms (idle "
+        f"{prof['eager']['idle_share']:.3f}, "
+        f"{prof['eager']['device_kernels']} kernels), replay busy "
+        f"{prof['replay']['device_busy_ms']:.2f} of "
+        f"{prof['replay']['wall_ms']:.2f} ms (idle "
+        f"{prof['replay']['idle_share']:.3f}, "
+        f"{prof['replay']['device_kernels']} kernels) | {smi}")
 
     # 14. the kernels line ---------------------------------------------------
     kernels = []

@@ -9,9 +9,15 @@ kept.  A tree is a ``Model`` (or any ``nn.Module``: its leaves are its
 ``named_parameters()``), a dict, or a leaf (a tensor, a numpy array or a
 number); leaves are flattened to keys joined by ``/``.  bfloat16 is stored
 as float32 (npz has no bf16) and cast back on restore.  ``restore`` takes
-templates: a module's parameters are written in place (after every leaf
-was read and checked), a dict comes back as a new dict whose tensors take
-the template's type and device; a shape mismatch raises.
+templates and writes every tensor leaf in place, after every leaf of both
+trees was read and checked (a missing leaf or a shape mismatch raises and
+writes nothing): a module comes back as itself, a dict as a new dict
+holding the template's own tensors, and a numpy or number leaf as a new
+array of the template's type.  The reference returns new arrays, which
+its jitted step takes as arguments; the port's compiled train step
+(``launch/steps.py`` ``CompiledTraining``) is a graph over the
+parameters' and the optimizer state's addresses, so a restore writes
+into them.
 """
 from __future__ import annotations
 
@@ -69,29 +75,32 @@ def _restored(key: str, arr: np.ndarray, leaf):
     return arr.astype(np.asarray(leaf).dtype)
 
 
-def _unflatten(template: Tree, flat: Dict[str, np.ndarray]) -> Tree:
-    def value(key, leaf):
+def _read(template: Tree, flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
+    """Every leaf of ``template`` from ``flat``, checked, by key."""
+    values = {}
+    for key, leaf in _items(template):
         if key not in flat:
             raise KeyError(f"checkpoint missing leaf {key!r}")
-        return _restored(key, flat[key], leaf)
+        values[key] = _restored(key, flat[key], leaf)
+    return values
 
+
+def _write(template: Tree, values: Dict[str, Any]) -> Tree:
+    """``values`` written into the tensor leaves of ``template``; returns
+    the tree (a module as itself, a dict as a new dict)."""
     def build(tree, path):
         if isinstance(tree, nn.Module):
             return tree
         if isinstance(tree, dict):
             return {k: build(v, path + (str(k),)) for k, v in tree.items()}
-        return value("/".join(path), tree)
+        value = values["/".join(path)]
+        return tree if isinstance(tree, torch.Tensor) else value
 
-    # read and check every module leaf before writing any of them
-    writes = []
-    for key, leaf in _items(template):
-        if isinstance(leaf, nn.Parameter):
-            writes.append((leaf, value(key, leaf)))
-    out = build(template, ())
     with torch.no_grad():
-        for p, t in writes:
-            p.copy_(t)
-    return out
+        for key, leaf in _items(template):
+            if isinstance(leaf, torch.Tensor):
+                leaf.copy_(values[key])
+    return build(template, ())
 
 
 def save(ckpt_dir: str, step: int, params: Tree, opt_state: Tree,
@@ -151,8 +160,9 @@ def restore(ckpt_dir: str, params_template: Tree,
     with np.load(os.path.join(d, f"opt_h{host_index}.npz"),
                  allow_pickle=False) as z:
         o = dict(z)
-    return (_unflatten(params_template, p), _unflatten(opt_template, o),
-            manifest)
+    # read and check every leaf of both trees before writing any
+    p, o = _read(params_template, p), _read(opt_template, o)
+    return _write(params_template, p), _write(opt_template, o), manifest
 
 
 __all__ = ["latest_step", "restore", "save"]

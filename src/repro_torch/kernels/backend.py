@@ -37,7 +37,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterator, Union
+from typing import Dict, Iterator, Optional, Union
 
 import torch
 from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
@@ -192,12 +192,16 @@ def kernel_call(name: str, *args, **params) -> Iterator[None]:
 # ---------------------------------------------------------------------------
 
 _recording = threading.local()
+#: the tallies of the captures in progress, by the raw handle of the stream
+#: each captures: autograd's device thread runs a captured backward on
+#: that stream, and its launches belong to the capture too
+_stream_tallies: Dict[int, "LaunchTally"] = {}
 
 
 class LaunchTally(dict):
-    """The launches of each kind recorded while this thread captures a
-    CUDA graph (kind -> count; 0 for a kind not recorded), and the table
-    (a module's ``LAUNCHES``) each kind belongs to."""
+    """The launches of each kind recorded while a CUDA graph is captured
+    (kind -> count; 0 for a kind not recorded), and the table (a module's
+    ``LAUNCHES``) each kind belongs to."""
 
     def __init__(self):
         super().__init__()
@@ -219,10 +223,13 @@ class LaunchTally(dict):
 
 def count_launch(table: Dict[str, int], kind: str, n: int = 1) -> None:
     """Add ``n`` launches of ``kind`` to ``table``, or, while this thread
-    captures a CUDA graph (``recording_launches``), to the capture's tally,
-    which every replay of the graph adds to ``table``: the counts stay
-    those of kernels that ran, not of kernels captured."""
+    captures a CUDA graph or the launch goes to a stream being captured
+    (``recording_launches``), to the capture's tally, which every replay
+    of the graph adds to ``table``: the counts stay those of kernels that
+    ran, not of kernels captured."""
     tally = getattr(_recording, "tally", None)
+    if tally is None and _stream_tallies:
+        tally = _stream_tallies.get(torch.cuda.current_stream().cuda_stream)
     if tally is None:
         table[kind] += n
     else:
@@ -230,16 +237,24 @@ def count_launch(table: Dict[str, int], kind: str, n: int = 1) -> None:
 
 
 @contextlib.contextmanager
-def recording_launches() -> Iterator[LaunchTally]:
-    """Within the block, this thread's launches go to the yielded tally
-    and not to their tables: a launch inside a graph capture runs nothing
-    until the graph replays."""
+def recording_launches(stream: Optional[int] = None
+                       ) -> Iterator[LaunchTally]:
+    """Within the block, this thread's launches, and any thread's onto the
+    stream with the raw handle ``stream`` (the one a graph captures), go
+    to the yielded tally and not to their tables: a launch inside a graph
+    capture runs nothing until the graph replays."""
     prev = getattr(_recording, "tally", None)
     _recording.tally = tally = LaunchTally()
+    if stream is not None:
+        with _lock:
+            _stream_tallies[stream] = tally
     try:
         yield tally
     finally:
         _recording.tally = prev
+        if stream is not None:
+            with _lock:
+                _stream_tallies.pop(stream, None)
 
 
 __all__ = ["DTYPE_CODES", "ENTRY_POINTS", "LaunchTally", "MODEL_SOURCE",

@@ -1,5 +1,6 @@
 """One step captured as a CUDA graph and replayed, shared by the fused
-tier (``lower/fuse.py``) and the serving loop (``launch/serve.py``).
+tier (``lower/fuse.py``), the serving loop (``launch/serve.py``) and the
+train step (``launch/steps.py`` ``CompiledTraining``).
 
 ``CapturedStep(step, device)`` runs ``step`` (a function of no arguments
 returning a dict of tensors) once outside the capture, so that every first
@@ -12,10 +13,15 @@ step must read no device value on the host, allocate nothing outside the
 pool and read only tensors whose addresses stay fixed (parameters, static
 buffers): a replay runs the captured kernels on those addresses.  A
 failed capture raises; nothing falls back to running the step eagerly.
+A step with effects (a train step updates its parameters) takes
+``keep_warmup=True``: the warm-up call's outputs are kept as
+``warmup_outputs``, so that its caller can count that call as a step.
 
 Launch counters stay truthful: the capture records the launches of each
-kind (``backend.recording_launches``) and every replay adds them to their
-tables, so the counts are of kernels that ran.  On the CPU there is no
+kind (``backend.recording_launches``: the capturing thread's, and any
+thread's onto the capture stream, such as a backward's on autograd's
+device thread) and every replay adds them to their tables, so the counts
+are of kernels that ran.  On the CPU there is no
 graph: every call runs ``step``.
 """
 from __future__ import annotations
@@ -35,10 +41,12 @@ class CapturedStep:
     each time."""
 
     def __init__(self, step: Callable[[], Dict[str, torch.Tensor]],
-                 device: torch.device):
+                 device: torch.device, keep_warmup: bool = False):
         self.step = step
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.outputs: Dict[str, torch.Tensor] = {}
+        #: the warm-up call's outputs under ``keep_warmup`` (else None)
+        self.warmup_outputs: Optional[Dict[str, torch.Tensor]] = None
         self.launches: Dict[str, int] = {}
         self._tally = None
         self.pool_bytes = 0             # the card's memory the pool took
@@ -51,7 +59,10 @@ class CapturedStep:
             side = torch.cuda.Stream(device)
             side.wait_stream(torch.cuda.current_stream(device))
             with torch.cuda.stream(side):
-                step()
+                first = step()
+            if keep_warmup:
+                self.warmup_outputs = first
+            del first
             torch.cuda.current_stream(device).wait_stream(side)
             graph = torch.cuda.CUDAGraph()
             # the private pool takes segments of its own: what the card
@@ -61,9 +72,12 @@ class CapturedStep:
             torch.cuda.synchronize(device)
             torch.cuda.empty_cache()
             before = torch.cuda.memory_reserved(device)
-            with recording_launches() as tally:
-                with torch.cuda.graph(graph,
-                                      capture_error_mode="thread_local"):
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                # the capture stream's launches from any thread: a
+                # backward runs on autograd's device thread
+                with recording_launches(
+                        torch.cuda.current_stream(device).cuda_stream
+                ) as tally:
                     self.outputs = step()
             self.pool_bytes = max(
                 0, torch.cuda.memory_reserved(device) - before)

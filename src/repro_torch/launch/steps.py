@@ -2,11 +2,13 @@
 ``repro/launch/steps.py``)."""
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Mapping, Optional
 
+import numpy as np
 import torch
 
 from ..configs.base import ModelConfig, ShapeConfig
+from ..kernels.graph import CapturedStep
 from ..models.api import Model, ModelAPI
 from ..optim.optimizers import Optimizer, global_norm
 
@@ -36,6 +38,72 @@ def build_train_step(api: ModelAPI, optimizer: Optimizer):
             p.grad = None
         return params, opt_state, metrics
     return train_step
+
+
+class CompiledTraining:
+    """``build_train_step``'s step over static batch buffers, captured as
+    one CUDA graph on the card: the counterpart of the reference's
+    ``jax.jit(train_step, donate_argnums=(0, 1))``.  The buffers
+    ``batch`` take the shapes and types of ``batch_like`` (tensors on any
+    device, ``input_structs``'s meta ones too; embeddings in the model's
+    type) on the parameters' device.
+    The forward, the backward and the update all run inside the graph:
+    the gradients are set to None before the backward, so the backward
+    allocates them from the graph's pool and every replay rewrites them
+    at the same addresses; ``update`` writes ``params`` and ``opt_state``
+    in place, so a replay reads and writes the caller's own tensors (a
+    restore must write into them too, ``checkpoint/ckpt.py``).
+
+    The capture is built at the first ``step``: ``CapturedStep``'s
+    warm-up call is that step, its metrics are that step's, and the
+    capture itself executes nothing; every later ``step`` is one replay.
+    On the CPU every ``step`` runs the body.  A failed capture raises."""
+
+    def __init__(self, api: ModelAPI, params: Model, opt_state,
+                 optimizer: Optimizer, batch_like: Mapping[str, torch.Tensor]):
+        self.device = params.embed.device
+        # the body closes over the buffers, not over ``self``; embeddings
+        # in the model's type, into which its ``_embed`` casts them anyway
+        self.batch = batch = {
+            k: torch.zeros(tuple(v.shape), device=self.device,
+                           dtype=params.embed.dtype if v.is_floating_point()
+                           else v.dtype)
+            for k, v in batch_like.items()}
+        train_step = build_train_step(api, optimizer)
+
+        def body():
+            return train_step(params, opt_state, batch)[2]
+        self._body = body
+        self.captured: Optional[CapturedStep] = None
+
+    @property
+    def capture_seconds(self) -> float:
+        """The warm-up step and the capture (0 before the first step and
+        on the CPU)."""
+        return self.captured.capture_seconds if self.captured else 0.0
+
+    @property
+    def pool_bytes(self) -> int:
+        """The card's memory the graph's private pool took."""
+        return self.captured.pool_bytes if self.captured else 0
+
+    def step(self, batch: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        """One train step on the host ``batch``: copied into the buffers,
+        then replayed (the first: the warm-up step and the capture).
+        Returns ``loss`` and ``grad_norm``, the graph's static outputs,
+        rewritten by the next step."""
+        for k, buf in self.batch.items():
+            v = torch.as_tensor(batch[k])
+            if tuple(v.shape) != tuple(buf.shape):
+                raise ValueError(f"batch {k} {tuple(v.shape)}: the graph "
+                                 f"holds {tuple(buf.shape)}")
+            buf.copy_(v)
+        if self.captured is None:
+            self.captured = CapturedStep(self._body, self.device,
+                                         keep_warmup=True)
+            if self.captured.warmup_outputs is not None:
+                return self.captured.warmup_outputs
+        return self.captured()
 
 
 def build_serve_step(api: ModelAPI):
@@ -79,5 +147,5 @@ def input_structs(cfg: ModelConfig, shape: ShapeConfig
     return batch
 
 
-__all__ = ["build_prefill_step", "build_serve_step", "build_train_step",
-           "input_structs"]
+__all__ = ["CompiledTraining", "build_prefill_step", "build_serve_step",
+           "build_train_step", "input_structs"]

@@ -7,6 +7,15 @@ reduced config it trains on the CPU, at full width on one H100:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \\
       --steps 20 --device cpu
 
+The reference jits its train step and donates the parameters and the
+optimizer state; here the step is ``CompiledTraining`` (``launch/steps.py``):
+on the card one CUDA graph over static batch buffers, the parameters and
+the optimizer state, captured at the first step the loop runs (that
+step is the capture's warm-up call) and replayed at every later one; a
+restore after a failure writes into the same tensors
+(``checkpoint/ckpt.py``), so the graph goes on.  On the CPU the same step
+body runs each time.
+
 It keeps the reference's two quirks: the ``Prefetcher`` is started but its
 batches are never read (each step draws its own ``synth_batch``), and
 ``--tiny`` cannot be turned off from the command line.
@@ -30,7 +39,7 @@ from ..optim.optimizers import make_optimizer
 from ..runtime.fault import (NodeFailure, RecoveryPolicy, RecoveryStats,
                              StepHeartbeat, run_with_recovery)
 from ..runtime.straggler import StragglerDetector
-from .steps import build_train_step
+from .steps import CompiledTraining, input_structs
 
 
 def tiny_config(cfg: ModelConfig) -> ModelConfig:
@@ -57,8 +66,13 @@ def tiny_config(cfg: ModelConfig) -> ModelConfig:
 class TrainStats(RecoveryStats):
     """``run_with_recovery``'s stats plus the host seconds of every step
     run, in order (a re-run step counts again), each ending when its loss
-    reached the host."""
+    reached the host (the first holds the capture), the capture's seconds
+    and pool bytes (``CompiledTraining``; 0 on the CPU), and the
+    optimizer's step count at the end: the updates the parameters hold."""
     step_seconds: List[float] = dataclasses.field(default_factory=list)
+    capture_seconds: float = 0.0
+    pool_bytes: int = 0
+    updates: int = 0
 
 
 def train(arch: Union[str, ModelConfig], steps: int = 50, batch: int = 8,
@@ -88,7 +102,8 @@ def train(arch: Union[str, ModelConfig], steps: int = 50, batch: int = 8,
         start_step = manifest["step"]
         print(f"resumed from step {start_step}")
 
-    step_fn = build_train_step(api, optimizer)
+    compiled = CompiledTraining(api, params, opt_state, optimizer,
+                                input_structs(cfg, shape))
     prefetch = Prefetcher(cfg, shape, DataConfig(seed=seed),
                           start_step=start_step)
     detector = StragglerDetector()
@@ -96,13 +111,12 @@ def train(arch: Union[str, ModelConfig], steps: int = 50, batch: int = 8,
     losses: List[float] = []
     step_seconds: List[float] = []
 
-    state = {"params": params, "opt": opt_state, "failed_once": False}
+    state = {"failed_once": False}
 
     def restore_fn() -> int:
         if ckpt_dir and ckpt.latest_step(ckpt_dir) is not None:
-            p, o, m = ckpt.restore(ckpt_dir, state["params"], state["opt"])
-            state["params"], state["opt"] = p, o
-            return m["step"]
+            # in place: the compiled step's own tensors take the values
+            return ckpt.restore(ckpt_dir, params, opt_state)[2]["step"]
         return start_step
 
     def one_step(step: int):
@@ -113,10 +127,7 @@ def train(arch: Union[str, ModelConfig], steps: int = 50, batch: int = 8,
         t0 = time.perf_counter()
         heartbeat.arm()
         batch_np = synth_batch(cfg, shape, step, DataConfig(seed=seed))
-        batch_dev = {k: torch.from_numpy(v).to(dev)
-                     for k, v in batch_np.items()}
-        state["params"], state["opt"], metrics = step_fn(
-            state["params"], state["opt"], batch_dev)
+        metrics = compiled.step(batch_np)
         heartbeat.disarm()
         loss = float(metrics["loss"])
         losses.append(loss)
@@ -126,7 +137,7 @@ def train(arch: Union[str, ModelConfig], steps: int = 50, batch: int = 8,
             print(f"step {step:5d} loss {loss:.4f} "
                   f"({time.perf_counter() - t0:.2f}s)", flush=True)
         if ckpt_dir and (step + 1) % ckpt_every == 0:
-            ckpt.save(ckpt_dir, step + 1, state["params"], state["opt"],
+            ckpt.save(ckpt_dir, step + 1, params, opt_state,
                       extra={"loss": loss})
 
     try:
@@ -139,7 +150,10 @@ def train(arch: Union[str, ModelConfig], steps: int = 50, batch: int = 8,
     print(f"done: first loss {losses[0]:.4f} -> last {losses[-1]:.4f} "
           f"(restarts={stats.restarts})")
     return losses, TrainStats(**dataclasses.asdict(stats),
-                              step_seconds=step_seconds)
+                              step_seconds=step_seconds,
+                              capture_seconds=compiled.capture_seconds,
+                              pool_bytes=compiled.pool_bytes,
+                              updates=int(opt_state["step"]))
 
 
 def main(argv=None):

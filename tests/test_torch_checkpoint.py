@@ -152,3 +152,54 @@ def test_model_shape_mismatch_leaves_the_model_untouched(tmp_path):
         ckpt.restore(str(tmp_path), wider, {})
     for n, p in wider.named_parameters():
         assert torch.equal(p, before[n]), n
+
+
+@pytest.mark.parametrize("optimizer", ["adamw", "adafactor"])
+def test_restore_writes_the_optimizer_state_in_place(tmp_path, optimizer):
+    """Every tensor leaf of the templates comes back as the template's own
+    tensor holding the saved values (``m``, ``v``, Adafactor's ``vr`` and
+    ``vc``, ``step``), as the compiled train step's graph needs; a numpy
+    leaf comes back as a new array of its type."""
+    cfg = tiny_config(get_config("kimi-k2-1t-a32b"))
+    api = build_model(cfg, device="cpu", trainable=True)
+    params = api.init(0)
+    opt = make_optimizer(optimizer)
+    state = opt.init(dict(params.named_parameters()))
+    g = torch.Generator().manual_seed(5)
+    for leaf in _leaves(state):
+        if leaf.is_floating_point():
+            leaf.copy_(torch.rand(leaf.shape, generator=g))
+    state["step"] += 4
+    saved = [t.clone() for t in _leaves(state)]
+    ckpt.save(str(tmp_path), 4, params, {**state, "host": np.int64(7)})
+    template = opt.init(dict(params.named_parameters()))
+    objects = _leaves(template)
+    got = ckpt.restore(str(tmp_path), params,
+                       {**template, "host": np.int64(0)})[1]
+    host = got.pop("host")
+    assert isinstance(host, np.ndarray) and host.dtype == np.int64 \
+        and int(host) == 7
+    assert len(_leaves(got)) == len(objects)
+    for obj, back, want in zip(objects, _leaves(got), saved):
+        assert back is obj
+        assert back.dtype == want.dtype and torch.equal(back, want)
+    assert int(template["step"]) == 4
+
+
+def test_restore_in_place_checks_every_leaf_before_writing(tmp_path):
+    """A missing leaf or a shape mismatch anywhere raises before any
+    tensor of the templates is written."""
+    params = _tree(4)
+    opt = {"m": _zeros_like(params), "step": torch.tensor(3)}
+    ckpt.save(str(tmp_path), 3, params, opt)
+    fresh = _zeros_like(params)
+    missing = {"m": _zeros_like(params), "v": torch.zeros(2),
+               "step": torch.tensor(0)}
+    with pytest.raises(KeyError, match="missing leaf 'v'"):
+        ckpt.restore(str(tmp_path), fresh, missing)
+    wrong = {"m": {**_zeros_like(params), "head": torch.zeros((5, 16))},
+             "step": torch.tensor(0)}
+    with pytest.raises(ValueError, match="head"):
+        ckpt.restore(str(tmp_path), fresh, wrong)
+    for leaf in _leaves(fresh) + _leaves(missing) + _leaves(wrong):
+        assert not leaf.any()

@@ -44,6 +44,7 @@ import repro_torch.lower.calibrate
 import repro_torch.lower.fuse
 import repro_torch.obs.__main__
 import repro_torch.quickstart
+import repro_torch.train_tiny_lm
 import repro_torch.service.__main__
 import repro_torch.checkpoint.ckpt
 import repro_torch.data.pipeline

@@ -292,6 +292,67 @@ def test_resume_from_checkpoint(tmp_path):
     np.testing.assert_allclose(losses, full[10:], rtol=1e-5)
 
 
+def _eager_losses(arch, steps, batch, seq):
+    """The parent port's loop: ``build_train_step`` eagerly, each step on
+    its ``synth_batch``, the pieces ``train`` builds."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models.api import build_model, layer_stacks
+    from repro_torch.optim.optimizers import make_optimizer
+    cfg = ttrain.tiny_config(get_config(arch))
+    api = build_model(cfg, device="cpu", trainable=True)
+    params = api.init(0)
+    opt = make_optimizer(cfg.optimizer, lr=1e-3,
+                         stacks=layer_stacks(cfg, params))
+    state = opt.init(dict(params.named_parameters()))
+    step = build_train_step(api, opt)
+    shape = ShapeConfig(f"train_{seq}", seq, batch, "train")
+    losses = []
+    for i in range(steps):
+        b = synth_batch(cfg, shape, i, DataConfig(seed=0))
+        params, state, m = step(params, state,
+                                {k: torch.from_numpy(v) for k, v in
+                                 b.items()})
+        losses.append(float(m["loss"]))
+    return losses
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "kimi-k2-1t-a32b"])
+def test_train_through_the_compiled_step_equals_the_eager_loop(arch):
+    """``train`` steps through ``CompiledTraining``: the eager loop's
+    losses, one optimizer update a step."""
+    losses, stats = ttrain.train(arch, steps=3, batch=2, seq=16,
+                                 tiny=True, device="cpu")
+    assert losses == _eager_losses(arch, 3, 2, 16)
+    assert stats.updates == 3 and stats.restarts == 0
+    assert stats.capture_seconds == 0.0 and stats.pool_bytes == 0
+
+
+def test_recovery_restores_the_state_in_place(tmp_path):
+    """A failure after a checkpoint: the restore writes the compiled
+    step's own state, so the re-run steps give the uninterrupted run's
+    losses and the optimizer ends at one update a step."""
+    whole, _ = ttrain.train("qwen2.5-3b", steps=8, batch=2, seq=16,
+                            tiny=True, device="cpu")
+    losses, stats = ttrain.train("qwen2.5-3b", steps=8, batch=2, seq=16,
+                                 tiny=True, ckpt_dir=str(tmp_path),
+                                 ckpt_every=4, fail_at=6, device="cpu")
+    assert stats.restarts == 1 and stats.updates == 8
+    assert losses == whole[:6] + whole[4:]      # steps 4-5 run again
+
+
+def test_train_tiny_lm_on_the_cpu(capsys):
+    from repro_torch import train_tiny_lm
+    losses, stats = train_tiny_lm.main(["--steps", "20", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "(restarts=1)" in out
+    assert "recovered from 1 injected failure(s)" in out
+    assert stats.restarts == 1 and np.isfinite(losses).all()
+    assert len(losses) == 20 + 10      # no checkpoint yet: steps 0-9 again
+
+
 def test_train_cli_on_the_cpu(capsys):
     ttrain.main(["--arch", "zamba2-1.2b", "--steps", "2", "--batch", "2",
                  "--seq", "16", "--device", "cpu"])

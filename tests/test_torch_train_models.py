@@ -2,7 +2,9 @@
 the CPU at ``tiny_config``, with the JAX weights carried across by
 ``params_from_reference``: ``loss_fn`` and every gradient leaf of seven
 archs (the JAX stacked leaves cut per layer), ``remat="block"``, three
-whole train steps against the reference's jitted ``train_step``, and
+whole train steps against the reference's jitted ``train_step``, eager and
+through the compiled step (``CompiledTraining``, which on the CPU runs its
+body each step and equals the eager step bit for bit), and
 ``input_structs``."""
 import dataclasses
 
@@ -23,7 +25,8 @@ from repro.launch.train import tiny_config
 from repro.models.api import build_model as j_build_model
 from repro.optim.optimizers import make_optimizer as j_make_optimizer
 from repro_torch.configs import get_config as t_get_config
-from repro_torch.launch.steps import build_train_step, input_structs
+from repro_torch.launch.steps import (CompiledTraining, build_train_step,
+                                      input_structs)
 from repro_torch.models import api as tapi
 from repro_torch.optim.optimizers import make_optimizer
 
@@ -145,8 +148,9 @@ def test_remat_block_gives_the_same_gradients():
 # the whole slice: train steps against the reference's jitted train_step
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["zamba2-1.2b", "kimi-k2-1t-a32b"])
-def test_train_steps_match_jax(arch):
+def _train_steps_against_jax(arch, compiled):
+    """Three train steps of tiny ``arch`` against the reference's jitted
+    ``train_step``, eager or through ``CompiledTraining``."""
     cfg = tiny_config(get_config(arch))
     japi, jparams, api, params = _both(cfg, seed=1)
     jopt = j_make_optimizer(cfg.optimizer, lr=1e-3)
@@ -156,15 +160,115 @@ def test_train_steps_match_jax(arch):
     step = build_train_step(api, opt)
     state = opt.init(dict(params.named_parameters()))
     shape = ShapeConfig("t", S, B, "train")
+    ctrain = CompiledTraining(api, params, state, opt,
+                              input_structs(cfg, shape)) if compiled else None
     for i in range(3):
         batch = synth_batch(cfg, shape, i, DataConfig(seed=0))
         jparams, jstate, jm = jstep(
             jparams, jstate, {k: jnp.asarray(v) for k, v in batch.items()})
-        params, state, m = step(params, state,
-                                {k: _t(v) for k, v in batch.items()})
+        if compiled:
+            m = ctrain.step(batch)
+        else:
+            params, state, m = step(params, state,
+                                    {k: _t(v) for k, v in batch.items()})
         assert _err(m["loss"], jm["loss"]) <= 1e-4, i
         assert _err(m["grad_norm"], jm["grad_norm"]) <= 1e-4, i
     assert int(state["step"]) == 3
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "kimi-k2-1t-a32b"])
+def test_train_steps_match_jax(arch):
+    _train_steps_against_jax(arch, compiled=False)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "kimi-k2-1t-a32b"])
+def test_compiled_train_steps_match_jax(arch):
+    """The compiled step against the reference's jitted one, which donates
+    nothing here: the values are what must match."""
+    _train_steps_against_jax(arch, compiled=True)
+
+
+COMPILED_ARCHS = ["qwen2.5-3b", "zamba2-1.2b", "qwen2-moe-a2.7b",
+                  "musicgen-large", "kimi-k2-1t-a32b"]
+
+
+def _snapshot(params, state):
+    leaves = {f"param/{n}": p.detach().clone()
+              for n, p in params.named_parameters()}
+
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(v, f"{path}/{k}")
+        else:
+            leaves[f"state{path}"] = tree.clone()
+    walk(state, "")
+    return leaves
+
+
+@pytest.mark.parametrize("arch", COMPILED_ARCHS)
+def test_compiled_training_equals_the_eager_step(arch):
+    """``CompiledTraining`` over 3 steps gives the eager
+    ``build_train_step``'s losses, gradient norms, parameters and
+    optimizer state (Adafactor over the layer stacks for kimi-k2) bit for
+    bit, in place in the tensors it was given; its batch buffers are
+    allocated once."""
+    cfg = tiny_config(get_config(arch))
+    shape = ShapeConfig("t", S, B, "train")
+    runs = []
+    for compiled in (False, True):
+        api = tapi.build_model(cfg, device="cpu", dtype=torch.float32,
+                               trainable=True)
+        params = api.init(3)
+        opt = make_optimizer(cfg.optimizer, lr=1e-3,
+                             stacks=tapi.layer_stacks(cfg, params))
+        state = opt.init(dict(params.named_parameters()))
+        ptrs = {n: p.data_ptr() for n, p in params.named_parameters()}
+        step = build_train_step(api, opt)
+        if compiled:
+            ctrain = CompiledTraining(api, params, state, opt,
+                                      input_structs(cfg, shape))
+            bufs = {k: t.data_ptr() for k, t in ctrain.batch.items()}
+        metrics = []
+        for i in range(3):
+            batch = synth_batch(cfg, shape, i, DataConfig(seed=0))
+            if compiled:
+                m = ctrain.step(batch)
+            else:
+                m = step(params, state,
+                         {k: _t(v) for k, v in batch.items()})[2]
+            metrics.append({k: v.clone() for k, v in m.items()})
+        assert {n: p.data_ptr() for n, p in params.named_parameters()} \
+            == ptrs
+        if compiled:
+            assert {k: t.data_ptr() for k, t in ctrain.batch.items()} \
+                == bufs
+            assert ctrain.capture_seconds == 0.0 and ctrain.pool_bytes == 0
+        assert int(state["step"]) == 3
+        runs.append((metrics, _snapshot(params, state)))
+    (want_m, want), (got_m, got) = runs
+    for w, g in zip(want_m, got_m):
+        assert torch.equal(w["loss"], g["loss"])
+        assert torch.equal(w["grad_norm"], g["grad_norm"])
+    assert want.keys() == got.keys()
+    for k in want:
+        assert torch.equal(want[k], got[k]), k
+
+
+def test_compiled_training_refuses_another_batch_shape():
+    cfg = tiny_config(get_config("qwen2.5-3b"))
+    api = tapi.build_model(cfg, device="cpu", dtype=torch.float32,
+                           trainable=True)
+    params = api.init(0)
+    opt = make_optimizer(cfg.optimizer, lr=1e-3)
+    state = opt.init(dict(params.named_parameters()))
+    shape = ShapeConfig("t", S, B, "train")
+    ctrain = CompiledTraining(api, params, state, opt,
+                              input_structs(cfg, shape))
+    batch = synth_batch(cfg, ShapeConfig("t", 2 * S, B, "train"), 0)
+    with pytest.raises(ValueError, match="graph holds"):
+        ctrain.step(batch)
+    assert int(state["step"]) == 0
 
 
 @pytest.mark.parametrize("arch,mode", [("qwen2.5-3b", "train"),
