@@ -5,6 +5,7 @@ Runs on one NVIDIA card, from the root of a checkout:
 
     python3 chip_smoke.py               # every phase below
     python3 chip_smoke.py --check-only  # phases 1-2, untimed, then stop
+    python3 chip_smoke.py --partition-only  # the build and phase 15
 
 Phases, in order; any failure exits non-zero:
 
@@ -153,9 +154,11 @@ Phases, in order; any failure exits non-zero:
 13. the dry-run (``launch/dryrun.py``, ``[dryrun]``): (a) every cell, 10
    archs x 4 shapes x both production meshes, traced on meta with the
    H100's roofline (``H100Spec()``), 0 failures, skips only the
-   reference's (``python -m repro_torch.launch.dryrun --both-meshes`` run
-   in process), records to ``chiprun_out/dryrun_torch.json``, its output
-   to ``chiprun_out/dryrun_torch.log``; (b) ``[dryrun-check]``: the
+   reference's 16 (``python -m repro_torch.launch.dryrun --both-meshes``
+   run in process), every prefill and decode record partitioned (one
+   rank's trace under a fake group), every train record global/chips,
+   records to ``chiprun_out/dryrun_torch.json``, its output to
+   ``chiprun_out/dryrun_torch.log``; (b) ``[dryrun-check]``: the
    Zamba2-1.2B train step (phase 10's configuration) and the Qwen2.5-3B
    prefill, 8 x 512 in bf16 at full width and depth, each traced on meta
    and then run once on the card under the same counter
@@ -169,9 +172,33 @@ Phases, in order; any failure exits non-zero:
    and the model FLOPs over the step at 989 TFLOP/s, with the card's name
    and power limit; ``[train-compare]``: the Zamba2 step eager (13b's
    timed steps) beside phase 10's replays and both profiles;
+15. the partitioned serving step (``launch/partition.py``,
+   ``[partition]``), after the kernels are built once in this process:
+   ``PART_RANKS`` ranks on the one card, each a process of its own, in
+   one gloo group (NCCL refuses two ranks on one device), mesh
+   ``PART_MESH`` (data 1, model 4): (a) Qwen2-MoE-A2.7B in bf16 at full
+   width and depth, seed 0, each rank drawing the one-card model's leaves
+   and keeping its shard (15 of 60 experts, 4 of 16 heads): a prefill of
+   8 x 512 and 8 greedy decode steps, eager; per rank the prefill
+   seconds, decode tokens/s, peak memory, flash launches (every rank must
+   launch it) and the collectives of a prefill and a decode step by kind
+   with their bytes (counted under ``launch/op_cost.py``'s counter in an
+   untimed call); then, the ranks gone, the same model unpartitioned in
+   this process prefills the same prompt in bf16 and, with the same
+   weights, in f32: rank 0's gathered last-position logits must lie no
+   farther from the f32 ones than ``PART_BF16_FACTOR`` times the one-card
+   bf16 ones (phase 7 holds the flash kernel at a rank's local heads, and
+   the SSD kernel at Zamba2's, against their plain versions); (b) f32 parity at full width, Qwen2-MoE at 4 layers and
+   Zamba2-1.2B at 6 (its SSD kernel on each rank's heads), 2 x 128 and 4
+   greedy steps: rank 0 runs the same model unpartitioned on the card,
+   the logits within ``PART_TOL`` (max relative), the greedy tokens and
+   the dropped (token, slot) pairs equal; (c) a group of one rank in this
+   process, the 1 x 1 mesh: the partitioned Qwen2.5-3B bf16 prefill of
+   phase 8's shape bit for bit the unpartitioned one, launches equal.
+   Each group is destroyed also on failure;
 14. print ``{"kernels": [...]}`` (flash and SSD count phase 8's serves'
-   prefills, warm-up and replay, phase 10's and phase 13's launches), the
-   card's name and power limit, and
+   prefills, warm-up and replay, phase 10's, phase 13's and phase 15's
+   launches), the card's name and power limit, and
    last ``{"ok": true, "device": {...}}``.
 
 Every ``[kernel]`` line and ``kernels`` entry names the path that ran:
@@ -289,6 +316,28 @@ TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-4, 1e-3
 #: a resumed step's loss against the same step of an uninterrupted run
 CKPT_RUN = (6, 2, 256)
 RESUME_TOL = 1e-3
+#: the partition phase (``launch/partition.py``): ranks on the one card
+#: (``gloo``: NCCL refuses two ranks on one device) and their mesh
+#: (data, model); the full-size bf16 serve: arch, requests, prompt, decode
+#: steps, and the limit on its prefill's last-position logits: no farther
+#: from the same weights' f32 prefill than this factor times the one-card
+#: bf16 prefill (both bf16 programs round differently, and a rounding can
+#: flip a token's top-4 experts among 60 near-tied random-router logits,
+#: so the two bf16 programs differ from each other by as much as either
+#: differs from f32; a wrong kernel or collective on a rank is O(1)); the
+#: f32 parity rows (arch, depth) at full width, requests,
+#: prompt and greedy steps, and their limit (the same measure); the 1 x 1
+#: row's arch (phase 8's shape, bit for bit)
+PART_RANKS, PART_MESH = 4, (1, 4)
+PART_SERVE = ("qwen2-moe-a2.7b", 8, 512, 8)
+PART_BF16_FACTOR = 2.0
+PART_PARITY = (("qwen2-moe-a2.7b", 4), ("zamba2-1.2b", 6))
+PART_PARITY_SHAPE = (2, 128, 4)
+PART_TOL = 1e-4
+PART_ONE = "qwen2.5-3b"
+#: the dry-run's skips: long_500k of the 8 pure full-attention archs on
+#: both meshes (the reference's)
+DRYRUN_SKIPS = 16
 #: the dry-run phase (``launch/dryrun.py``): (a) every cell, 10 archs x 4
 #: shapes x both meshes, traced on meta with ``H100Spec()``; (b) two steps
 #: held against the card at full width and depth in bf16 on the one-card
@@ -925,7 +974,8 @@ def eltwise_many_case(plan, dev, timed: bool):
 # ---------------------------------------------------------------------------
 
 #: flash cases: name, B, H, KV, Sq, Sk, D, causal, window, softcap, dtype,
-#: whether one PyTorch call (SDPA) computes the same function
+#: whether one PyTorch call (SDPA) computes the same function; the "-tp4"
+#: case is one rank's local heads in phase 15's partitioned bf16 serve
 FLASH_CASES = [
     ("qwen2.5-3b", 8, 16, 2, 512, 512, 128, True, 0, 0.0, "bf16", True),
     ("zamba2-1.2b", 8, 32, 32, 512, 512, 64, True, 0, 0.0, "bf16", True),
@@ -934,14 +984,18 @@ FLASH_CASES = [
     ("non-causal-f32", 8, 16, 2, 512, 512, 128, False, 0, 0.0, "f32", True),
     ("qwen2-moe-a2.7b", 8, 16, 16, 512, 512, 128, True, 0, 0.0, "bf16",
      True),
+    ("qwen2-moe-a2.7b-tp4", 8, 4, 4, 512, 512, 128, True, 0, 0.0, "bf16",
+     True),
 ]
 #: SSD cases: name, B, S, H, P, N, chunk, dtype (the first two are the
-#: serve prefills' shapes; then Zamba2-1.2B's in float32, and a chunk of 256
-#: with head dim 128: two row tiles, two P tiles)
+#: serve prefills' shapes; then Zamba2-1.2B's in float32, a chunk of 256
+#: with head dim 128: two row tiles, two P tiles, and one rank's 16 local
+#: heads of Zamba2-1.2B in phase 15's f32 parity row)
 SSD_CASES = [("mamba2-1.3b", 8, 512, 64, 64, 128, 128, "bf16"),
              ("zamba2-1.2b", 8, 512, 64, 64, 64, 128, "bf16"),
              ("zamba2-1.2b-f32", 8, 512, 64, 64, 64, 128, "f32"),
-             ("lc256-p128", 4, 1024, 32, 128, 64, 256, "f32")]
+             ("lc256-p128", 4, 1024, 32, 128, 64, 256, "f32"),
+             ("zamba2-1.2b-tp4", 2, 128, 16, 64, 64, 128, "f32")]
 
 
 def kernel_row(name, path, out, want, ms, plain_ms, library_ms, ops, nbytes,
@@ -1733,10 +1787,24 @@ def dryrun_cells(out_dir: Path):
                              f"(chiprun_out/dryrun_torch.log)")
     records = json.loads(path.read_text())
     n_ok = sum(r["status"] == "ok" for r in records)
+    per = collections.Counter(r["per_device"] for r in records
+                              if r["status"] == "ok")
+    n_skip = sum(r["status"] == "skipped" for r in records)
+    part_modes = {r["mode"] for r in records
+                  if r.get("per_device") == "partitioned"}
     log(f"[dryrun] {len(records)} cells (every arch x shape x both meshes):"
-        f" {n_ok} traced, {len(records) - n_ok} skipped, 0 failed, in "
-        f"{seconds:.1f} s (chiprun_out/dryrun_torch.json, .log)")
-    return {"cells": len(records), "ok": n_ok, "seconds": seconds}
+        f" {n_ok} traced ({per['partitioned']} partitioned, prefill and "
+        f"decode, one rank's trace under a fake group; "
+        f"{per['global/chips']} global/chips, train), {n_skip} skipped, 0 "
+        f"failed, in {seconds:.1f} s (chiprun_out/dryrun_torch.json, .log)")
+    if n_ok + n_skip != len(records) or n_skip != DRYRUN_SKIPS \
+            or part_modes - {"prefill", "decode"} \
+            or per["partitioned"] != sum(r["status"] == "ok" and r["mode"]
+                                         != "train" for r in records):
+        raise AssertionError(f"dryrun: {per}, {n_skip} skipped")
+    return {"cells": len(records), "ok": n_ok, "seconds": seconds,
+            "partitioned": per["partitioned"],
+            "global_chips": per["global/chips"], "skipped": n_skip}
 
 
 def dryrun_check(dev, arch, mode, batch, seq, expect, smi):
@@ -1894,6 +1962,379 @@ def dryrun_check(dev, arch, mode, batch, seq, expect, smi):
     return res
 
 
+def part_prompt(cfg, B: int, S: int, seed: int):
+    """Phase 15's prompt ids [B, S] (int64, on the host) from ``seed``."""
+    import numpy as np
+    import torch
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (B, S)))
+
+
+def partition_rank(rank: int, world: int, args: dict) -> dict:
+    """Phase 15 on one rank, in a process of its own (``run_ranks``): the
+    full-size bf16 serve (prefill, then greedy decode steps, eager), then
+    the f32 parity rows, rank 0 also running each row unpartitioned.
+    ``args``: device, mesh, serve, parity, parity_shape; ``tiny`` cuts the
+    configurations to ``tiny_config`` (the CPU check of this function)."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import partition as pt
+    from repro_torch.launch.mesh import Mesh, device_mesh
+    from repro_torch.launch.op_cost import OpCounter
+    from repro_torch.launch.train import tiny_config
+    from repro_torch.models.api import build_model
+    from repro_torch.models.moe import counting_drops
+
+    dev = torch.device(args["device"])
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = Mesh(args["mesh"], ("data", "model"))
+    dm = device_mesh(mesh, dev.type)
+
+    def config(arch, depth=None):
+        cfg = get_config(arch)
+        if args.get("tiny"):
+            cfg = tiny_config(cfg)
+        return cfg if depth is None else \
+            dataclasses.replace(cfg, num_layers=depth)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def prompt(cfg, B, S, seed):
+        return part_prompt(cfg, B, S, seed).to(dev)
+
+    out = {"rank": rank}
+    # ---- the full-size serve, bf16 -------------------------------------
+    arch, B, S, steps = args["serve"]
+    cfg = config(arch)
+    max_len = S + steps + 1            # the counted step, then the timed
+    plan = pt.plan_for(cfg, ShapeConfig("serve", max_len, B, "prefill"),
+                       mesh)
+    api = build_model(cfg, device=dev, mesh=dm)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = pt.init_params(api, plan, seed=0)
+    sync()
+    init_s = time.perf_counter() - t0
+    inputs = pt.distribute(prompt(cfg, B, S, 0), plan.batch_specs["inputs"],
+                           api)
+    cache = pt.init_cache(api, plan, B, max_len)
+    prefill = pt.partitioned_prefill_step(api, max_len, plan)
+    serve = pt.partitioned_serve_step(api, plan)
+    with OpCounter(dev) as counter:       # untimed: collectives by kind
+        logits, cache = prefill(params, inputs, cache)
+    colls_prefill = counter.cost().coll_by_kind
+    ops.reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, inputs, cache)
+    sync()
+    prefill_s = time.perf_counter() - t0
+    launches_prefill = ops.launch_counts()
+    last = api.shards.full(logits)[:, -1].float().cpu()
+    if not bool(torch.isfinite(last).all()):
+        raise AssertionError(f"rank {rank}: non-finite prefill logits")
+    tok = pt.next_tokens(api, logits)
+    with OpCounter(dev) as counter:
+        tok, cache = serve(params, cache, tok, S)
+    colls_decode = counter.cost().coll_by_kind
+    ops.reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        tok, cache = serve(params, cache, tok, S + 1 + i)
+    sync()
+    decode_s = time.perf_counter() - t0
+    out["serve"] = {
+        "arch": arch, "init_s": init_s, "prefill_s": prefill_s,
+        "decode_s": decode_s, "tok_s": B * steps / decode_s,
+        "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9 if cuda
+        else 0.0,
+        "launches": launches_prefill,
+        "launches_decode": ops.launch_counts(),
+        "colls_prefill": colls_prefill, "colls_decode": colls_decode,
+        "tokens": tok.to_local().cpu().tolist(),
+        "last_logits": last if rank == 0 else None,
+        "local_params": sum(p.to_local().numel()
+                            for p in params.parameters())}
+    del params, cache, logits, inputs, tok, api, last
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # ---- f32 parity, full width, cut depth ------------------------------
+    B, S, steps = args["parity_shape"]
+    out["parity"] = []
+    for arch, depth in args["parity"]:
+        cfg = config(arch, depth)
+        plan = pt.plan_for(cfg, ShapeConfig("parity", S + steps, B,
+                                            "prefill"), mesh, torch.float32)
+        ids = prompt(cfg, B, S, 1)
+
+        def run(api, params, prefill, dist):
+            ops.reset_launch_counts()
+            logits_all, toks = [], []
+            with counting_drops() as count:
+                if dist:
+                    logits, cache = prefill(
+                        params, pt.distribute(
+                            ids, plan.batch_specs["inputs"], api))
+                    full = api.shards.full(logits)
+                    tok = pt.next_tokens(api, logits)
+                else:
+                    logits, cache = prefill(params, ids)
+                    full = logits
+                    tok = logits[:, -1].argmax(-1)[:, None]
+                logits_all.append(full.float().cpu())
+                for i in range(steps):
+                    toks.append((api.shards.full(tok) if dist else tok).cpu())
+                    logits, cache = api.decode_step(params, cache, tok,
+                                                    S + i)
+                    full = api.shards.full(logits) if dist else logits
+                    logits_all.append(full.float().cpu())
+                    tok = pt.next_tokens(api, logits) if dist else \
+                        logits[:, -1].argmax(-1)[:, None]
+                dropped = count.dropped
+            sync()
+            return logits_all, toks, dropped, ops.launch_counts()
+
+        api = build_model(cfg, device=dev, dtype=torch.float32, mesh=dm)
+        params = pt.init_params(api, plan, seed=0)
+        got = run(api, params, pt.partitioned_prefill_step(
+            api, S + steps, plan), True)
+        del params, api
+        row = {"arch": arch, "depth": depth, "launches": got[3],
+               "dropped": got[2]}
+        if rank == 0:
+            api1 = build_model(cfg, device=dev, dtype=torch.float32)
+            p1 = api1.init(0)
+            want = run(api1, p1, lambda p, x: api1.prefill(p, x, S + steps),
+                       False)
+            del p1, api1
+            row["max_rel_err"] = max(
+                float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(got[0], want[0]))
+            row["tokens_equal"] = all(torch.equal(a, b)
+                                      for a, b in zip(got[1], want[1]))
+            row["dropped_ref"] = want[2]
+            row["launches_ref"] = want[3]
+        out["parity"].append(row)
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    return out
+
+
+def partition_one(dev, smi) -> dict:
+    """Phase 15d: a group of one rank in this process, the 1 x 1 mesh:
+    the partitioned bf16 prefill of ``PART_ONE`` at phase 8's shape equal
+    bit for bit to the unpartitioned one (the same kernels in the same
+    order).  The group is destroyed also on failure."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import partition as pt
+    from repro_torch.launch.mesh import Mesh, device_mesh
+    from repro_torch.models.api import build_model
+
+    cfg = get_config(PART_ONE)
+    B, S, max_len = SERVE_REQUESTS, SERVE_PROMPT, SERVE_PROMPT + SERVE_GEN
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, S))).to(dev)
+    api1 = build_model(cfg, device=dev)
+    params = api1.init(0)
+    ops.reset_launch_counts()
+    want, want_cache = api1.prefill(params, ids, max_len)
+    launches_ref = ops.launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("gloo", init_method=f"file://{tmp}/init",
+                                rank=0, world_size=1)
+        try:
+            mesh = Mesh((1, 1), ("data", "model"))
+            api = build_model(cfg, device=dev, mesh=device_mesh(mesh,
+                                                                "cuda"))
+            plan = pt.plan_for(cfg, ShapeConfig("one", max_len, B,
+                                                "prefill"), mesh)
+            pt.distribute_params(params, plan, api)   # views, no copy
+            ops.reset_launch_counts()
+            got, cache = pt.partitioned_prefill_step(api, max_len, plan)(
+                params, pt.distribute(ids, plan.batch_specs["inputs"], api))
+            launches = ops.launch_counts()
+            torch.cuda.synchronize(dev)
+            equal = torch.equal(got.to_local(), want) and all(
+                torch.equal(cache[k].to_local(), want_cache[k])
+                for k in want_cache)
+        finally:
+            dist.destroy_process_group()
+    res = {"arch": PART_ONE, "equal": equal, "launches": launches,
+           "launches_ref": launches_ref}
+    log(f"[partition] 1x1 mesh {PART_ONE} bf16 prefill {B} x {S}: "
+        f"partitioned {'==' if equal else '!='} unpartitioned (logits and "
+        f"cache, bit for bit), launches {launches} vs {launches_ref} | {smi}")
+    if not equal or launches != launches_ref:
+        raise AssertionError(f"partition 1x1: {res}")
+    return res
+
+
+def partition_serve_ref(dev, smi, last) -> dict:
+    """Phase 15a's check: the full-size model of the ranks' bf16 serve
+    (``PART_SERVE``, seed 0) prefills the same prompt in this process,
+    unpartitioned, twice: in bf16, and in f32 with the bf16 model's
+    weights (each bf16 leaf rounded to bf16, held in f32).  Rank 0's
+    gathered last-position logits ``last`` [B, V] and the unpartitioned
+    bf16 ones each lie at some distance from the f32 ones (the norm of the
+    difference over the norm, all requests); the partitioned program's
+    must be within ``PART_BF16_FACTOR`` times the one-card program's."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+
+    arch, B, S, steps = PART_SERVE
+    cfg = get_config(arch)
+    ids = part_prompt(cfg, B, S, 0).to(dev)
+
+    def last_logits(dtype):
+        api = build_model(cfg, device=dev, dtype=dtype)
+        with torch.inference_mode():
+            params = api.init(0)
+            if dtype == torch.float32:
+                like = build_model(cfg, device="meta").init(0)
+                for p, q in zip(params.parameters(), like.parameters()):
+                    if q.dtype == torch.bfloat16:
+                        p.copy_(p.to(torch.bfloat16))
+            out = api.prefill(params, ids, S + steps + 1)[0][:, -1]
+            out = out.float().cpu()
+        del params, api
+        _free_card()
+        return out
+
+    one = last_logits(torch.bfloat16)
+    f32 = last_logits(torch.float32)
+
+    def dist(a, b, dim=None):
+        return ((a - b).norm(dim=dim) / b.norm(dim=dim)).tolist()
+    res = {"arch": arch, "part_vs_f32": dist(last, f32),
+           "one_vs_f32": dist(one, f32),
+           "part_vs_f32_by_request": dist(last, f32, -1),
+           "one_vs_f32_by_request": dist(one, f32, -1),
+           "part_vs_one_max_rel": float((last - one).abs().max()
+                                        / one.abs().max()),
+           "greedy_agree_one": int((last.argmax(-1) == one.argmax(-1)).sum()),
+           "greedy_agree_f32": [int((x.argmax(-1) == f32.argmax(-1)).sum())
+                                for x in (last, one)],
+           "factor": PART_BF16_FACTOR, "requests": B}
+    log(f"[partition] {arch} bf16 full size, prefill {B} x {S}, last "
+        f"position's logits against the model unpartitioned in f32: rank "
+        f"0's gathered {res['part_vs_f32']:.4e}, the one-card bf16 "
+        f"{res['one_vs_f32']:.4e} (|a - b| / |b| over all requests; limit "
+        f"{PART_BF16_FACTOR} x the one-card's); by request "
+        f"{[round(x, 4) for x in res['part_vs_f32_by_request']]} against "
+        f"{[round(x, 4) for x in res['one_vs_f32_by_request']]}; "
+        f"partitioned vs one-card bf16 max rel "
+        f"{res['part_vs_one_max_rel']:.3e}; greedy tokens equal to the "
+        f"one-card bf16's on {res['greedy_agree_one']} of {B}, to f32's on "
+        f"{res['greedy_agree_f32'][0]} (one-card bf16: "
+        f"{res['greedy_agree_f32'][1]}) | {smi}")
+    if last.shape != f32.shape or \
+            not res["part_vs_f32"] <= PART_BF16_FACTOR * res["one_vs_f32"]:
+        raise AssertionError(f"partition bf16 serve vs f32: {res} (shapes "
+                             f"{tuple(last.shape)}, {tuple(f32.shape)})")
+    return res
+
+
+def partition_phase(dev, smi) -> dict:
+    """Phase 15 (``[partition]``): ``PART_RANKS`` ranks on the one card
+    (``launch/partition.py`` ``run_ranks``, gloo), mesh ``PART_MESH``:
+    the full-size serve, the f32 parity rows; then the serve's logits
+    against the model unpartitioned and the 1 x 1 mesh, in this process.  The kernels are built here, once, before the ranks start
+    (the build's guard is a thread lock, not a process lock)."""
+    from repro_torch.kernels import backend
+    from repro_torch.launch.partition import run_ranks
+
+    backend.library(backend.MODEL_SOURCE)
+    _free_card()
+    t0 = time.perf_counter()
+    ranks = run_ranks(f"{Path(__file__).resolve()}:partition_rank",
+                      PART_RANKS, "gloo", {
+                          "device": "cuda:0", "mesh": PART_MESH,
+                          "serve": PART_SERVE, "parity": PART_PARITY,
+                          "parity_shape": PART_PARITY_SHAPE}, timeout=900)
+    ranks_s = time.perf_counter() - t0
+    arch, B, S, steps = PART_SERVE
+    bad = []
+    for r in ranks:
+        sv = r["serve"]
+        colls = ", ".join(f"{k} {v:.4g} B" for k, v in
+                          sorted(sv["colls_prefill"].items()))
+        dcolls = ", ".join(f"{k} {v:.4g} B" for k, v in
+                           sorted(sv["colls_decode"].items()))
+        log(f"[partition] rank {r['rank']} of {PART_RANKS} (mesh "
+            f"{PART_MESH[0]}x{PART_MESH[1]}, gloo, one card) {arch} bf16 "
+            f"full width and depth, {sv['local_params'] / 1e9:.3f} B local "
+            f"parameters: prefill {B} x {S} {sv['prefill_s']:.4f} s, "
+            f"decode {steps} steps {sv['tok_s']:.2f} tok/s, peak "
+            f"{sv['peak_gb']:.2f} GB, flash launches "
+            f"{sv['launches']['flash_attention']} (wgmma "
+            f"{sv['launches']['flash_attention_wgmma']}); prefill "
+            f"collectives: {colls}; decode step: {dcolls} | {smi}")
+        if sv["launches"]["flash_attention"] == 0:
+            bad.append(f"rank {r['rank']}: no flash launch")
+        for row in r["parity"]:
+            if row["arch"] == "zamba2-1.2b" and \
+                    row["launches"]["ssd_intra_chunk"] == 0:
+                bad.append(f"rank {r['rank']}: no SSD launch")
+            if row["launches"]["flash_attention"] == 0:
+                bad.append(f"rank {r['rank']} {row['arch']}: no flash")
+    if any(r["serve"]["tokens"] != ranks[0]["serve"]["tokens"]
+           for r in ranks):
+        bad.append("the ranks' decoded tokens differ")
+    Bp, Sp, steps_p = PART_PARITY_SHAPE
+    for row, *others in zip(ranks[0]["parity"],
+                            *(r["parity"] for r in ranks[1:])):
+        log(f"[partition] f32 parity {row['arch']} at {row['depth']} "
+            f"layers, full width, {Bp} x {Sp} + {steps_p} greedy steps: "
+            f"logits max rel err {row['max_rel_err']:.3e} (limit "
+            f"{PART_TOL}), tokens equal {row['tokens_equal']}, dropped "
+            f"pairs {row['dropped']} vs {row['dropped_ref']} "
+            f"unpartitioned; launches per rank "
+            f"{[o['launches'] for o in [row] + others]}, unpartitioned "
+            f"{row['launches_ref']} | {smi}")
+        if not (row["max_rel_err"] <= PART_TOL and row["tokens_equal"]
+                and row["dropped"] == row["dropped_ref"]):
+            bad.append(f"parity {row['arch']}: {row}")
+    if bad:
+        raise AssertionError("partition: " + "; ".join(bad))
+    serve_ref = partition_serve_ref(dev, smi, ranks[0]["serve"]["last_logits"])
+    one = partition_one(dev, smi)
+    seconds = time.perf_counter() - t0
+    log(f"[partition] phase 15 in {seconds:.1f} s ({ranks_s:.1f} s the "
+        f"{PART_RANKS} ranks, start-up included)")
+    launches = collections.Counter()
+    for r in ranks:
+        launches.update(r["serve"]["launches"])
+        launches.update(r["serve"]["launches_decode"])
+        for row in r["parity"]:
+            launches.update(row["launches"])
+    launches.update(one["launches"])
+    for r in ranks:
+        r["serve"].pop("last_logits")
+    return {"ranks": ranks, "serve_ref": serve_ref, "one": one,
+            "seconds": seconds, "launches": dict(launches)}
+
+
 def model_kernel_entry(name, rows, uses, serve_res, source, replaces):
     """The kernels-line entry of a model-zoo kernel: times summed over the
     launches of the two serve prefills, at their shapes."""
@@ -1925,6 +2366,9 @@ def main(argv=None) -> int:
                     "layer-tier kernel against its plain version once per "
                     "distinct plan (phases 1-2, untimed) and stop without "
                     "a result line")
+    ap.add_argument("--partition-only", action="store_true",
+                    help="build, run phase 15 (the partitioned serve on "
+                    "ranks of the one card) and stop without a result line")
     args = ap.parse_args(argv)
     t_main = time.perf_counter()
     if not (ROOT / "src" / "repro_torch" / "csrc"
@@ -1983,6 +2427,10 @@ def main(argv=None) -> int:
             f"{use['spill_stores']} B, spill loads {use['spill_loads']} B")
     detail["build_seconds"] = build_s
     detail["ptxas"] = ptxas
+    if args.partition_only:
+        partition_phase(dev, card_power())
+        log("[partition] stopping (--partition-only)")
+        return 0
 
     # solve + lower the three configurations --------------------------------
     configs = [("resnet", eyeriss_multinode()),
@@ -2213,6 +2661,8 @@ def main(argv=None) -> int:
     for check in detail["dryrun"]["checks"]:
         dry_launches.update(check["launches"])
     log(f"[dryrun] phase 13 in {time.perf_counter() - t_phase:.1f} s")
+    # 15. the partitioned serve on ranks of the one card -----------------
+    detail["partition"] = partition_phase(dev, smi)
     # the same step eager (phase 13b) and replayed (phase 10), one run
     eager = next(c for c in detail["dryrun"]["checks"]
                  if c["mode"] == "train")
@@ -2292,6 +2742,14 @@ def main(argv=None) -> int:
     kernels[-2]["launches_wgmma"] += \
         train_res["launches"]["flash_attention_wgmma"] \
         + dry_launches["flash_attention_wgmma"]
+    # phase 15's ranks (serve, parity) and its 1 x 1 prefill join them
+    part_launches = detail["partition"]["launches"]
+    for k in kernels[-2:]:
+        k["uses"].append("partition")
+        k["launches_partition"] = part_launches.get(k["name"], 0)
+        k["launches"] += k["launches_partition"]
+    kernels[-2]["launches_wgmma"] += \
+        part_launches.get("flash_attention_wgmma", 0)
     detail["kernels"] = kernels
     for k in kernels:
         if k["name"] in EARLIER_MS:
@@ -2314,7 +2772,7 @@ def main(argv=None) -> int:
         "ssd_intra_chunk per serve prefill of Zamba2-1.2B; each summed "
         "over its launches; their launches count phase 8's serve prefills "
         "(each serve's warm-up call and its captured replay), phase 10's "
-        "training steps and phase 13's counted steps)")
+        "training steps, phase 13's counted steps and phase 15's ranks)")
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

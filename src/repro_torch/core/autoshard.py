@@ -30,7 +30,8 @@ rule keeps the reference's meaning; what differs is the tree it reads:
   are the reference's, layer dim included.
 
 A spec is a ``P``: one entry per dim, ``None``, an axis name or a tuple of
-axis names.  ``ShardingPlan.param_shardings(mesh)`` gives, per leaf, the
+axis names.  ``ShardingPlan.param_shardings(mesh)`` (and
+``batch_shardings``, ``cache_shardings``) gives, per leaf, the
 ``torch.distributed.tensor`` placements (``Shard(d)`` or ``Replicate()``,
 one per mesh axis), the counterpart of ``NamedSharding``; no process
 group is needed.  Every caller in the port defaults to ``H100Spec()``.
@@ -92,13 +93,22 @@ class ShardingPlan:
     def opt_shardings(self, mesh) -> Tree:
         return map_specs(lambda s: placements(s, mesh), self.opt_specs)
 
+    def batch_shardings(self, mesh) -> Tree:
+        return map_specs(lambda s: placements(s, mesh), self.batch_specs)
+
+    def cache_shardings(self, mesh) -> Tree:
+        return map_specs(lambda s: placements(s, mesh), self.cache_specs)
+
 
 def placements(spec: P, mesh) -> Tuple:
-    """``spec`` as ``torch.distributed.tensor`` placements, one per mesh
-    axis: ``Shard(d)`` for the dim the axis shards, else ``Replicate()``."""
+    """``spec`` as ``torch.distributed.tensor`` placements, one per axis of
+    ``mesh`` (a ``Mesh`` or a ``DeviceMesh``): ``Shard(d)`` for the dim
+    the axis shards, else ``Replicate()``."""
     from torch.distributed.tensor import Replicate, Shard
+    names = mesh.axis_names if hasattr(mesh, "axis_names") \
+        else mesh.mesh_dim_names
     out = []
-    for axis in mesh.axis_names:
+    for axis in names:
         dim = next((d for d, e in enumerate(spec) if e == axis or
                     (isinstance(e, tuple) and axis in e)), None)
         out.append(Replicate() if dim is None else Shard(dim))

@@ -155,6 +155,35 @@ def quantize_kv(x: torch.Tensor):
     return q, s
 
 
+def _decode_scores(q, k_cache, cache_len, pos0, window, logit_softcap,
+                   scale, k_scale):
+    """The f32 scores [B, KV, qpk, Sw] of one decode query against cache
+    positions ``pos0 ..`` (dequantised, soft-capped), and the mask of the
+    visible ones: before ``cache_len`` and, with a window, not before
+    ``cache_len - window``; a hidden score is -1e30."""
+    ref.full_fp32(q)
+    B, H, _, D = q.shape
+    KV, Sw = k_cache.shape[1], k_cache.shape[2]
+    scale = scale if scale is not None else D ** -0.5
+    qg = (q.float() * scale).reshape(B, KV, H // KV, D)
+    kf = k_cache.float()
+    if k_scale is not None:
+        kf = kf * k_scale.float()
+    s = torch.matmul(qg, kf.transpose(-1, -2))            # [B, KV, qpk, Sw]
+    if logit_softcap > 0:
+        s = torch.tanh(s / logit_softcap) * logit_softcap
+    kpos = torch.arange(pos0, pos0 + Sw, device=q.device)
+    mask = kpos < cache_len
+    if window > 0:
+        mask = mask & (kpos >= cache_len - window)
+    return torch.where(mask, s, NEG_INF), mask
+
+
+def _dequant(v_cache, v_scale):
+    vf = v_cache.float()
+    return vf * v_scale.float() if v_scale is not None else vf
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cache_len: torch.Tensor,
                      window: int = 0, logit_softcap: float = 0.0,
@@ -171,29 +200,34 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     ``cache_len`` (and, with a window, those before ``cache_len -
     window``), so the length stays on the device and the step can be
     captured; a masked position's softmax weight is exactly 0."""
-    ref.full_fp32(q)
-    B, H, _, D = q.shape
-    KV, Smax = k_cache.shape[1], k_cache.shape[2]
-    qpk = H // KV
-    scale = scale if scale is not None else D ** -0.5
-    qg = (q.float() * scale).reshape(B, KV, qpk, D)
-    kf = k_cache.float()
-    if k_scale is not None:
-        kf = kf * k_scale.float()
-    s = torch.matmul(qg, kf.transpose(-1, -2))            # [B, KV, qpk, Smax]
-    if logit_softcap > 0:
-        s = torch.tanh(s / logit_softcap) * logit_softcap
-    kpos = torch.arange(Smax, device=q.device)
-    mask = kpos < cache_len
-    if window > 0:
-        mask = mask & (kpos >= cache_len - window)
-    s = torch.where(mask, s, NEG_INF)
+    s, _ = _decode_scores(q, k_cache, cache_len, 0, window, logit_softcap,
+                          scale, k_scale)
     p = torch.softmax(s, dim=-1)
-    vf = v_cache.float()
-    if v_scale is not None:
-        vf = vf * v_scale.float()
-    o = torch.matmul(p, vf)
-    return o.reshape(B, H, 1, D).to(q.dtype)
+    o = torch.matmul(p, _dequant(v_cache, v_scale))
+    return o.reshape(q.shape).to(q.dtype)
+
+
+def decode_partial(q: torch.Tensor, k_cache: torch.Tensor,
+                   v_cache: torch.Tensor, cache_len: torch.Tensor, pos0: int,
+                   window: int = 0, logit_softcap: float = 0.0,
+                   scale: Optional[float] = None,
+                   k_scale: Optional[torch.Tensor] = None,
+                   v_scale: Optional[torch.Tensor] = None):
+    """``decode_attention`` over one window of a cache whose positions are
+    sharded: the window holds positions ``pos0 ..``.  Returns the
+    unnormalised f32 output [B, H, 1, D], the scores' max m and the
+    softmax denominator l [B, H, 1, 1] of this window, which the ranks
+    combine (max of m, then the sums of o and l scaled by exp(m - max)).
+    A window with no visible position gives m = -1e30, whose weight after
+    the combine is exactly 0."""
+    s, mask = _decode_scores(q, k_cache, cache_len, pos0, window,
+                             logit_softcap, scale, k_scale)
+    B, H, _, D = q.shape
+    m = s.amax(-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - m), 0.0)
+    o = torch.matmul(p, _dequant(v_cache, v_scale))
+    return (o.reshape(B, H, 1, D), m.reshape(B, H, 1, 1),
+            p.sum(-1, keepdim=True).reshape(B, H, 1, 1))
 
 
 # ---------------------------------------------------------------------------
@@ -265,6 +299,6 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
 ssd_decode = ref.ssd_decode_ref
 
 
-__all__ = ["attention", "decode_attention", "flash_attention_bwd",
-           "flash_attention_vjp", "launch_counts", "quantize_kv",
-           "reset_launch_counts", "ssd", "ssd_decode"]
+__all__ = ["attention", "decode_attention", "decode_partial",
+           "flash_attention_bwd", "flash_attention_vjp", "launch_counts",
+           "quantize_kv", "reset_launch_counts", "ssd", "ssd_decode"]

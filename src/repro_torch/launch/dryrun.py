@@ -6,24 +6,33 @@ edits (``remat="block"`` for training, the int8 KV cache with
 ``--kv-int8``), the ``shape_applicable`` skip with the reference's reason,
 meta parameters, optimizer state and cache, ``launch/steps.py``
 ``input_structs``, ``plan_sharding`` (``core/autoshard.py``), and the step
-traced once on ``meta`` under ``launch/op_cost.py``'s counter, which gives
-its global FLOPs, bytes and peak bytes.  One trace per (arch, shape)
-serves both meshes.  A decode step is traced with ``input_structs``'
-meta ``cache_len``, as the reference's is compiled with an abstract one:
-it attends over all ``seq_len`` positions of the static cache and masks
-those at or past the length on the device, as the reference's program
-does.
+traced on ``meta`` under ``launch/op_cost.py``'s counter.  A decode step
+is traced with ``input_structs``' meta ``cache_len``, as the reference's
+is compiled with an abstract one: it attends over all ``seq_len``
+positions of the static cache and masks those at or past the length on
+the device, as the reference's program does.
 
-The per-device numbers are the global counts divided by the chips: a
-perfect partition, since the port has no SPMD partitioner (every record
-says so, ``"per_device": "global/chips"``).  The collective bytes are the
-plan's own collective model (``autoshard.collective_bytes``): the
-tensor-parallel all-reduces of the activations, ZeRO's reduce-scatter and
-all-gather, FSDP's all-gather.  The memory record's arguments are the
-plan's per-chip parameters, optimizer state and cache; its outputs the
-step's results over the chips; its temporaries, as XLA's
-``temp_size_in_bytes``, what the trace's peak holds beyond the arguments
-and the new results, over the chips.  The roofline reads ``pod``, the
+Prefill and decode cells are traced partitioned (``"per_device":
+"partitioned"``), as the reference compiles them with the plan's
+``in_shardings``: one rank of the mesh, under ``launch/mesh.py``
+``fake_group`` of the mesh's size, runs ``launch/partition.py``'s step
+on its meta shards (``init_params``, ``init_cache``, the inputs at the
+plan's batch placements).  The record's per-device FLOPs, bytes, peak,
+arguments and collective bytes by kind are that rank's trace's: its
+local ops, its FSDP gathers and its collectives as issued, not a formula.
+One trace per (arch, shape, mesh), since the local batch differs between
+the meshes.  A cell whose partitioned trace fails is a failed cell; it is
+never divided by the chips instead.
+
+Train cells are still traced once on one device, shared by both meshes,
+and divided by the chips (``"per_device": "global/chips"``: the
+partitioned train step, with its backward and ZeRO/FSDP state as
+placements, is not ported yet).  Their collective bytes are the plan's
+collective model (``autoshard.collective_bytes``); their memory record's
+arguments are the plan's per-chip parameters, optimizer state and cache,
+its outputs the step's results over the chips, its temporaries what the
+trace's peak holds beyond the arguments and the new results, over the
+chips.  The roofline reads ``pod``, the
 H100 unless the caller passes another spec.  The records keep the reference's keys
 (``xla_cost_analysis`` has no counterpart), so
 ``benchmarks/roofline_table.py`` reads them unchanged.
@@ -53,7 +62,8 @@ from ..core.autoshard import plan_sharding
 from ..hw.gpu import H100Spec
 from ..models.api import build_model, layer_stacks
 from ..optim.optimizers import make_optimizer
-from .mesh import make_production_mesh
+from . import partition
+from .mesh import device_mesh, fake_group, make_production_mesh
 from .op_cost import CompCost, OpCounter, leaf_tensors, storage_bytes
 from .roofline import HEADER, analyze, model_flops_for
 from .steps import (build_prefill_step, build_serve_step, build_train_step,
@@ -111,6 +121,60 @@ def trace_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None) -> Trace:
                  planned, time.perf_counter() - t0, params, opt_state, cache)
 
 
+@dataclasses.dataclass
+class PartTrace:
+    """One rank's partitioned step of one (arch, shape, mesh): its plan,
+    its counts, and its local bytes of parameters and cache, of the
+    step's results (and of those not among its arguments)."""
+    plan: Any
+    cost: CompCost
+    argument_bytes: int
+    output_bytes: int
+    new_output_bytes: int
+    seconds: float
+
+
+def trace_partitioned(cfg: ModelConfig, shape: ShapeConfig, mesh,
+                      pod=H100Spec(),
+                      dtype: torch.dtype = torch.bfloat16) -> PartTrace:
+    """Plan ``shape`` on ``mesh`` (shape-only), then trace rank 0's
+    prefill or decode step on its meta shards under a fake group of the
+    mesh's size."""
+    t0 = time.perf_counter()
+    api = build_model(cfg, device="meta", mesh=mesh, dtype=dtype)
+    cache = api.init_cache(shape.global_batch, shape.seq_len)
+    plan = plan_sharding(cfg, shape, mesh, api.init(0), {},
+                         cache_shapes=cache, pod=pod)
+    del api, cache
+    batch = input_structs(cfg, shape)
+    with fake_group(mesh.size):
+        papi = build_model(cfg, device="meta", dtype=dtype,
+                           mesh=device_mesh(mesh, "cpu"))
+        params = partition.init_params(papi, plan)
+        if shape.mode == "prefill":
+            step = partition.partitioned_prefill_step(papi, shape.seq_len,
+                                                      plan)
+            args = (params, partition.distribute(
+                batch["inputs"], plan.batch_specs["inputs"], papi))
+        else:
+            cache = partition.init_cache(papi, plan, shape.global_batch,
+                                         shape.seq_len)
+            step = partition.partitioned_serve_step(papi, plan)
+            args = (params, cache, partition.distribute(
+                batch["tokens"], partition.token_spec(plan), papi),
+                batch["cache_len"])
+        with OpCounter("meta") as counter:
+            counter.hold(args)
+            out = step(*args)
+        held = {t.untyped_storage()._cdata for t in leaf_tensors(args)}
+        new = [t for t in leaf_tensors(out)
+               if t.untyped_storage()._cdata not in held]
+        cache_out = out[1]
+        arg_b = storage_bytes(params) + storage_bytes(cache_out)
+        return PartTrace(plan, counter.cost(), arg_b, storage_bytes(out),
+                         storage_bytes(new), time.perf_counter() - t0)
+
+
 def trace_hbm_bytes(tr: Trace, plan, chips: int) -> float:
     """A chip's bytes at the trace's peak: the plan's per-chip arguments
     (parameters, optimizer state, cache) and the rest of the peak (new
@@ -133,8 +197,9 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool = False,
                pod=H100Spec(), traces: Optional[Dict] = None
                ) -> Dict[str, Any]:
     """Trace + plan one (arch x shape x mesh) cell; return its record.
-    ``traces`` (a dict the caller keeps) holds each (arch, shape)'s trace
-    for the other mesh."""
+    ``traces`` (a dict the caller keeps) holds the traces made: a train
+    cell's (arch, shape) trace serves the other mesh too, a partitioned
+    one is the mesh's own."""
     cfg = get_config(arch)
     if kv_int8:
         cfg = dataclasses.replace(cfg, kv_cache_dtype="int8")
@@ -151,34 +216,51 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool = False,
     mesh = make_production_mesh(multi_pod=multi_pod)
     mesh_name = "x".join(str(s) for s in mesh.devices.shape)
     chips = mesh.size
-    key = (arch, shape_name, kv_int8, mesh.shape.get("model", 1))
     traces = {} if traces is None else traces
-    if key not in traces:
-        traces[key] = trace_step(cfg, shape, mesh)
-    tr = traces[key]
-    plan = plan_sharding(cfg, shape, mesh, tr.params, tr.opt_state,
-                         cache_shapes=tr.cache, pod=pod)
-
-    args_b = argument_bytes(plan)
-    temp = max(0, tr.cost.peak_bytes - tr.cost.held_bytes
-               - tr.new_output_bytes)
-    trace_b = trace_hbm_bytes(tr, plan, chips)
-    mem = types.SimpleNamespace(argument_size_in_bytes=args_b,
-                                output_size_in_bytes=tr.output_bytes / chips,
-                                temp_size_in_bytes=temp / chips)
-    coll = dict(plan.coll_by_kind)
-    cc = dataclasses.replace(tr.cost, coll_bytes=sum(coll.values()),
-                             coll_by_kind=coll)
-    rep = analyze(arch, shape_name, mesh_name, chips,
-                  {"flops": cc.flops / chips,
-                   "bytes accessed": cc.bytes / chips}, "",
+    if shape.mode != "train":
+        # one rank of the partitioned step: its own counts, per device
+        key = (arch, shape_name, kv_int8, mesh_name)
+        if key not in traces:
+            traces[key] = trace_partitioned(cfg, shape, mesh, pod=pod)
+        pt = traces[key]
+        plan, cost, per_device = pt.plan, pt.cost, "partitioned"
+        new_out = pt.new_output_bytes
+        temp = max(0, cost.peak_bytes - cost.held_bytes - new_out)
+        trace_b = cost.peak_bytes
+        mem = types.SimpleNamespace(argument_size_in_bytes=pt.argument_bytes,
+                                    output_size_in_bytes=pt.output_bytes,
+                                    temp_size_in_bytes=temp)
+        per_dev = {"flops": cost.flops, "bytes accessed": cost.bytes}
+        coll = dict(cost.coll_by_kind)
+        seconds = pt.seconds
+    else:
+        # one trace on one device serves both meshes, divided by the chips
+        key = (arch, shape_name, kv_int8, mesh.shape.get("model", 1))
+        if key not in traces:
+            traces[key] = trace_step(cfg, shape, mesh)
+        tr = traces[key]
+        plan = plan_sharding(cfg, shape, mesh, tr.params, tr.opt_state,
+                             cache_shapes=tr.cache, pod=pod)
+        cost, per_device, new_out = tr.cost, "global/chips", \
+            tr.new_output_bytes
+        temp = max(0, cost.peak_bytes - cost.held_bytes - new_out)
+        trace_b = trace_hbm_bytes(tr, plan, chips)
+        mem = types.SimpleNamespace(
+            argument_size_in_bytes=argument_bytes(plan),
+            output_size_in_bytes=tr.output_bytes / chips,
+            temp_size_in_bytes=temp / chips)
+        per_dev = {"flops": cost.flops / chips,
+                   "bytes accessed": cost.bytes / chips}
+        coll = dict(plan.coll_by_kind)
+        seconds = tr.seconds
+    rep = analyze(arch, shape_name, mesh_name, chips, per_dev, "",
                   model_flops_for(cfg, shape), pod=pod, mem_stats=mem,
-                  coll=(cc.coll_bytes, cc.coll_by_kind))
+                  coll=(sum(coll.values()), coll))
     record: Dict[str, Any] = {
         "arch": arch, "shape": shape_name, "mesh": mesh_name,
         "mode": shape.mode, "status": "ok",
-        "compile_seconds": round(tr.seconds, 3),
-        "per_device": "global/chips",
+        "compile_seconds": round(seconds, 3),
+        "per_device": per_device,
         "plan": {"zero": plan.zero_opt, "attn_sharded": plan.attn_sharded,
                  "fsdp": plan.fsdp, "valid": plan.valid,
                  "hbm_gb": round(plan.hbm_gb_per_chip, 2),
@@ -188,13 +270,13 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool = False,
         "memory": {"argument_bytes": mem.argument_size_in_bytes,
                    "output_bytes": mem.output_size_in_bytes,
                    "temp_bytes": mem.temp_size_in_bytes},
-        "trace": {"flops": tr.cost.flops, "bytes": tr.cost.bytes,
-                  "peak_bytes": tr.cost.peak_bytes,
-                  "held_bytes": tr.cost.held_bytes,
-                  "new_output_bytes": tr.new_output_bytes,
-                  "free_copy_bytes": tr.cost.free_copy_bytes,
-                  "ops": tr.cost.ops,
-                  "kernel_units": tr.cost.kernel_units},
+        "trace": {"flops": cost.flops, "bytes": cost.bytes,
+                  "peak_bytes": cost.peak_bytes,
+                  "held_bytes": cost.held_bytes,
+                  "new_output_bytes": new_out,
+                  "free_copy_bytes": cost.free_copy_bytes,
+                  "ops": cost.ops,
+                  "kernel_units": cost.kernel_units},
         "roofline": {
             "flops_per_device": rep.flops_per_device,
             "bytes_per_device": rep.bytes_per_device,

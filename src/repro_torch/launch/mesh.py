@@ -1,4 +1,4 @@
-"""Production mesh shapes, without devices or a process group.
+"""Production mesh shapes, and device meshes over a process group.
 
 The port of ``repro/launch/mesh.py``.  A ``Mesh`` here is the shape the
 sharding planner and the dry-run read: ``.shape`` (axis -> size, as
@@ -8,11 +8,21 @@ where the mesh is shape-only.  The production meshes keep the reference's
 TPU-pod shapes, 16 x 16 as (data, model) and 2 x 16 x 16 as (pod, data,
 model), since the dry-run's cells are defined by them; on DGX H100 nodes
 of 8 GPUs a model axis of 16 spans two NVLink domains.
+
+``device_mesh`` gives the ``torch.distributed`` ``DeviceMesh`` of a
+``Mesh``'s shape and axis names over the current process group: the mesh
+a partitioned program runs on (``launch/partition.py``).  ``fake_group``
+opens a process group of any size whose collectives move nothing
+(PyTorch's ``fake`` backend): the dry-run traces one rank of a 256- or
+512-chip mesh under it on ``meta``.  ``make_local_mesh``, the reference's
+1 x 1 mesh, keeps its meaning.
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Dict, Optional, Sequence, Tuple
+import sys
+from typing import Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -59,4 +69,41 @@ def make_local_mesh(axes: Sequence[str] = ("data", "model"),
     return Mesh((1,) * len(axes), axes, [resolve_device(device)])
 
 
-__all__ = ["Mesh", "make_local_mesh", "make_production_mesh"]
+def device_mesh(mesh: Mesh, device_type: str = "cuda"):
+    """The ``DeviceMesh`` of ``mesh``'s shape and axis names over the
+    current process group, whose size must be the mesh's."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    shape = tuple(mesh.shape[a] for a in mesh.axis_names)
+    if not dist.is_initialized() or dist.get_world_size() != mesh.size:
+        raise RuntimeError(
+            f"a {'x'.join(map(str, shape))} mesh needs a process group of "
+            f"{mesh.size} ranks; have "
+            f"{dist.get_world_size() if dist.is_initialized() else 'none'}")
+    return init_device_mesh(device_type, shape,
+                            mesh_dim_names=mesh.axis_names)
+
+
+@contextlib.contextmanager
+def fake_group(world_size: int, rank: int = 0) -> Iterator[None]:
+    """A process group of ``world_size`` ranks on PyTorch's ``fake``
+    backend, this process rank ``rank``: collectives return at once and
+    move nothing, so one rank's program can be traced (on ``meta``) as
+    it would run in the group.  The group is destroyed on exit, also on
+    failure, so none outlives the block."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already open")
+    hook = sys.excepthook      # init wraps it in a "[rank0]: " prefixer
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world_size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+        sys.excepthook = hook
+
+
+__all__ = ["Mesh", "device_mesh", "fake_group", "make_local_mesh",
+           "make_production_mesh"]

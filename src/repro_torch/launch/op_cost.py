@@ -36,10 +36,18 @@ and ``ssd_ops``/``ssd_bytes``.  Their wrappers mark each call
 the same on ``meta``, on the CPU and on the card.
 
 There are no trip counts to find: an eager Python loop dispatches every
-iteration (the counterpart of ``HloCostModel.trip_count``).  A
-single-process step issues no collective; ``CompCost`` keeps
-``coll_bytes`` and ``coll_by_kind`` for the dry-run to fill in from the
-sharding plan.  ``peak_bytes`` is the high-water mark of the bytes held by
+iteration (the counterpart of ``HloCostModel.trip_count``).  One rank of a
+partitioned step (``launch/partition.py``) is counted as it runs: its
+local ops on its local shards, and each collective it issues
+(``_c10d_functional`` ``all_reduce``, ``all_gather_into_tensor``,
+``reduce_scatter_tensor``, ``all_to_all_single``) under the reference's
+kind (``all-reduce``, ``all-gather``, ``reduce-scatter``, ``all-to-all``)
+with the bytes of its result, which also count as bytes moved, as
+``hlo_cost.py:307-317`` counts them; ``wait_tensor`` is free.  ``colls``
+keeps each collective's kind, result shape and type.  An op on a DTensor
+is left to the DTensor (the counter sees the local ops it runs), and the
+shape inference DTensor runs on fake tensors is not work: neither is
+counted.  ``peak_bytes`` is the high-water mark of the bytes held by
 the step's inputs and by every storage created under the counter, frees
 included: the counterpart of ``compiled.memory_analysis()``.
 ``held_bytes`` is the inputs' part of it, so ``peak_bytes - held_bytes``
@@ -77,6 +85,9 @@ class CompCost:
     by_op: Dict[str, List[int]] = dataclasses.field(default_factory=dict)
     #: bytes of the copying reshapes counted free
     free_copy_bytes: int = 0
+    #: every collective issued: (kind, result shape, result type)
+    colls: List[Tuple[str, Tuple[int, ...], str]] = dataclasses.field(
+        default_factory=list)
 
 
 # ---------------------------------------------------------------------------
@@ -173,6 +184,24 @@ new_ones new_full scalar_tensor arange linspace normal_ uniform_
 """.split())
 
 
+#: the functional collectives by the reference's kind
+COLLECTIVES = {"all_reduce": "all-reduce",
+               "all_gather_into_tensor": "all-gather",
+               "reduce_scatter_tensor": "reduce-scatter",
+               "all_to_all_single": "all-to-all"}
+
+
+def _plain(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard; any other tensor itself."""
+    local = getattr(t, "_local_tensor", None)
+    return local if local is not None else t
+
+
+def _is_fake(t: torch.Tensor) -> bool:
+    from torch._subclasses.fake_tensor import FakeTensor
+    return isinstance(t, FakeTensor)
+
+
 def _tensors(x) -> List[torch.Tensor]:
     if isinstance(x, torch.Tensor):
         return [x]
@@ -246,6 +275,9 @@ class OpCounter(TorchDispatchMode):
         self.kernel_units: Dict[str, int] = {}
         self.by_op: Dict[str, List[int]] = {}
         self.free_copy_bytes = 0
+        self.coll_bytes = 0
+        self.coll_by_kind: Dict[str, int] = {}
+        self.colls: List[Tuple[str, Tuple[int, ...], str]] = []
         self._paused = 0
         #: the last counted op: name, its output's storage, flops, bytes
         self._last: Tuple[str, int, int, int] = ("", 0, 0, 0)
@@ -287,10 +319,30 @@ class OpCounter(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
-        out = func(*args, **kwargs)
         ins = _tensors(args) + _tensors(kwargs)
+        if any(getattr(t, "_local_tensor", None) is not None for t in ins):
+            return NotImplemented         # the DTensor runs its local ops
+        out = func(*args, **kwargs)
         outs = _tensors(out)
+        if any(_is_fake(t) for t in ins + outs):
+            return out                    # shape inference, not work
         in_keys = {t.untyped_storage()._cdata for t in ins}
+        if func.namespace == "_c10d_functional":
+            # a collective counts on any device: a gloo group's run on
+            # the host (``models/shards.py``)
+            kind = COLLECTIVES.get(func.overloadpacket.__name__)
+            if kind is not None and not self._paused:
+                b = sum(_nbytes(t) for t in outs)
+                self.coll_bytes += b
+                self.coll_by_kind[kind] = self.coll_by_kind.get(kind, 0) + b
+                self.colls.append((kind, tuple(outs[0].shape),
+                                   str(outs[0].dtype).replace("torch.", "")))
+                self._add(kind, 0, b)
+                self.ops += 1
+            for t in outs:
+                if t.untyped_storage()._cdata not in in_keys:
+                    self._hold_storage(t)
+            return out
         if not self._paused and self._on_device(ins + outs):
             f, b = op_cost(func, args, kwargs, out)
             name = by = func.overloadpacket.__name__
@@ -338,6 +390,9 @@ class OpCounter(TorchDispatchMode):
 
     def cost(self) -> CompCost:
         return CompCost(flops=self.flops, bytes=self.bytes,
+                        coll_bytes=self.coll_bytes,
+                        coll_by_kind=dict(self.coll_by_kind),
+                        colls=list(self.colls),
                         peak_bytes=self.peak_bytes,
                         kernel_units=dict(self.kernel_units), ops=self.ops,
                         held_bytes=self.held_bytes,
@@ -347,14 +402,15 @@ class OpCounter(TorchDispatchMode):
 
 def leaf_tensors(tree) -> List[torch.Tensor]:
     """The tensors of a tree of arguments or results: modules' parameters
-    and buffers, dicts, lists and tuples."""
+    and buffers, dicts, lists and tuples; a DTensor's local shard."""
     if isinstance(tree, torch.nn.Module):
-        return list(tree.parameters()) + list(tree.buffers())
+        return [_plain(t) for t in list(tree.parameters())
+                + list(tree.buffers())]
     if isinstance(tree, (list, tuple)):
         return [t for v in tree for t in leaf_tensors(v)]
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in leaf_tensors(v)]
-    return [tree] if isinstance(tree, torch.Tensor) else []
+    return [_plain(tree)] if isinstance(tree, torch.Tensor) else []
 
 
 def storage_bytes(tree) -> int:
@@ -375,6 +431,7 @@ def analyze_step(fn: Callable, *args: Any, **kwargs: Any) -> CompCost:
     return counter.cost()
 
 
-__all__ = ["CompCost", "KERNEL_UNITS", "OpCounter", "analyze_step",
-           "attention_pairs", "flash_bytes", "flash_ops", "leaf_tensors",
-           "op_cost", "ssd_bytes", "ssd_ops", "storage_bytes"]
+__all__ = ["COLLECTIVES", "CompCost", "KERNEL_UNITS", "OpCounter",
+           "analyze_step", "attention_pairs", "flash_bytes", "flash_ops",
+           "leaf_tensors", "op_cost", "ssd_bytes", "ssd_ops",
+           "storage_bytes"]

@@ -48,8 +48,9 @@ from .attention import attn_decode, attn_forward, init_attn
 from .common import chunked_cross_entropy, dense_init, generator, rms_norm
 from . import moe, ssm
 from .moe import init_moe, moe_ffn, shared_expert_ffn
+from .shards import Shards
 from .ssm import (STATE_KEYS, init_mamba, mamba_decode, mamba_forward,
-                  mamba_init_state)
+                  mamba_state_shapes)
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid")
 #: leaves kept in float32 whatever the model's type
@@ -148,14 +149,30 @@ def _init_moe_block(g: torch.Generator, cfg: ModelConfig, dtype,
             "moe": init_moe(g, cfg, model_axis_size, dtype)}
 
 
-def _ffn(cfg: ModelConfig, bp: Block, x: torch.Tensor) -> torch.Tensor:
+def _ffn(cfg: ModelConfig, bp: Block, x: torch.Tensor,
+         sh: Optional[Shards] = None, seq: bool = False) -> torch.Tensor:
     """A block's FFN: the gated MLP, or the routed experts plus the
-    shared ones."""
+    shared ones.  With ``sh`` each is finished over ``model``: the routed
+    experts by ``moe_ffn``'s own all-reduce, the column/row-sharded MLPs
+    by ``Shards.finish`` (``seq``: this rank's chunk of the sequence)."""
     if "mlp" in bp:
-        return _gated_mlp(bp["mlp"], x)
-    out = moe_ffn(bp["moe"], x, cfg)
-    if "shared" in bp["moe"]:
-        out = out + shared_expert_ffn(bp["moe"], x)
+        out = _gated_mlp(bp["mlp"], x)
+        if sh is not None:
+            out = sh.finish(out, bp["mlp"]["wi"].shape[-1] < cfg.d_ff, seq)
+        return out
+    mp = bp["moe"]
+    sharded = sh is not None and mp["wi"].shape[0] < mp["router"].shape[-1]
+    out = moe_ffn(mp, x, cfg, model_axis=sh.mesh["model"] if sharded
+                  else None)
+    if seq:
+        out = sh.seq_chunk(out)
+    if "shared" in mp:
+        shared = shared_expert_ffn(mp, x)
+        if sh is not None:
+            full = cfg.moe_d_ff * cfg.num_shared_experts
+            shared = sh.finish(shared, mp["shared"]["wi"].shape[-1] < full,
+                               seq)
+        out = out + shared
     return out
 
 
@@ -249,6 +266,22 @@ class ModelAPI:
     decode_step: Callable
     loss_fn: Callable
     train_params: Callable = train_params
+    device: Optional[torch.device] = None
+    dtype: Optional[torch.dtype] = None
+    #: one rank's place in the mesh of a partitioned API (None: one device)
+    shards: Optional[Shards] = None
+    #: ``cache_shapes(batch, max_len)``: (shape, dtype) of every cache leaf
+    cache_shapes: Optional[Callable] = None
+
+
+def _placed(tree: Mapping[str, Any], prefix: str,
+            place: Optional[Callable]) -> Mapping[str, Any]:
+    """``tree`` with ``place(name, leaf)`` for every leaf (its name as
+    ``named_parameters`` gives it); ``place`` None: ``tree``."""
+    if place is None:
+        return tree
+    return {k: _placed(v, f"{prefix}{k}.", place) if isinstance(v, Mapping)
+            else place(prefix + k, v) for k, v in tree.items()}
 
 
 def build_model(cfg: ModelConfig, device=None,
@@ -257,12 +290,27 @@ def build_model(cfg: ModelConfig, device=None,
     """The model's API on ``device`` (the card unless the caller passes
     ``"cpu"``, or ``"meta"`` for shapes only) in ``dtype``; ``init`` gives
     trainable leaves with ``trainable``, frozen ones (serving) without.
-    With a ``mesh`` (``launch/mesh.py``) the routed experts are padded to a
-    multiple of its ``model`` axis, as the reference pads them for its
-    ``shard_map``; every expert still runs on one device."""
+
+    ``mesh`` is either the shape-only ``launch/mesh.py`` ``Mesh``, which
+    only pads the routed experts to a multiple of its ``model`` axis (as
+    the reference pads them for its ``shard_map``; every expert still runs
+    on one device), or a ``DeviceMesh`` of the current process group: then
+    the API is one rank's partitioned program (``models/shards.py``).
+    ``init(seed, place)`` draws every leaf as on one device and hands it to
+    ``place`` (``launch/partition.py`` keeps the rank's shard), and
+    ``forward``, ``prefill`` and ``decode_step`` take parameters, inputs
+    and cache as DTensors at the plan's placements and return DTensors:
+    the logits sharded as the batch and (over ``model``) the vocabulary,
+    the cache in place.  ``prefill`` then needs the partitioned cache."""
     _check_family(cfg)
     dev = backend.resolve_device(device)
-    model_axis_size = mesh.shape.get("model", 1) if mesh is not None else 1
+    sh = Shards(mesh) if mesh is not None and not hasattr(mesh, "devices") \
+        else None
+    if sh is not None:
+        model_axis_size = sh.tp
+    else:
+        model_axis_size = mesh.shape.get("model", 1) if mesh is not None \
+            else 1
     V = cfg.padded_vocab
     d = cfg.d_model
     L = cfg.num_layers
@@ -274,26 +322,37 @@ def build_model(cfg: ModelConfig, device=None,
         return cfg.local_window if paired and i % 2 == 0 else 0
 
     # ---- init ---------------------------------------------------------------
-    def init(seed: int = 0) -> Model:
+    def init(seed: int = 0, place: Optional[Callable] = None) -> Model:
+        """The parameters drawn from ``seed``; ``place(name, leaf)``, where
+        given, replaces each leaf as soon as its block is drawn, so only
+        one block's full leaves are ever live."""
         g = generator(dev, seed)
-        embed = dense_init(g, (V, d), d, dtype)
-        lm_head = dense_init(g, (d, V), d, dtype)
+
+        def leaf(name, t):
+            return place(name, t) if place is not None else t
+
+        embed = leaf("embed", dense_init(g, (V, d), d, dtype))
+        lm_head = leaf("lm_head", dense_init(g, (d, V), d, dtype))
+
+        def block(i, tree):
+            return Block(_placed(tree, f"blocks.{i}.", place))
         if cfg.family == "dense":
-            blocks = [Block(_init_dense_block(g, cfg, dtype))
-                      for _ in range(L)]
+            blocks = [block(i, _init_dense_block(g, cfg, dtype))
+                      for i in range(L)]
         elif cfg.family == "moe":
             fd = cfg.first_dense_layers
-            blocks = [Block(_init_dense_block(g, cfg, dtype))
-                      for _ in range(fd)]
-            blocks += [Block(_init_moe_block(g, cfg, dtype, model_axis_size))
-                       for _ in range(L - fd)]
+            blocks = [block(i, _init_dense_block(g, cfg, dtype))
+                      for i in range(fd)]
+            blocks += [block(i, _init_moe_block(g, cfg, dtype,
+                                                model_axis_size))
+                       for i in range(fd, L)]
         else:
-            blocks = [Block(_init_mamba_block(g, cfg, dtype))
-                      for _ in range(L)]
-        shared = Block(_init_dense_block(g, cfg, dtype)) \
-            if cfg.family == "hybrid" else None
-        model = Model(embed, torch.zeros((d,), dtype=dtype, device=dev),
-                      lm_head, blocks, shared)
+            blocks = [block(i, _init_mamba_block(g, cfg, dtype))
+                      for i in range(L)]
+        shared = Block(_placed(_init_dense_block(g, cfg, dtype), "shared.",
+                               place)) if cfg.family == "hybrid" else None
+        model = Model(embed, leaf("final_norm", torch.zeros(
+            (d,), dtype=dtype, device=dev)), lm_head, blocks, shared)
         return train_params(model) if trainable else model
 
     # ---- helpers --------------------------------------------------------
@@ -301,31 +360,57 @@ def build_model(cfg: ModelConfig, device=None,
     # Python scalar, so no host-to-device copy stalls each step
     embed_scale = float(torch.tensor(d ** 0.5, dtype=dtype))
 
-    def _embed(params: Model, inputs: torch.Tensor) -> torch.Tensor:
+    def _loc(t):
+        """A parameter as the program computes with it."""
+        return sh.local(t) if sh is not None else t
+
+    def _blk(bp):
+        return sh.local_tree(bp) if sh is not None else bp
+
+    def _embed(params: Model, inputs: torch.Tensor,
+               seq: bool = False) -> torch.Tensor:
+        table = _loc(params.embed)
         if not inputs.is_floating_point():
-            h = params.embed[inputs.to(dev)]     # row gather
+            if table.shape[0] == V:
+                h = table[inputs.to(dev)]        # row gather
+            else:                                # vocab-parallel gather
+                n = table.shape[0]
+                rel = inputs - sh.model_offset(n, V)
+                ok = (rel >= 0) & (rel < n)
+                h = table[rel.clamp(0, n - 1)] * ok[..., None].to(dtype)
+                h = sh.finish(h, partial=True, seq=seq)
+                return h * embed_scale
         else:
             h = inputs.to(device=dev, dtype=dtype)   # precomputed embeddings
+        if seq:
+            h = sh.seq_chunk(h)
         return h * embed_scale
 
     def _logits(params: Model, h: torch.Tensor) -> torch.Tensor:
-        logits = h.float() @ params.lm_head.float()
+        logits = h.float() @ _loc(params.lm_head).float()
         if cfg.final_logit_softcap > 0:
             cap = cfg.final_logit_softcap
             logits = torch.tanh(logits / cap) * cap
         return logits
 
-    def _dense_block_fwd(bp: Block, h, window: int, collect_kv: bool):
+    def _dense_block_fwd(bp: Block, h, window: int, collect_kv: bool,
+                         seq: bool = False):
         a_in = rms_norm(h, bp["ln1"])
+        if seq:
+            a_in = sh.all_gather(a_in, 1)
         res = attn_forward(bp["attn"], a_in, cfg, window=window,
-                           collect_kv=collect_kv)
+                           collect_kv=collect_kv, sh=sh, seq=seq)
         attn_out, kv = res if collect_kv else (res, None)
         h = h + attn_out
-        h = h + _ffn(cfg, bp, rms_norm(h, bp["ln2"]))
+        f_in = rms_norm(h, bp["ln2"])
+        if seq:
+            f_in = sh.all_gather(f_in, 1)
+        h = h + _ffn(cfg, bp, f_in, sh, seq)
         return h, kv
 
     def _mamba_block_fwd(bp: Block, h):
-        return h + mamba_forward(bp["mamba"], rms_norm(h, bp["ln"]), cfg)
+        return h + mamba_forward(bp["mamba"], rms_norm(h, bp["ln"]), cfg,
+                                 sh=sh)
 
     def _remat(fn, *args):
         """``fn(*args)``, recomputed in the backward under ``remat ==
@@ -334,74 +419,135 @@ def build_model(cfg: ModelConfig, device=None,
             return checkpoint(fn, *args, use_reentrant=False)
         return fn(*args)
 
+    def _wrap(local: torch.Tensor, like: torch.Tensor, shape,
+              vocab_dim: Optional[int] = None):
+        """The DTensor of a result sharded as the batch of ``like`` (a
+        DTensor input) and, where the vocabulary is, over ``model``."""
+        axes = [() for _ in shape]
+        axes[0] = sh.layout(like).axes[0]
+        if vocab_dim is not None and local.shape[vocab_dim] < V:
+            axes[vocab_dim] = ("model",)
+        return sh.wrap(local, shape, axes)
+
     # ---- forward (train / prefill) --------------------------------------
+    def _forward(params: Model, inputs: torch.Tensor, collect_kv: bool,
+                 last_only: bool, return_hidden: bool):
+        seq = sh is not None and cfg.family in ("dense", "moe") \
+            and sh.seq_sharded(cfg, inputs.shape[1])
+        h = _embed(params, inputs, seq)
+        kv_all = []
+        if cfg.family in ("dense", "moe"):
+            for i, bp in enumerate(params.blocks):
+                h, kv = _remat(_dense_block_fwd, _blk(bp), h, window_of(i),
+                               collect_kv, seq)
+                kv_all.append(kv)
+        elif cfg.family == "ssm":
+            for bp in params.blocks:
+                h = _remat(_mamba_block_fwd, _blk(bp), h)
+        else:                                       # hybrid
+            shared = _blk(params.shared)
+            for i, bp in enumerate(params.blocks):
+                h = _remat(_mamba_block_fwd, _blk(bp), h)
+                if (i + 1) % cfg.attn_every == 0:
+                    h, kv = _dense_block_fwd(shared, h, 0, collect_kv)
+                    kv_all.append(kv)
+        if seq:
+            h = sh.all_gather(h, 1)
+        if last_only:
+            h = h[:, -1:]          # slice before the vocab projection
+        h = rms_norm(h, _loc(params.final_norm))
+        if return_hidden:
+            return h
+        logits = _logits(params, h)
+        return (logits, kv_all) if collect_kv else logits
+
     def forward(params: Model, inputs: torch.Tensor,
                 collect_kv: bool = False, last_only: bool = False,
                 return_hidden: bool = False):
         """Logits [B, S, V] (``last_only``: [B, 1, V]); with
         ``collect_kv`` also the list of per-attention-layer (k, v); with
         ``return_hidden`` the final-normed hidden state [B, S, d] instead
-        of the logits."""
-        h = _embed(params, inputs)
-        kv_all = []
-        if cfg.family in ("dense", "moe"):
-            for i, bp in enumerate(params.blocks):
-                h, kv = _remat(_dense_block_fwd, bp, h, window_of(i),
-                               collect_kv)
-                kv_all.append(kv)
-        elif cfg.family == "ssm":
-            for bp in params.blocks:
-                h = _remat(_mamba_block_fwd, bp, h)
-        else:                                       # hybrid
-            for i, bp in enumerate(params.blocks):
-                h = _remat(_mamba_block_fwd, bp, h)
-                if (i + 1) % cfg.attn_every == 0:
-                    h, kv = _dense_block_fwd(params.shared, h, 0,
-                                             collect_kv)
-                    kv_all.append(kv)
-        if last_only:
-            h = h[:, -1:]          # slice before the vocab projection
-        h = rms_norm(h, params.final_norm)
-        if return_hidden:
-            return h
-        logits = _logits(params, h)
-        return (logits, kv_all) if collect_kv else logits
+        of the logits.  Partitioned: ``inputs`` a DTensor, the logits (or
+        hidden state) a DTensor, the (k, v) this rank's."""
+        if sh is None:
+            return _forward(params, inputs, collect_kv, last_only,
+                            return_hidden)
+        out = _forward(params, inputs.to_local(), collect_kv, last_only,
+                       return_hidden)
+        logits = out[0] if collect_kv else out
+        B, S = inputs.shape[0], 1 if last_only else inputs.shape[1]
+        logits = _wrap(logits, inputs, (B, S, logits.shape[-1]
+                                        if return_hidden else V),
+                       None if return_hidden else 2)
+        return (logits, out[1]) if collect_kv else logits
 
     # ---- loss ------------------------------------------------------------
     def loss_fn(params: Model, batch: Mapping[str, torch.Tensor]):
         """The mean token cross-entropy (plus z-loss) of ``batch``
         (``inputs``, ``targets``), through the chunked CE: the [tokens,
         vocab] f32 logits never materialize."""
+        if sh is not None:
+            raise NotImplementedError(
+                "the partitioned train step is not ported: loss_fn runs "
+                "on one device")
         h = forward(params, batch["inputs"], return_hidden=True)
         return chunked_cross_entropy(h, params.lm_head,
                                      batch["targets"].to(h.device),
                                      softcap=cfg.final_logit_softcap)
 
     # ---- KV / state caches ----------------------------------------------
-    def init_cache(batch: int, max_len: int) -> Dict[str, torch.Tensor]:
+    def cache_shapes(batch: int, max_len: int) -> Dict[str, tuple]:
+        """(shape, dtype) of every cache leaf, allocating nothing."""
         KV, hd = cfg.num_kv_heads, cfg.head_dim
-
-        def zeros(n, shape, dt):
-            return torch.zeros((n, batch) + shape, dtype=dt, device=dev)
-
+        kv = (batch, KV, max_len, hd)
         if cfg.family in ("dense", "moe"):
             if cfg.kv_cache_dtype == "int8":
-                return {"k": zeros(L, (KV, max_len, hd), torch.int8),
-                        "v": zeros(L, (KV, max_len, hd), torch.int8),
-                        "k_scale": zeros(L, (KV, max_len, 1), torch.float32),
-                        "v_scale": zeros(L, (KV, max_len, 1), torch.float32)}
-            return {"k": zeros(L, (KV, max_len, hd), dtype),
-                    "v": zeros(L, (KV, max_len, hd), dtype)}
-        one = mamba_init_state(cfg, batch, dtype, dev)
-        cache = {k: torch.zeros((L,) + one[k].shape, dtype=one[k].dtype,
-                                device=dev) for k in STATE_KEYS}
+                return {"k": ((L,) + kv, torch.int8),
+                        "v": ((L,) + kv, torch.int8),
+                        "k_scale": ((L, batch, KV, max_len, 1),
+                                    torch.float32),
+                        "v_scale": ((L, batch, KV, max_len, 1),
+                                    torch.float32)}
+            return {"k": ((L,) + kv, dtype), "v": ((L,) + kv, dtype)}
+        out = {k: ((L,) + shape, dt) for k, (shape, dt)
+               in mamba_state_shapes(cfg, batch, dtype).items()}
         if cfg.family == "hybrid":
             n_sites = L // cfg.attn_every
-            cache["k"] = zeros(n_sites, (KV, max_len, hd), dtype)
-            cache["v"] = zeros(n_sites, (KV, max_len, hd), dtype)
-        return cache
+            out["k"] = out["v"] = ((n_sites,) + kv, dtype)
+        return out
+
+    def init_cache(batch: int, max_len: int) -> Dict[str, torch.Tensor]:
+        """The cache of one device (shapes only with ``"meta"``); the
+        partitioned cache is ``launch/partition.py``'s ``init_cache``."""
+        return {k: torch.zeros(shape, dtype=dt, device=dev)
+                for k, (shape, dt) in cache_shapes(batch, max_len).items()}
 
     # ---- prefill ------------------------------------------------------------
+    def _write_kv(cache, i: int, k, v, S: int, layout) -> None:
+        """Layer ``i``'s prompt K/V [B, KV, S, hd] into the cache: on one
+        device at positions 0..S; partitioned into this rank's window
+        (its KV heads, its positions)."""
+        if layout is not None:
+            kv0, s0 = layout.offsets[2], layout.offsets[3]
+            kvc, sc = layout.sizes[2], layout.sizes[3]
+            kvw0 = sh.model_offset(k.shape[1], cfg.num_kv_heads)
+            lo, hi = max(0, s0), min(S, s0 + sc)
+            if hi <= lo:
+                return
+            k = k[:, kv0 - kvw0:kv0 - kvw0 + kvc, lo:hi]
+            v = v[:, kv0 - kvw0:kv0 - kvw0 + kvc, lo:hi]
+            at = slice(lo - s0, hi - s0)
+        else:
+            at = slice(0, S)
+        k, v = k.to(dtype), v.to(dtype)
+        if cfg.kv_cache_dtype == "int8":
+            k, ks = ops.quantize_kv(k)
+            v, vs = ops.quantize_kv(v)
+            cache["k_scale"][i, :, :, at] = ks
+            cache["v_scale"][i, :, :, at] = vs
+        cache["k"][i, :, :, at] = k.to(cache["k"].dtype)
+        cache["v"][i, :, :, at] = v.to(cache["v"].dtype)
+
     def prefill(params: Model, inputs: torch.Tensor, max_len: int,
                 cache: Optional[Dict[str, torch.Tensor]] = None):
         """Run the full prompt, return (last-token logits, filled cache).
@@ -410,11 +556,23 @@ def build_model(cfg: ModelConfig, device=None,
         prefill and a captured decode step share one set of cache tensors;
         without, a new one is made.  ssm/hybrid leave it zeroed: the
         serving loop replays the prompt through ``decode_step`` to build
-        the state, as the JAX one does."""
+        the state, as the JAX one does.  Partitioned, ``cache`` is the
+        partitioned cache (DTensors) and is required."""
         B, S = inputs.shape[0], inputs.shape[1]
-        if cache is None:
-            cache = init_cache(B, max_len)
+        layout = None
+        if sh is not None:
+            if cache is None:
+                raise ValueError("a partitioned prefill writes the "
+                                 "partitioned cache: pass it")
+            local = {k: t.to_local() for k, t in cache.items()}
+            if "k" in cache:
+                layout = sh.layout(cache["k"])
+            for t in local.values():
+                t.zero_()
+        elif cache is None:
+            local = cache = init_cache(B, max_len)
         else:
+            local = cache
             for t in cache.values():
                 t.zero_()
         if cfg.family not in ("dense", "moe"):
@@ -422,32 +580,26 @@ def build_model(cfg: ModelConfig, device=None,
         logits, kv_all = forward(params, inputs, collect_kv=True,
                                  last_only=True)
         for i, (k, v) in enumerate(kv_all):
-            k, v = k.to(dtype), v.to(dtype)
-            if cfg.kv_cache_dtype == "int8":
-                k, ks = ops.quantize_kv(k)
-                v, vs = ops.quantize_kv(v)
-                cache["k_scale"][i, :, :, :S] = ks
-                cache["v_scale"][i, :, :, :S] = vs
-            cache["k"][i, :, :, :S] = k.to(cache["k"].dtype)
-            cache["v"][i, :, :, :S] = v.to(cache["v"].dtype)
-        return logits[:, -1:], cache
+            _write_kv(local, i, k, v, S, layout)
+        return (logits if sh is not None else logits[:, -1:]), cache
 
     # ---- decode -------------------------------------------------------------
     def _attn_block_decode(bp: Block, h, cache, i: int,
-                           cache_len: torch.Tensor, window: int):
+                           cache_len: torch.Tensor, window: int, layout):
         a_in = rms_norm(h, bp["ln1"])
         scales = (cache["k_scale"][i], cache["v_scale"][i]) \
             if "k_scale" in cache else (None, None)
-        a = attn_decode(bp["attn"], a_in, cfg, cache["k"][i], cache["v"][i],
-                        cache_len, window=window, k_scale=scales[0],
-                        v_scale=scales[1])[0]
+        a = attn_decode(bp["attn"], a_in, cfg, cache["k"][i],
+                        cache["v"][i], cache_len, window=window,
+                        k_scale=scales[0], v_scale=scales[1], sh=sh,
+                        layout=layout)[0]
         h = h + a
-        return h + _ffn(cfg, bp, rms_norm(h, bp["ln2"]))
+        return h + _ffn(cfg, bp, rms_norm(h, bp["ln2"]), sh)
 
     def _mamba_block_decode(bp: Block, h, cache, i: int):
         state = {k: cache[k][i] for k in STATE_KEYS}
         out, new = mamba_decode(bp["mamba"], rms_norm(h, bp["ln"]), state,
-                                cfg)
+                                cfg, sh=sh)
         for k in STATE_KEYS:
             cache[k][i].copy_(new[k])
         return h + out
@@ -459,24 +611,37 @@ def build_model(cfg: ModelConfig, device=None,
         step reads no device value on the host, so it can be captured.  A
         Python int (an eager caller's) becomes a device tensor here, once
         a call: never pass one inside a capture.  Returns (logits [B,1,V],
-        the cache, updated in place)."""
+        the cache, updated in place).  Partitioned: ``tokens`` and the
+        cache are DTensors, the logits a DTensor."""
         cache_len = torch.as_tensor(cache_len, dtype=torch.int32, device=dev)
-        h = _embed(params, tokens)
+        layout, local, toks = None, cache, tokens
+        if sh is not None:
+            local = {k: t.to_local() for k, t in cache.items()}
+            toks = tokens.to_local()
+            if "k" in cache:
+                layout = sh.layout(cache["k"])
+        h = _embed(params, toks)
         if cfg.family in ("dense", "moe"):
             for i, bp in enumerate(params.blocks):
-                h = _attn_block_decode(bp, h, cache, i, cache_len,
-                                       window_of(i))
+                h = _attn_block_decode(_blk(bp), h, local, i, cache_len,
+                                       window_of(i), layout)
         else:
+            shared = _blk(params.shared) if cfg.family == "hybrid" else None
             for i, bp in enumerate(params.blocks):
-                h = _mamba_block_decode(bp, h, cache, i)
+                h = _mamba_block_decode(_blk(bp), h, local, i)
                 if cfg.family == "hybrid" and (i + 1) % cfg.attn_every == 0:
-                    h = _attn_block_decode(params.shared, h, cache,
-                                           i // cfg.attn_every, cache_len, 0)
-        h = rms_norm(h, params.final_norm)
-        return _logits(params, h), cache
+                    h = _attn_block_decode(shared, h, local,
+                                           i // cfg.attn_every, cache_len, 0,
+                                           layout)
+        h = rms_norm(h, _loc(params.final_norm))
+        logits = _logits(params, h)
+        if sh is not None:
+            logits = _wrap(logits, tokens, (tokens.shape[0], 1, V), 2)
+        return logits, cache
 
     return ModelAPI(cfg, init, forward, prefill, init_cache, decode_step,
-                    loss_fn)
+                    loss_fn, device=dev, dtype=dtype, shards=sh,
+                    cache_shapes=cache_shapes)
 
 
 __all__ = ["Block", "FAMILIES", "Model", "ModelAPI", "build_model",

@@ -1,10 +1,17 @@
-"""Mixture-of-Experts FFN on one card.
+"""Mixture-of-Experts FFN, on one card or expert-parallel.
 
 The port of ``repro/models/moe.py``.  The JAX package shards the experts
 over a ``model`` mesh axis inside ``shard_map`` and combines the shards'
-partial outputs with one ``psum``; here there is one card, so every expert
-is local and there is no collective (``model_axis`` must be None).  The
-rest is the reference's arithmetic, step for step:
+partial outputs with one ``psum``.  ``moe_ffn`` with ``model_axis`` (the
+``model`` sub-mesh, a one-dimensional ``DeviceMesh``) is that
+``shard_map`` body: it runs on one rank's shards, ``wi``/``wg``/``wo`` as
+its ``E_local`` experts, the router replicated and ``x`` the rank's data
+shard of tokens; routing and capacity (from the local token count) are
+computed on every model rank alike, each rank fills capacity buffers for
+its expert window only (from ``get_local_rank() * E_local``), and one
+all-reduce (sum) of the f32 [T, d] output over ``model`` combines them.
+Without ``model_axis`` every expert is local and there is no collective.
+The rest is the reference's arithmetic, step for step:
 
   * the router is float32 and the logits are computed in float32;
   * softmax, top-k, the top-k gates renormalised;
@@ -28,13 +35,14 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Dict, Iterator, List, Mapping, Optional
+from typing import Dict, Iterator, List, Mapping
 
 import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig, pad_to
 from .common import dense_init
+from .shards import all_reduce
 
 #: leaves kept in float32 whatever the model's type (``init_moe``)
 F32_LEAVES = ("router",)
@@ -132,17 +140,15 @@ def _route(p: Mapping, xt: torch.Tensor, cfg: ModelConfig):
 
 
 def moe_ffn(p: Mapping, x: torch.Tensor, cfg: ModelConfig,
-            model_axis: Optional[str] = None) -> torch.Tensor:
+            model_axis=None) -> torch.Tensor:
     """x: [B, S, d] -> [B, S, d], the routed experts' gated FFN.  ``p``
     holds ``router``, ``wi``, ``wg`` and ``wo`` (a ``shared`` entry is
-    ignored: ``shared_expert_ffn`` computes it)."""
-    if model_axis is not None:
-        raise ValueError(
-            f"model_axis={model_axis!r}: one card has no model axis to "
-            "shard the experts over (no shard_map, no psum); pass None")
+    ignored: ``shared_expert_ffn`` computes it).  With ``model_axis`` (the
+    ``model`` sub-mesh) ``p``'s experts are this rank's window and the
+    result is summed over the axis."""
     B, S, d = x.shape
     T = B * S
-    E = p["wi"].shape[0]
+    E = p["wi"].shape[0]                        # the local experts
     k = cfg.top_k
     C = _capacity(T, p["router"].shape[-1], k, cfg.capacity_factor)
     xt = x.reshape(T, d)
@@ -158,9 +164,13 @@ def moe_ffn(p: Mapping, x: torch.Tensor, cfg: ModelConfig,
             count._dropped.append((~keep).sum())
 
     # ---- capacity buffers: each kept pair's token at (expert, rank); a
-    # dropped pair writes the spare last row, which is cut off.  Masks
-    # stay multiplications, not boolean indexing, so nothing waits for
-    # the card
+    # dropped pair (and, expert-parallel, a pair routed to another rank's
+    # expert) writes the spare last row, which is cut off.  Masks stay
+    # multiplications, not boolean indexing, so nothing waits for the card
+    if model_axis is not None:
+        e_start = model_axis.get_local_rank() * E
+        keep = keep & (e_sorted >= e_start) & (e_sorted < e_start + E)
+        e_sorted = e_sorted - e_start
     dest = torch.where(keep, e_sorted * C + pos, E * C)
     buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=x.device)
     buf[dest] = xt[tok_sorted]
@@ -179,6 +189,8 @@ def moe_ffn(p: Mapping, x: torch.Tensor, cfg: ModelConfig,
     out = per_slot[:, 0]
     for j in range(1, k):
         out = out + per_slot[:, j]
+    if model_axis is not None:
+        out = all_reduce(out, model_axis.get_group())
     return out.to(x.dtype).reshape(B, S, d)
 
 

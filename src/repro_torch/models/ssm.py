@@ -5,17 +5,25 @@ The port of ``repro/models/ssm.py``.  Prefill uses the chunked SSD path
 card); decode keeps O(1) per-token state (conv tail + SSM state).
 Projections stay separate weights (w_z, w_x, w_b, w_c, w_dt) in the JAX
 layout (``[in, out]``, applied as ``x @ w``).
+
+With a ``Shards`` both run on one rank's local heads: the inner width and
+the heads come from the local ``w_x``/``w_dt`` shards (the plan shards
+them over ``model`` together), the convolution runs on the local
+channels, B and C (replicated, one group) are computed on every rank, the
+gated norm's statistics are summed over ``model``, and the output
+projection's partial sums are finished there.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
-from .common import dense_init, rms_norm
+from .common import RMS_EPS, dense_init, rms_norm
+from .shards import Shards
 
 #: the per-layer decode state of a Mamba2 block
 STATE_KEYS = ("conv_x", "conv_b", "conv_c", "ssm")
@@ -70,11 +78,37 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     return F.silu(y + b)
 
 
+def _local_dims(p: Mapping[str, torch.Tensor], cfg: ModelConfig
+                ) -> Tuple[int, int]:
+    """(inner width, heads) of the local shards; a plan that shards the
+    inner width but not the heads has no per-head program."""
+    di = p["w_x"].shape[-1]
+    H = di // cfg.ssm_head_dim
+    if p["w_dt"].shape[-1] != H:
+        raise ValueError(f"the inner width is sharded to {di} but the "
+                         f"heads to {p['w_dt'].shape[-1]}: shard both")
+    return di, H
+
+
+def _gated_norm(y: torch.Tensor, scale: torch.Tensor, cfg: ModelConfig,
+                sh: Optional[Shards]) -> torch.Tensor:
+    """``rms_norm`` over the inner width; where it is sharded the sums of
+    squares are summed over ``model`` first."""
+    full = ssm_dims(cfg)[0]
+    if sh is None or y.shape[-1] == full:
+        return rms_norm(y, scale)
+    yf = y.float()
+    var = sh.all_reduce(yf.square().sum(-1, keepdim=True)) / full
+    return (yf * torch.rsqrt(var + RMS_EPS) * (1.0 + scale.float())
+            ).to(y.dtype)
+
+
 def mamba_forward(p: Mapping[str, torch.Tensor], x_in: torch.Tensor,
-                  cfg: ModelConfig) -> torch.Tensor:
+                  cfg: ModelConfig, sh: Optional[Shards] = None,
+                  seq: bool = False) -> torch.Tensor:
     """Full-sequence forward.  x_in: [B, S, d]."""
     B, S, _ = x_in.shape
-    di, H, N = ssm_dims(cfg)
+    di, H = _local_dims(p, cfg)
     z = x_in @ p["w_z"]
     xs = _causal_conv(x_in @ p["w_x"], p["conv_x_w"], p["conv_x_b"])
     b = _causal_conv(x_in @ p["w_b"], p["conv_b_w"], p["conv_b_b"])
@@ -84,25 +118,23 @@ def mamba_forward(p: Mapping[str, torch.Tensor], x_in: torch.Tensor,
     y, _ = ops.ssd(xh, dt, p["a_log"], b, c)
     y = y + xh * p["d_skip"][None, None, :, None].to(xh.dtype)
     y = y.reshape(B, S, di)
-    y = rms_norm(y * F.silu(z), p["norm"])
-    return y @ p["w_out"]
+    y = _gated_norm(y * F.silu(z), p["norm"], cfg, sh)
+    out = y @ p["w_out"]
+    if sh is not None:
+        out = sh.finish(out, partial=di < ssm_dims(cfg)[0], seq=seq)
+    return out
 
 
-def mamba_init_state(cfg: ModelConfig, batch: int,
-                     dtype: torch.dtype = torch.bfloat16,
-                     device=None) -> Dict[str, torch.Tensor]:
+def mamba_state_shapes(cfg: ModelConfig, batch: int, dtype: torch.dtype
+                       ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """(shape, dtype) of one Mamba layer's decode state: the convolutions'
+    tails and the SSM state."""
     di, H, N = ssm_dims(cfg)
     cw = cfg.conv_width
-    return {
-        "conv_x": torch.zeros((batch, cw - 1, di), dtype=dtype,
-                              device=device),
-        "conv_b": torch.zeros((batch, cw - 1, N), dtype=dtype,
-                              device=device),
-        "conv_c": torch.zeros((batch, cw - 1, N), dtype=dtype,
-                              device=device),
-        "ssm": torch.zeros((batch, H, cfg.ssm_head_dim, N),
-                           dtype=torch.float32, device=device),
-    }
+    return {"conv_x": ((batch, cw - 1, di), dtype),
+            "conv_b": ((batch, cw - 1, N), dtype),
+            "conv_c": ((batch, cw - 1, N), dtype),
+            "ssm": ((batch, H, cfg.ssm_head_dim, N), torch.float32)}
 
 
 def _conv_step(tail: torch.Tensor, xt: torch.Tensor, w: torch.Tensor,
@@ -115,10 +147,12 @@ def _conv_step(tail: torch.Tensor, xt: torch.Tensor, w: torch.Tensor,
 
 def mamba_decode(p: Mapping[str, torch.Tensor], x_in: torch.Tensor,
                  state: Mapping[str, torch.Tensor], cfg: ModelConfig,
+                 sh: Optional[Shards] = None,
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """One-token decode.  x_in: [B, 1, d].  Returns (out, new state)."""
+    """One-token decode.  x_in: [B, 1, d].  Returns (out, new state);
+    with ``sh`` the state is this rank's shard of it."""
     B = x_in.shape[0]
-    di, H, N = ssm_dims(cfg)
+    di, H = _local_dims(p, cfg)
     xt = x_in[:, 0]
     z = xt @ p["w_z"]
     xs, conv_x = _conv_step(state["conv_x"], xt @ p["w_x"],
@@ -132,11 +166,13 @@ def mamba_decode(p: Mapping[str, torch.Tensor], x_in: torch.Tensor,
     h, y = ops.ssd_decode(state["ssm"], xh, dt, p["a_log"], b, c)
     y = y + xh * p["d_skip"][None, :, None].to(xh.dtype)
     y = y.reshape(B, di)
-    y = rms_norm(y * F.silu(z), p["norm"])
+    y = _gated_norm(y * F.silu(z), p["norm"], cfg, sh)
     out = (y @ p["w_out"])[:, None]
+    if sh is not None:
+        out = sh.finish(out, partial=di < ssm_dims(cfg)[0])
     return out, {"conv_x": conv_x, "conv_b": conv_b, "conv_c": conv_c,
                  "ssm": h}
 
 
 __all__ = ["F32_LEAVES", "STATE_KEYS", "init_mamba", "mamba_decode",
-           "mamba_forward", "mamba_init_state", "ssm_dims"]
+           "mamba_forward", "mamba_state_shapes", "ssm_dims"]

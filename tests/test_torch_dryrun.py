@@ -46,19 +46,29 @@ def traces():
 
 
 def _check_record(rec, mesh, chips):
+    """A train cell's counts are the one-device trace's over the chips; a
+    prefill or decode cell's are one rank's partitioned trace's."""
     assert rec["status"] == "ok" and rec["mesh"] == mesh
-    assert REF_KEYS <= set(rec) and rec["per_device"] == "global/chips"
+    part = rec["mode"] != "train"
+    assert REF_KEYS <= set(rec) and rec["per_device"] == (
+        "partitioned" if part else "global/chips")
     assert REF_PLAN | TRACE_PLAN <= set(rec["plan"])
     assert rec["plan"]["trace_hbm_gb"] >= \
         rec["memory"]["argument_bytes"] / 2**30 - 0.01
     assert set(rec["memory"]) == REF_MEMORY
     assert set(rec["roofline"]) == REF_ROOFLINE
     r, t = rec["roofline"], rec["trace"]
-    assert r["flops_per_device"] == t["flops"] / chips > 0
-    assert r["bytes_per_device"] == t["bytes"] / chips > 0
+    per = 1 if part else chips
+    assert r["flops_per_device"] == t["flops"] / per > 0
+    assert r["bytes_per_device"] == t["bytes"] / per > 0
     # as XLA's temp_size_in_bytes: beyond the arguments and new results
     assert rec["memory"]["temp_bytes"] == (
-        t["peak_bytes"] - t["held_bytes"] - t["new_output_bytes"]) / chips > 0
+        t["peak_bytes"] - t["held_bytes"] - t["new_output_bytes"]) / per > 0
+    if part:                   # the rank's peak, its collectives as traced
+        assert rec["plan"]["trace_hbm_gb"] == round(
+            t["peak_bytes"] / 2**30, 2)
+        assert r["collective_bytes_per_device"] == sum(
+            r["coll_by_kind"].values()) > 0
     assert r["t_compute"] == r["flops_per_device"] / 989e12   # H100Spec
     assert r["bottleneck"] in ("compute", "memory", "collective")
 
@@ -115,7 +125,9 @@ def test_main_writes_records_the_roofline_table_reads(tmp_path, capsys):
     assert rc == 0
     recs = json.loads(out.read_text())
     assert [r["mesh"] for r in recs] == ["16x16", "2x16x16"]
-    assert recs[0]["trace"] == recs[1]["trace"]     # one trace, two meshes
+    # a trace per mesh: a rank of the 512-chip mesh holds half the batch
+    assert [r["per_device"] for r in recs] == ["partitioned"] * 2
+    assert recs[1]["trace"]["flops"] < recs[0]["trace"]["flops"]
     assert "2 cells, 0 failures" in capsys.readouterr().out
     sys.path.insert(0, str(ROOT))
     table = importlib.import_module("benchmarks.roofline_table")

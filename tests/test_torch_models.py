@@ -236,14 +236,6 @@ def test_moe_ffn_matches_jax_and_drops_the_same_pairs(arch,
     assert len(routed - ref_kept) == count.dropped
 
 
-def test_moe_ffn_has_no_model_axis_on_one_card():
-    cfg = reduced(get_config("qwen2-moe-a2.7b"))
-    _, _, _, tparams = _models(cfg)
-    x = torch.zeros((1, 4, cfg.d_model))
-    with pytest.raises(ValueError, match="model axis"):
-        tmoe.moe_ffn(tparams.blocks[0]["moe"], x, cfg, model_axis="model")
-
-
 def test_moe_params_keep_the_router_in_f32():
     """bf16 parameters from the JAX tree: the router stays float32 (as
     ``init_moe`` draws it), kimi-k2's first dense layer comes first."""
