@@ -6,6 +6,7 @@ Runs on one NVIDIA card, from the root of a checkout:
     python3 chip_smoke.py               # every phase below
     python3 chip_smoke.py --check-only  # phases 1-2, untimed, then stop
     python3 chip_smoke.py --partition-only  # the build and phase 15
+    python3 chip_smoke.py --partition-train-only  # the build and phase 16
 
 Phases, in order; any failure exits non-zero:
 
@@ -154,11 +155,11 @@ Phases, in order; any failure exits non-zero:
 13. the dry-run (``launch/dryrun.py``, ``[dryrun]``): (a) every cell, 10
    archs x 4 shapes x both production meshes, traced on meta with the
    H100's roofline (``H100Spec()``), 0 failures, skips only the
-   reference's 16 (``python -m repro_torch.launch.dryrun --both-meshes``
-   run in process), every prefill and decode record partitioned (one
-   rank's trace under a fake group), every train record global/chips,
-   records to ``chiprun_out/dryrun_torch.json``, its output to
-   ``chiprun_out/dryrun_torch.log``; (b) ``[dryrun-check]``: the
+   reference's 16 (``python -m repro_torch.launch.dryrun --both-meshes
+   --arch``, an arch in each of ``DRYRUN_WORKERS`` processes at a time),
+   every record partitioned (one rank's train, prefill or decode step
+   under a fake group), records to ``chiprun_out/dryrun_torch.json``, the
+   output to ``chiprun_out/dryrun_torch.log``; (b) ``[dryrun-check]``: the
    Zamba2-1.2B train step (phase 10's configuration) and the Qwen2.5-3B
    prefill, 8 x 512 in bf16 at full width and depth, each traced on meta
    and then run once on the card under the same counter
@@ -196,9 +197,45 @@ Phases, in order; any failure exits non-zero:
    process, the 1 x 1 mesh: the partitioned Qwen2.5-3B bf16 prefill of
    phase 8's shape bit for bit the unpartitioned one, launches equal.
    Each group is destroyed also on failure;
+16. the partitioned train step (``launch/partition.py``
+   ``partitioned_train_step``, ``[partition-train]``): first, in this
+   process, the f32 parity rows' unpartitioned steps on the card (AdamW,
+   their first batch's gradients saved whole to the host, the card freed
+   before the ranks start); then ``PART_RANKS`` ranks on the one card,
+   gloo, mesh ``PT_MESH`` (data 2, model 2): (a) Zamba2-1.2B in bf16 at
+   full width and depth, ``PT_TRAIN``'s eager steps of 8 x 512 (phase
+   10's configuration, seed 0), the first under ``launch/op_cost.py``'s
+   counter: per rank the step seconds, tokens/s, peak memory, the plan's
+   ZeRO/FSDP, the first step's collectives by kind, flash and SSD
+   launches (every rank must launch both) and finite losses, equal on
+   every rank; (b) f32 parity at full width (``PT_PARITY``: Zamba2-1.2B
+   at 6 layers, Qwen2-MoE-A2.7B at 2 on (1, 4), whose capacity is then
+   the unpartitioned step's, and Zamba2 again with a small HBM spec that
+   forces FSDP), 2 x 128, 3 steps: the first step's loss and grad_norm
+   within ``PT_LOSS_TOL`` of the unpartitioned step's, every step's
+   within ``PT_STEPS_TOL``, each rank's window of
+   every gradient leaf (reduced as the step reduces it) within
+   ``PT_GRAD_TOL`` of the leaf's max |g|, and after each update every
+   rank holding the same window of a leaf holding the same bytes; the
+   FSDP row again with AdamW's eps at ``PT_WITNESS_EPS``, every step
+   within ``PT_LOSS_TOL`` (the witness that the later steps' offset is
+   the first gradient's sign flips); (c) the bf16 loss of each token of
+   the first ``PT_WITNESS_BATCHES`` batches, forward only, on
+   ``PT_MESH`` and on a data-only and a model-only mesh
+   (``PT_WITNESS``); then, the ranks gone, the same losses unpartitioned
+   in bf16 and, with the same weights, in f32: the first batch's
+   partitioned losses no farther from the f32 ones than
+   ``PART_BF16_FACTOR`` times the one-card bf16 ones, and on each mesh
+   the scalar loss within ``PT_BIAS_Z`` standard errors of the one-card
+   bf16 one; and rank 0's step traced on meta under a fake group of 4:
+   its FLOPs, bytes, kernel units and collective bytes by kind equal to
+   rank 0's counted step (phase 7 holds flash and SSD at a rank's local
+   shapes, ``zamba2-1.2b-tp2``).  The 4 ranks share one card and stage
+   every collective through the host: the step time is a correctness
+   cell's, not a multi-GPU training speed;
 14. print ``{"kernels": [...]}`` (flash and SSD count phase 8's serves'
-   prefills, warm-up and replay, phase 10's, phase 13's and phase 15's
-   launches), the card's name and power limit, and
+   prefills, warm-up and replay, phase 10's, phase 13's, phase 15's and
+   phase 16's launches), the card's name and power limit, and
    last ``{"ok": true, "device": {...}}``.
 
 Every ``[kernel]`` line and ``kernels`` entry names the path that ran:
@@ -229,6 +266,7 @@ import collections
 import dataclasses
 import functools
 import json
+import math
 import os
 import re
 import statistics
@@ -297,8 +335,10 @@ CONSISTENCY = {"qwen2.5-3b": 4, "zamba2-1.2b": 12}
 MOE_CONSISTENCY = ("qwen2-moe-a2.7b", 2, 4, 64)
 #: phase 7's flash cases whose log-sum-exp output is held against the plain
 #: version's (the three serve prefills on the tensor-core path, the f32 FMA
-#: case), and its limit: both are f32 from the same operands
-LSE_CASES = ("qwen2.5-3b", "zamba2-1.2b", "qwen2-moe-a2.7b", "non-causal-f32")
+#: case, a rank's heads in phase 16's train step), and its limit: both are
+#: f32 from the same operands
+LSE_CASES = ("qwen2.5-3b", "zamba2-1.2b", "qwen2-moe-a2.7b", "non-causal-f32",
+             "zamba2-1.2b-tp2")
 LSE_TOL = 1e-4
 #: the training phase: arch, steps, batch, sequence, full width and depth
 #: in bf16, and the kernel launches over its steps (6 flash, all on the
@@ -335,6 +375,41 @@ PART_PARITY = (("qwen2-moe-a2.7b", 4), ("zamba2-1.2b", 6))
 PART_PARITY_SHAPE = (2, 128, 4)
 PART_TOL = 1e-4
 PART_ONE = "qwen2.5-3b"
+#: the partitioned train phase (phase 16, ``launch/partition.py``
+#: ``partitioned_train_step``): its ranks' mesh (data 2, model 2: the data
+#: reduction, ZeRO/FSDP and the model axis all run); the full-size bf16
+#: row: arch, steps, batch, sequence (phase 10's: AdamW, remat "none",
+#: seed 0, eager), its first batch's loss of each token held as phase
+#: 15's serve is: no farther from the same weights' f32 losses than
+#: ``PART_BF16_FACTOR`` times the one-card bf16 ones; the meshes of the
+#: scalar loss's witness (data only, model only), the limit, on each and
+#: on ``PT_MESH``, of the scalar loss's offset from the one-card bf16 one
+#: in standard errors of its rows' means (the rows are independent draws
+#: of the rounding noise; a fault's bias moves them alike), and the
+#: batches it reads (forward only, the initial weights); the f32 parity
+#: rows (name, arch, depth,
+#: mesh, "fsdp" where a small HBM spec forces FSDP, and AdamW's eps where
+#: not its default), their batch, sequence and steps, and the limits
+#: against the unpartitioned step on the card: the first step's loss and
+#: grad_norm (relative), every step's (the CPU tests' three-step limit: a
+#: few hundred elements of the first gradient change sign between two
+#: f32 summation orders, AdamW moves each by 2 x lr either way, and later
+#: steps part by ~1e-5; with ``PT_WITNESS_EPS`` far above those elements'
+#: |g| they move by lr |g| / eps instead, and every step is held to the
+#: first step's limit), each gradient leaf (of its max |g|)
+PT_MESH = (2, 2)
+PT_TRAIN = ("zamba2-1.2b", 3, 8, 512)
+PT_WITNESS = ((4, 1), (1, 4))
+PT_BIAS_Z = 5.0
+PT_WITNESS_BATCHES = 4
+PT_WITNESS_EPS = 1e-3
+PT_PARITY = (("zamba2-6", "zamba2-1.2b", 6, (2, 2), None, None),
+             ("qwen2-moe-2", "qwen2-moe-a2.7b", 2, (1, 4), None, None),
+             ("zamba2-6-fsdp", "zamba2-1.2b", 6, (2, 2), "fsdp", None),
+             ("zamba2-6-fsdp-eps", "zamba2-1.2b", 6, (2, 2), "fsdp",
+              PT_WITNESS_EPS))
+PT_PARITY_SHAPE = (2, 128, 3)
+PT_LOSS_TOL, PT_STEPS_TOL, PT_GRAD_TOL = 1e-5, 1e-4, 1e-4
 #: the dry-run's skips: long_500k of the 8 pure full-attention archs on
 #: both meshes (the reference's)
 DRYRUN_SKIPS = 16
@@ -350,6 +425,8 @@ DRYRUN_CHECKS = (
     ("qwen2.5-3b", "prefill", 8, 512,
      {"flash_attention": 36, "flash_attention_wgmma": 36,
       "ssd_intra_chunk": 0}))
+#: the processes phase 13a runs ``main`` in, an arch each
+DRYRUN_WORKERS = 4
 #: the meta trace's peak against the card's peak allocation over the step
 #: (relative), and the timed steps after the counted one
 DRYRUN_PEAK_TOL = 0.25
@@ -975,7 +1052,8 @@ def eltwise_many_case(plan, dev, timed: bool):
 
 #: flash cases: name, B, H, KV, Sq, Sk, D, causal, window, softcap, dtype,
 #: whether one PyTorch call (SDPA) computes the same function; the "-tp4"
-#: case is one rank's local heads in phase 15's partitioned bf16 serve
+#: case is one rank's local heads in phase 15's partitioned bf16 serve,
+#: the "-tp2" one a rank's in phase 16's partitioned train step
 FLASH_CASES = [
     ("qwen2.5-3b", 8, 16, 2, 512, 512, 128, True, 0, 0.0, "bf16", True),
     ("zamba2-1.2b", 8, 32, 32, 512, 512, 64, True, 0, 0.0, "bf16", True),
@@ -986,16 +1064,20 @@ FLASH_CASES = [
      True),
     ("qwen2-moe-a2.7b-tp4", 8, 4, 4, 512, 512, 128, True, 0, 0.0, "bf16",
      True),
+    ("zamba2-1.2b-tp2", 4, 16, 16, 512, 512, 64, True, 0, 0.0, "bf16",
+     True),
 ]
 #: SSD cases: name, B, S, H, P, N, chunk, dtype (the first two are the
 #: serve prefills' shapes; then Zamba2-1.2B's in float32, a chunk of 256
-#: with head dim 128: two row tiles, two P tiles, and one rank's 16 local
-#: heads of Zamba2-1.2B in phase 15's f32 parity row)
+#: with head dim 128: two row tiles, two P tiles, one rank's 16 local
+#: heads of Zamba2-1.2B in phase 15's f32 parity row, and one rank's 32
+#: in phase 16's bf16 train step)
 SSD_CASES = [("mamba2-1.3b", 8, 512, 64, 64, 128, 128, "bf16"),
              ("zamba2-1.2b", 8, 512, 64, 64, 64, 128, "bf16"),
              ("zamba2-1.2b-f32", 8, 512, 64, 64, 64, 128, "f32"),
              ("lc256-p128", 4, 1024, 32, 128, 64, 256, "f32"),
-             ("zamba2-1.2b-tp4", 2, 128, 16, 64, 64, 128, "f32")]
+             ("zamba2-1.2b-tp4", 2, 128, 16, 64, 64, 128, "f32"),
+             ("zamba2-1.2b-tp2", 4, 512, 32, 64, 64, 128, "bf16")]
 
 
 def kernel_row(name, path, out, want, ms, plain_ms, library_ms, ops, nbytes,
@@ -1768,43 +1850,58 @@ def card_power() -> str:
 
 
 def dryrun_cells(out_dir: Path):
-    """Phase 13a: ``python -m repro_torch.launch.dryrun --both-meshes`` in
-    process: every arch and shape on both production meshes, on meta, with
-    the H100's roofline; its output to ``chiprun_out/dryrun_torch.log``,
-    its records to ``chiprun_out/dryrun_torch.json``."""
-    import contextlib
-    from repro_torch.launch import dryrun
+    """Phase 13a: ``python -m repro_torch.launch.dryrun --both-meshes``,
+    one process an arch (``--arch``), ``DRYRUN_WORKERS`` at a time: every
+    arch and shape on both production meshes, on meta, with the H100's
+    roofline; the processes' output, in arch order, to
+    ``chiprun_out/dryrun_torch.log``, their records, in ``main``'s order
+    (mesh, arch, shape), to ``chiprun_out/dryrun_torch.json``."""
+    from repro_torch.configs import SHAPES, list_archs
 
     out_dir.mkdir(exist_ok=True)
     path = out_dir / "dryrun_torch.json"
+    archs = list_archs()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+
+    def one(arch):
+        part = out_dir / f"dryrun_torch.{arch}.json"
+        run = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun",
+             "--both-meshes", "--arch", arch, "--out", str(part)],
+            env=env, capture_output=True, text=True, timeout=900)
+        records = json.loads(part.read_text()) if part.is_file() else []
+        part.unlink(missing_ok=True)
+        return run.returncode, run.stdout + run.stderr, records
     t0 = time.perf_counter()
-    with open(out_dir / "dryrun_torch.log", "w") as f, \
-            contextlib.redirect_stdout(f):
-        rc = dryrun.main(["--both-meshes", "--out", str(path)])
+    with ThreadPoolExecutor(DRYRUN_WORKERS) as pool:
+        runs = list(pool.map(one, archs))
     seconds = time.perf_counter() - t0
-    if rc:
-        raise AssertionError(f"dryrun: main returned {rc} "
+    (out_dir / "dryrun_torch.log").write_text(
+        "".join(text for _, text, _ in runs))
+    n = len(SHAPES)                   # each run: its shapes, a mesh each
+    records = [r for m in range(2) for _, _, recs in runs
+               for r in recs[m * n:(m + 1) * n]]
+    path.write_text(json.dumps(records, indent=1))
+    failed = [a for a, (rc, _, _) in zip(archs, runs) if rc]
+    if failed:
+        raise AssertionError(f"dryrun: main failed for {failed} "
                              f"(chiprun_out/dryrun_torch.log)")
-    records = json.loads(path.read_text())
     n_ok = sum(r["status"] == "ok" for r in records)
     per = collections.Counter(r["per_device"] for r in records
                               if r["status"] == "ok")
     n_skip = sum(r["status"] == "skipped" for r in records)
-    part_modes = {r["mode"] for r in records
-                  if r.get("per_device") == "partitioned"}
-    log(f"[dryrun] {len(records)} cells (every arch x shape x both meshes):"
-        f" {n_ok} traced ({per['partitioned']} partitioned, prefill and "
-        f"decode, one rank's trace under a fake group; "
-        f"{per['global/chips']} global/chips, train), {n_skip} skipped, 0 "
-        f"failed, in {seconds:.1f} s (chiprun_out/dryrun_torch.json, .log)")
+    modes = {r["mode"] for r in records if r["status"] == "ok"}
+    log(f"[dryrun] {len(records)} cells (every arch x shape x both meshes,"
+        f" {DRYRUN_WORKERS} processes): {n_ok} traced, {per['partitioned']}"
+        f" partitioned (one rank's train, prefill or decode step under a "
+        f"fake group), {n_skip} skipped, 0 failed, in {seconds:.1f} s "
+        f"(chiprun_out/dryrun_torch.json, .log)")
     if n_ok + n_skip != len(records) or n_skip != DRYRUN_SKIPS \
-            or part_modes - {"prefill", "decode"} \
-            or per["partitioned"] != sum(r["status"] == "ok" and r["mode"]
-                                         != "train" for r in records):
+            or per != {"partitioned": n_ok} \
+            or modes != {"train", "prefill", "decode"}:
         raise AssertionError(f"dryrun: {per}, {n_skip} skipped")
     return {"cells": len(records), "ok": n_ok, "seconds": seconds,
-            "partitioned": per["partitioned"],
-            "global_chips": per["global/chips"], "skipped": n_skip}
+            "partitioned": per["partitioned"], "skipped": n_skip}
 
 
 def dryrun_check(dev, arch, mode, batch, seq, expect, smi):
@@ -1890,7 +1987,7 @@ def dryrun_check(dev, arch, mode, batch, seq, expect, smi):
             f"{meta.cost.flops} bytes {meta.cost.bytes} units "
             f"{meta.cost.kernel_units}")
     peak_err = (meta.cost.peak_bytes - peak) / peak
-    trace_b = dryrun.trace_hbm_bytes(meta, plan, 1)
+    trace_b = dryrun.trace_hbm_bytes(meta, plan)
     if not abs(peak_err) <= DRYRUN_PEAK_TOL:
         raise AssertionError(f"dryrun {arch} {mode}: meta peak "
                              f"{meta.cost.peak_bytes} B vs the card's "
@@ -2335,6 +2432,561 @@ def partition_phase(dev, smi) -> dict:
             "seconds": seconds, "launches": dict(launches)}
 
 
+# ---------------------------------------------------------------------------
+# 16. the partitioned train step on ranks of the one card
+# ---------------------------------------------------------------------------
+
+def fsdp_budget(cfg, shape, mesh, dtype):
+    """An HBM budget at which the planner picks FSDP for ``cfg``'s
+    ``shape`` on ``mesh``: between the least at which FSDP fits and the
+    least at which a candidate without it does (geometric mean)."""
+    from repro_torch.hw.gpu import H100Spec
+    from repro_torch.launch import partition as pt
+
+    def plan(hbm):
+        return pt.plan_for(cfg, shape, mesh, dtype,
+                           pod=dataclasses.replace(H100Spec(),
+                                                   hbm_bytes=hbm))
+
+    def least(fits):
+        lo, hi = 1.0, 1e13
+        while hi / lo > 1.0001:
+            mid = (lo * hi) ** 0.5
+            lo, hi = (lo, mid) if fits(plan(mid)) else (mid, hi)
+        return hi
+    hbm = (least(lambda p: p.valid) * least(lambda p: not p.fsdp)) ** 0.5
+    if not plan(hbm).fsdp:
+        raise AssertionError(f"{cfg.name}: no budget forces FSDP")
+    return hbm
+
+
+def pt_config(arch, depth=None, tiny=False):
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import tiny_config
+    cfg = get_config(arch)
+    if tiny:
+        cfg = tiny_config(cfg)
+    return cfg if depth is None else dataclasses.replace(cfg,
+                                                         num_layers=depth)
+
+
+def pt_batches(cfg, B, S, steps):
+    """Phase 16's batches: ``launch/train.py``'s synthetic ones, seed 0."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    shape = ShapeConfig("pt", S, B, "train")
+    return [synth_batch(cfg, shape, i, DataConfig(seed=0))
+            for i in range(steps)]
+
+
+def partition_train_rank(rank: int, world: int, args: dict) -> dict:
+    """Phase 16 on one rank, in a process of its own (``run_ranks``): the
+    full-size bf16 train steps (the first counted under the op counter,
+    the launch counters set to 0 just before it and read after the last),
+    then the f32 parity rows, each rank's gradient windows of the first
+    batch held against the unpartitioned step's, which the parent saved
+    (``refs``: per row a file of whole gradients, read a window at a
+    time).  ``args``: device, mesh, train, parity, parity_shape, refs and
+    budgets; ``tiny`` cuts the configurations to ``tiny_config`` (the CPU
+    check of this function)."""
+    import gc
+
+    import torch
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.hw.gpu import H100Spec
+    from repro_torch.kernels import ops
+    from repro_torch.launch import partition as pt
+    from repro_torch.launch.mesh import Mesh, device_mesh
+    from repro_torch.launch.op_cost import OpCounter
+    from repro_torch.models.api import build_model
+    from repro_torch.models.common import token_losses
+    from repro_torch.optim.optimizers import TreeShards, tree_map
+
+    dev = torch.device(args["device"])
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    tiny = args.get("tiny", False)
+    axes = ("data", "model")
+    dms = {m: device_mesh(Mesh(m, axes), dev.type)
+           for m in {tuple(args["mesh"])} | {tuple(r[3])
+                                             for r in args["parity"]}
+           | {tuple(m) for m in args["witness"]}}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def setup(cfg, mesh, B, S, dtype, pod=H100Spec(), eps=None):
+        api = build_model(cfg, device=dev, dtype=dtype, mesh=dms[mesh],
+                          trainable=True)
+        plan = pt.plan_for(cfg, ShapeConfig("pt", S, B, "train"),
+                           Mesh(mesh, axes), dtype, pod=pod)
+        params = pt.init_params(api, plan, seed=0)
+        opt = pt.default_optimizer(cfg, params, lr=1e-3,
+                                   **({} if eps is None else {"eps": eps}))
+        return api, opt, plan, params, pt.init_opt_state(api, opt, plan)
+
+    def first_tokens(cfg, api, plan, params, bs):
+        """The loss of each token of the batches ``bs`` (forward only),
+        gathered over the data axes: [len(bs) x B, S] on the host."""
+        sh, out = api.shards, []
+        with torch.no_grad():
+            for b in bs:
+                b = pt.distribute_batch({k: torch.from_numpy(v).to(dev)
+                                         for k, v in b.items()}, plan, api)
+                h = api.forward(params, b["inputs"], return_hidden=True)
+                out.append(sh.all_gather(token_losses(
+                    h.to_local(), sh.local(params.lm_head),
+                    b["targets"].to_local(), cfg.final_logit_softcap,
+                    sh=sh, vocab=cfg.padded_vocab), 0, sh.data_axes).cpu())
+                del h
+        return torch.cat(out)
+
+    def free():
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+    def equal_windows(sh, params) -> bool:
+        """Every rank holding the same window of a leaf holds its bytes."""
+        bad = torch.zeros((), device=dev)
+        with torch.no_grad():
+            for p in params.parameters():
+                lay = sh.layout(p)
+                peers = [a for a in sh.axis_names
+                         if not any(a in ax for ax in lay.axes)]
+                x = p.to_local().reshape(1, -1)
+                bad += (sh.all_gather(x, 0, peers) != x).any().float()
+        return float(sh.all_reduce(bad, sh.axis_names)) == 0.0
+
+    out = {"rank": rank}
+    # ---- the full-size train steps, bf16 --------------------------------
+    arch, steps, B, S = args["train"]
+    cfg = pt_config(arch, tiny=tiny)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    api, opt, plan, params, state = setup(cfg, tuple(args["mesh"]), B, S,
+                                          torch.bfloat16)
+    sync()
+    init_s = time.perf_counter() - t0
+    step = pt.partitioned_train_step(api, opt, plan)
+    losses, seconds = [], []
+    batches = pt_batches(cfg, B, S, steps)
+    witness_batches = pt_batches(cfg, B, S, PT_WITNESS_BATCHES)
+    tokens = first_tokens(cfg, api, plan, params, witness_batches)
+    ops.reset_launch_counts()
+    for i, b in enumerate(batches):
+        batch = pt.distribute_batch({k: torch.from_numpy(v).to(dev)
+                                     for k, v in b.items()}, plan, api)
+        sync()
+        t0 = time.perf_counter()
+        if i == 0:                     # untimed: counted
+            with OpCounter(dev) as counter:
+                counter.hold(params, state, batch)
+                params, state, m = step(params, state, batch)
+            cost = counter.cost()
+        else:
+            params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))
+        sync()
+        seconds.append(time.perf_counter() - t0)
+    launches = ops.launch_counts()
+    step_s = min(seconds[1:])
+    out["train"] = {
+        "arch": arch, "init_s": init_s, "losses": losses,
+        "token_losses": tokens if rank == 0 else None,
+        "grad_norm": float(m["grad_norm"]), "step_seconds": seconds,
+        "step_s": step_s, "tokens_per_s": B * S / step_s,
+        "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9 if cuda
+        else 0.0, "launches": launches,
+        "plan": {"zero": plan.zero_opt, "fsdp": plan.fsdp,
+                 "attn_sharded": plan.attn_sharded},
+        "flops": cost.flops, "bytes": cost.bytes,
+        "coll_by_kind": cost.coll_by_kind, "kernel_units": cost.kernel_units,
+        "local_params": sum(p.to_local().numel()
+                            for p in params.parameters())}
+    del api, params, state, step, batch, m
+    free()
+
+    # ---- f32 parity, full width, cut depth --------------------------------
+    Bp, Sp, steps_p = args["parity_shape"]
+    out["parity"] = []
+    for name, arch_p, depth, mesh, force, eps in args["parity"]:
+        cfg_p = pt_config(arch_p, depth, tiny)
+        pod = dataclasses.replace(H100Spec(), hbm_bytes=args["budgets"][
+            name]) if force else H100Spec()
+        api, opt, plan, params, state = setup(cfg_p, tuple(mesh), Bp, Sp,
+                                              torch.float32, pod, eps)
+        sh = api.shards
+        refs = torch.load(args["refs"][name], mmap=True)
+        step = pt.partitioned_train_step(api, opt, plan)
+        ops.reset_launch_counts()
+        row = {"name": name, "plan": {"zero": plan.zero_opt,
+                                      "fsdp": plan.fsdp},
+               "loss": [], "grad_norm": [], "equal": []}
+        for i, b in enumerate(pt_batches(cfg_p, Bp, Sp, steps_p)):
+            batch = pt.distribute_batch({k: torch.from_numpy(v).to(dev)
+                                         for k, v in b.items()}, plan, api)
+            if i == 0:            # the first batch's gradients, as reduced
+                api.loss_fn(params, batch).backward()
+                named = dict(params.named_parameters())
+                view = TreeShards(sh, {n: sh.layout(p)
+                                       for n, p in named.items()},
+                                  tree_map(sh.layout, state), opt.mirror)
+                errs, flips = {}, torch.zeros((), device=dev)
+                with torch.no_grad():
+                    for n, p in named.items():
+                        lay = view.grads[n]
+                        g = view.reduce(n, p.grad.to_local())
+                        want = refs[n][tuple(
+                            slice(o, o + k) for o, k in
+                            zip(lay.offsets, lay.sizes))].to(dev)
+                        # elements whose gradient changes sign: AdamW's
+                        # first update moves them by 2 lr apart; the
+                        # largest |g| among them, beside the leaf's error
+                        flip = (g > 0) != (want > 0)
+                        flips += flip.sum()
+                        errs[n] = torch.stack([
+                            (g.float() - want).abs().max(),
+                            torch.where(flip, want.abs(), 0.0).max()])
+                    # the largest over the ranks, a leaf at a time
+                    errs = dict(zip(errs, sh.all_reduce(
+                        torch.stack(list(errs.values())), sh.axis_names,
+                        "max").tolist()))
+                row["sign_flips"] = int(sh.all_reduce(flips, sh.axis_names))
+                for p in named.values():
+                    p.grad = None
+                row["grad_abs_err"] = {n: e for n, (e, _) in errs.items()}
+                row["flip_max_abs"] = {n: f for n, (_, f) in errs.items()}
+            params, state, m = step(params, state, batch)
+            row["loss"].append(float(m["loss"]))
+            row["grad_norm"].append(float(m["grad_norm"]))
+            row["equal"].append(equal_windows(sh, params))
+        sync()
+        row["launches"] = ops.launch_counts()
+        out["parity"].append(row)
+        del api, params, state, step, refs, batch
+        free()
+
+    # ---- the witness batches' bf16 loss on a data-only and a model-only
+    # mesh
+    out["witness"] = {}
+    for mesh in args["witness"]:
+        api = build_model(cfg, device=dev, dtype=torch.bfloat16,
+                          mesh=dms[tuple(mesh)], trainable=True)
+        plan = pt.plan_for(cfg, ShapeConfig("pt", S, B, "train"),
+                           Mesh(tuple(mesh), axes))
+        params = pt.init_params(api, plan, seed=0)
+        t = first_tokens(cfg, api, plan, params, witness_batches)
+        out["witness"]["x".join(map(str, mesh))] = t if rank == 0 else None
+        del api, params
+        free()
+    return out
+
+
+def pt_reference(dev, arch, depth, tiny, path, eps=None) -> dict:
+    """The unpartitioned f32 step of a parity row on ``dev`` (AdamW's
+    ``eps`` where given): its first batch's gradients to ``path`` (whole,
+    on the host), each leaf's max |g|, and the losses and gradient norms
+    of ``PT_PARITY_SHAPE``'s steps."""
+    import torch
+    from repro_torch.launch import partition as pt
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models.api import build_model
+
+    cfg = pt_config(arch, depth, tiny)
+    B, S, steps = PT_PARITY_SHAPE
+    api = build_model(cfg, device=dev, dtype=torch.float32, trainable=True)
+    params = api.init(0)
+    opt = pt.default_optimizer(cfg, params, lr=1e-3,
+                               **({} if eps is None else {"eps": eps}))
+    state = opt.init(dict(params.named_parameters()))
+    step = build_train_step(api, opt)
+    res = {"loss": [], "grad_norm": [], "path": path}
+    for i, b in enumerate(pt_batches(cfg, B, S, steps)):
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+        if i == 0:
+            api.loss_fn(params, batch).backward()
+            grads = {n: p.grad.detach().cpu()
+                     for n, p in params.named_parameters()}
+            res["grad_max"] = {n: float(g.abs().max())
+                               for n, g in grads.items()}
+            torch.save(grads, path)
+            del grads
+            for p in params.parameters():
+                p.grad = None
+        params, state, m = step(params, state, batch)
+        res["loss"].append(float(m["loss"]))
+        res["grad_norm"].append(float(m["grad_norm"]))
+    del api, params, state, step
+    if dev.type == "cuda":
+        _free_card()
+    return res
+
+
+def pt_loss_ref(dev, arch, B, S, tiny=False) -> dict:
+    """Phase 16a's check: the loss of each token of the first
+    ``PT_WITNESS_BATCHES`` batches of the full-size model, seed 0,
+    unpartitioned in this process, forward only: in bf16, and in f32 with
+    the bf16 model's weights (each bf16 leaf rounded to bf16, held in
+    f32); [batches x B, S] each."""
+    import torch
+    from repro_torch.models.api import build_model
+    from repro_torch.models.common import token_losses
+    cfg = pt_config(arch, tiny=tiny)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+               for b in pt_batches(cfg, B, S, PT_WITNESS_BATCHES)]
+    out = {}
+    for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        api = build_model(cfg, device=dev, dtype=dtype)
+        with torch.inference_mode():
+            params = api.init(0)
+            if dtype == torch.float32:
+                like = build_model(cfg, device="meta").init(0)
+                for p, q in zip(params.parameters(), like.parameters()):
+                    if q.dtype == torch.bfloat16:
+                        p.copy_(p.to(torch.bfloat16))
+            out[name] = torch.cat([token_losses(
+                api.forward(params, b["inputs"], return_hidden=True),
+                params.lm_head, b["targets"], cfg.final_logit_softcap).cpu()
+                for b in batches])
+        del params, api
+        _free_card()
+    return out
+
+
+def pt_meta_count(arch, B, S, mesh, tiny=False) -> dict:
+    """Rank 0's step of phase 16a traced on ``meta`` under a fake group of
+    the mesh's size: its FLOPs, bytes and collective bytes by kind."""
+    import torch
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import partition as pt
+    from repro_torch.launch.mesh import Mesh, device_mesh, fake_group
+    from repro_torch.launch.op_cost import OpCounter
+    from repro_torch.launch.steps import input_structs
+    from repro_torch.models.api import build_model
+
+    cfg = pt_config(arch, tiny=tiny)
+    shape = ShapeConfig("pt", S, B, "train")
+    m = Mesh(mesh, ("data", "model"))
+    t0 = time.perf_counter()
+    plan = pt.plan_for(cfg, shape, m)
+    with fake_group(m.size):
+        api = build_model(cfg, device="meta", mesh=device_mesh(m, "cpu"),
+                          trainable=True)
+        params = pt.init_params(api, plan)
+        opt = pt.default_optimizer(cfg, params, lr=1e-3)
+        state = pt.init_opt_state(api, opt, plan)
+        batch = pt.distribute_batch(input_structs(cfg, shape), plan, api)
+        with OpCounter("meta") as counter:
+            counter.hold(params, state, batch)
+            pt.partitioned_train_step(api, opt, plan)(params, state, batch)
+    c = counter.cost()
+    return {"flops": c.flops, "bytes": c.bytes,
+            "coll_by_kind": c.coll_by_kind, "kernel_units": c.kernel_units,
+            "peak_bytes": c.peak_bytes, "seconds": time.perf_counter() - t0}
+
+
+def pt_ref_key(arch, eps) -> str:
+    """The name of a parity row's unpartitioned reference."""
+    return arch if eps is None else f"{arch}-eps{eps:g}"
+
+
+def partition_train_phase(dev, smi, tiny=False) -> dict:
+    """Phase 16 (``[partition-train]``): the unpartitioned f32 parity
+    steps in this process first (their gradients saved to the host, the
+    card freed), then ``PART_RANKS`` ranks on the one card, mesh
+    ``PT_MESH``: the full-size bf16 train steps and the f32 parity rows;
+    then, the ranks gone, the full-size model's first loss unpartitioned
+    in bf16 and f32, and rank 0's step traced on meta.  A rank that fails
+    fails the phase.  ``tiny`` cuts every configuration to
+    ``tiny_config`` (the CPU check of this function, ``dev`` the CPU)."""
+    import tempfile
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.kernels import backend
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.partition import run_ranks
+
+    import torch
+    if dev.type == "cuda":        # built once, before the ranks start
+        backend.library(backend.MODEL_SOURCE)
+    _free_card()
+    t0 = time.perf_counter()
+    Bp, Sp, steps_p = PT_PARITY_SHAPE
+    with tempfile.TemporaryDirectory(prefix="pt_refs_") as tmp:
+        refs, ref_paths, budgets = {}, {}, {}
+        for name, arch, depth, mesh, force, eps in PT_PARITY:
+            key = pt_ref_key(arch, eps)
+            if key not in refs:
+                refs[key] = pt_reference(dev, arch, depth, tiny,
+                                         str(Path(tmp) / f"{key}.pt"), eps)
+            ref_paths[name] = refs[key]["path"]
+            if force:
+                budgets[name] = fsdp_budget(
+                    pt_config(arch, depth, tiny), ShapeConfig("pt", Sp, Bp,
+                                                              "train"),
+                    Mesh(mesh, ("data", "model")), torch.float32)
+        ref_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        ranks = run_ranks(
+            f"{Path(__file__).resolve()}:partition_train_rank", PART_RANKS,
+            "gloo", {"device": str(dev), "mesh": PT_MESH, "train": PT_TRAIN,
+                     "parity": PT_PARITY, "parity_shape": PT_PARITY_SHAPE,
+                     "witness": PT_WITNESS, "refs": ref_paths,
+                     "budgets": budgets, "tiny": tiny},
+            timeout=1000)
+        ranks_s = time.perf_counter() - t1
+    arch, steps, B, S = PT_TRAIN
+    losses = pt_loss_ref(dev, arch, B, S, tiny)
+    meta = pt_meta_count(arch, B, S, PT_MESH, tiny)
+    bad = []
+    for r in ranks:
+        tr = r["train"]
+        colls = ", ".join(f"{k} {v:.4g} B" for k, v in
+                          sorted(tr["coll_by_kind"].items()))
+        log(f"[partition-train] rank {r['rank']} of {PART_RANKS} (mesh "
+            f"{PT_MESH[0]}x{PT_MESH[1]}, gloo, one card) {arch} bf16 full "
+            f"width and depth, {tr['local_params'] / 1e9:.3f} B local "
+            f"parameters, AdamW, plan zero={tr['plan']['zero']} "
+            f"fsdp={tr['plan']['fsdp']}: {steps} eager steps of {B} x {S} "
+            f"(step 1 counted), step {tr['step_s']:.4f} s (min of steps "
+            f"2-{steps}; all {[round(x, 4) for x in tr['step_seconds']]}), "
+            f"{tr['tokens_per_s']:.1f} tokens/s, peak {tr['peak_gb']:.2f} "
+            f"GB, losses {[round(x, 5) for x in tr['losses']]}, launches "
+            f"{tr['launches']}; step 1's collectives: {colls} | {smi}")
+        if not all(math.isfinite(x) for x in tr["losses"]):
+            bad.append(f"rank {r['rank']}: losses {tr['losses']}")
+        for k in ("flash_attention", "ssd_intra_chunk"):
+            if not tr["launches"].get(k):
+                bad.append(f"rank {r['rank']}: no {k} launch")
+    tr0 = ranks[0]["train"]
+    if any(r["train"]["losses"] != tr0["losses"] for r in ranks):
+        bad.append("the ranks' losses differ")
+    tokens, f32 = tr0.pop("token_losses"), losses["f32"]
+
+    def dist(a, rows=None):
+        return float((a[:rows] - f32[:rows]).norm() / f32[:rows].norm())
+    part, one = dist(tokens, B), dist(losses["bf16"], B)
+    log(f"[partition-train] {arch} first batch's loss of each of its "
+        f"{f32[:B].numel()} tokens against the same weights' f32 ones (|a - "
+        f"b| / |b|): the partitioned bf16 {part:.4e}, the one-card bf16 "
+        f"{one:.4e} (limit {PART_BF16_FACTOR} x the one-card's); the "
+        f"means: f32 {float(f32[:B].mean()):.6f}, partitioned "
+        f"{float(tokens[:B].mean()):.6f}, one-card "
+        f"{float(losses['bf16'][:B].mean()):.6f}, the partitioned step's "
+        f"first loss {tr0['losses'][0]:.6f} | {smi}")
+    if tokens.shape != f32.shape or not part <= PART_BF16_FACTOR * one:
+        bad.append(f"token losses {part:.3e} from f32, one-card {one:.3e}")
+    # the scalar loss's offset from f32, by mesh: each row's mean is an
+    # independent draw of the rounding noise (rows share no prefix), so
+    # the offset is held against its standard error over the rows, not
+    # against one other draw; a fault's bias moves every row alike
+    witness = {f"{PT_MESH[0]}x{PT_MESH[1]}": tokens,
+               **ranks[0].pop("witness")}
+
+    def offset(a, b):
+        """The mean over the rows of ``a - b``'s row means, its standard
+        error, and their ratio."""
+        d = (a.double() - b.double()).mean(1)
+        mean, se = float(d.mean()), float(d.std() / math.sqrt(d.numel()))
+        return {"mean": mean, "se": se,
+                "z": 0.0 if mean == 0 else mean / se}
+    one_off = offset(losses["bf16"], f32)
+    offsets = {m: {"vs_f32": offset(t, f32),
+                   "vs_one_card": offset(t, losses["bf16"]),
+                   "per_token": dist(t)} for m, t in witness.items()}
+    log(f"[partition-train] {arch} the first {PT_WITNESS_BATCHES} batches' "
+        f"scalar loss by mesh (data x model), same (initial) weights, forward "
+        f"only, mean of the {f32.shape[0]} rows' offsets "
+        f"+- its standard error: one-card bf16 from f32 "
+        f"{one_off['mean']:+.4e} +- {one_off['se']:.2e}; "
+        + "; ".join(f"{m} from f32 {o['vs_f32']['mean']:+.4e} +- "
+                    f"{o['vs_f32']['se']:.2e}, from the one-card bf16 "
+                    f"{o['vs_one_card']['mean']:+.4e} +- "
+                    f"{o['vs_one_card']['se']:.2e} (z {o['vs_one_card']['z']:+.2f},"
+                    f" limit {PT_BIAS_Z}), per token {o['per_token']:.4e}"
+                    for m, o in offsets.items()) + f" | {smi}")
+    for m, o in offsets.items():
+        if not abs(o["vs_one_card"]["z"]) <= PT_BIAS_Z:
+            bad.append(f"{m}: the scalar loss is {o['vs_one_card']['z']:+.2f}"
+                       f" standard errors from the one-card bf16's")
+    same = {k: (tr0[k], meta[k]) for k in ("flops", "bytes",
+                                            "coll_by_kind", "kernel_units")}
+    log(f"[partition-train] rank 0's counted step against its meta trace "
+        f"under a fake group of {PART_RANKS} ({meta['seconds']:.1f} s): "
+        + ", ".join(f"{k} {a} vs {b}" for k, (a, b) in same.items())
+        + f"; meta peak {meta['peak_bytes'] / 1e9:.2f} GB, the card's "
+        f"{tr0['peak_gb']:.2f} GB")
+    if any(a != b for a, b in same.values()):
+        bad.append(f"rank 0's counts differ from the meta trace's: {same}")
+    for (name, arch_p, depth, mesh, force, eps), row, *others in zip(
+            PT_PARITY, ranks[0]["parity"],
+            *(r["parity"] for r in ranks[1:])):
+        ref = refs[pt_ref_key(arch_p, eps)]
+        loss_errs = [abs(a - b) / abs(b) for a, b in zip(row["loss"],
+                                                         ref["loss"])]
+        norm_errs = [abs(a - b) / abs(b) for a, b in zip(
+            row["grad_norm"], ref["grad_norm"])]
+        first = max(loss_errs[0], norm_errs[0])
+        steps_err = max(loss_errs + norm_errs)
+        steps_tol = PT_STEPS_TOL if eps is None else PT_LOSS_TOL
+
+        def rel(d):
+            return {n: e / max(ref["grad_max"][n], 1e-30)
+                    for n, e in d.items()}
+        errs, flip = rel(row["grad_abs_err"]), rel(row["flip_max_abs"])
+        worst = max(errs, key=errs.get)
+        worst_flip = max(flip, key=flip.get)
+        equal = all(all(o["equal"]) for o in [row] + others)
+        log(f"[partition-train] f32 parity {name}: {arch_p} at {depth} "
+            f"layers, full width, mesh {mesh[0]}x{mesh[1]}, plan "
+            f"{row['plan']}, AdamW eps {1e-8 if eps is None else eps:g}, "
+            f"{Bp} x {Sp}, {steps_p} steps: the first step's "
+            f"loss and grad_norm rel err {first:.3e} (limit {PT_LOSS_TOL}), "
+            f"every step's {steps_err:.3e} (limit {steps_tol}; by step: "
+            f"losses {row['loss']} vs {ref['loss']}, grad_norm "
+            f"{row['grad_norm']} vs {ref['grad_norm']}); gradient leaves "
+            f"max err over max |g| "
+            f"{errs[worst]:.3e} ({worst}; limit {PT_GRAD_TOL}), "
+            f"{row['sign_flips']} elements of the ranks' windows of the first "
+            f"gradient with the other sign, the largest |g| among them "
+            f"{max(row['flip_max_abs'].values()):.3e} ("
+            f"{flip[worst_flip]:.3e} of its leaf's max |g|, {worst_flip}); "
+            f"data ranks' parameters equal bit "
+            f"for bit after each update: {equal}; launches per rank "
+            f"{[o['launches'] for o in [row] + others]} | {smi}")
+        if force and not row["plan"]["fsdp"]:
+            bad.append(f"parity {name}: the plan is not FSDP")
+        if not (first <= PT_LOSS_TOL and steps_err <= steps_tol and
+                errs[worst] <= PT_GRAD_TOL and equal):
+            bad.append(f"parity {name}: first step {first:.3e}, steps "
+                       f"{steps_err:.3e}, leaf {errs[worst]:.3e}, equal "
+                       f"{equal}")
+    if bad:
+        raise AssertionError("partition-train: " + "; ".join(bad))
+    seconds = time.perf_counter() - t0
+    log(f"[partition-train] phase 16 in {seconds:.1f} s ({ref_s:.1f} s the "
+        f"unpartitioned references, {ranks_s:.1f} s the {PART_RANKS} ranks, "
+        f"start-up included)")
+    launches = collections.Counter()
+    for r in ranks:
+        launches.update(r["train"]["launches"])
+        for row in r["parity"]:
+            launches.update(row["launches"])
+    return {"ranks": ranks, "references": refs,
+            "token_losses": {"partitioned_vs_f32": part,
+                             "one_card_vs_f32": one,
+                             "scalar_offsets_by_mesh": offsets,
+                             "one_card_scalar_offset": one_off,
+                             "means": {k: float(v[:B].mean())
+                                       for k, v in losses.items()}},
+            "meta": meta, "seconds": seconds, "launches": dict(launches)}
+
+
 def model_kernel_entry(name, rows, uses, serve_res, source, replaces):
     """The kernels-line entry of a model-zoo kernel: times summed over the
     launches of the two serve prefills, at their shapes."""
@@ -2369,6 +3021,10 @@ def main(argv=None) -> int:
     ap.add_argument("--partition-only", action="store_true",
                     help="build, run phase 15 (the partitioned serve on "
                     "ranks of the one card) and stop without a result line")
+    ap.add_argument("--partition-train-only", action="store_true",
+                    help="build, run phase 16 (the partitioned train step "
+                    "on ranks of the one card) and stop without a result "
+                    "line")
     args = ap.parse_args(argv)
     t_main = time.perf_counter()
     if not (ROOT / "src" / "repro_torch" / "csrc"
@@ -2430,6 +3086,10 @@ def main(argv=None) -> int:
     if args.partition_only:
         partition_phase(dev, card_power())
         log("[partition] stopping (--partition-only)")
+        return 0
+    if args.partition_train_only:
+        partition_train_phase(dev, card_power())
+        log("[partition-train] stopping (--partition-train-only)")
         return 0
 
     # solve + lower the three configurations --------------------------------
@@ -2663,6 +3323,8 @@ def main(argv=None) -> int:
     log(f"[dryrun] phase 13 in {time.perf_counter() - t_phase:.1f} s")
     # 15. the partitioned serve on ranks of the one card -----------------
     detail["partition"] = partition_phase(dev, smi)
+    # 16. the partitioned train step on ranks of the one card ------------
+    detail["partition_train"] = partition_train_phase(dev, smi)
     # the same step eager (phase 13b) and replayed (phase 10), one run
     eager = next(c for c in detail["dryrun"]["checks"]
                  if c["mode"] == "train")
@@ -2750,6 +3412,14 @@ def main(argv=None) -> int:
         k["launches"] += k["launches_partition"]
     kernels[-2]["launches_wgmma"] += \
         part_launches.get("flash_attention_wgmma", 0)
+    # phase 16's ranks (the bf16 train steps, the f32 parity rows)
+    pt_launches = detail["partition_train"]["launches"]
+    for k in kernels[-2:]:
+        k["uses"].append("partition-train")
+        k["launches_partition_train"] = pt_launches.get(k["name"], 0)
+        k["launches"] += k["launches_partition_train"]
+    kernels[-2]["launches_wgmma"] += \
+        pt_launches.get("flash_attention_wgmma", 0)
     detail["kernels"] = kernels
     for k in kernels:
         if k["name"] in EARLIER_MS:
@@ -2772,7 +3442,8 @@ def main(argv=None) -> int:
         "ssd_intra_chunk per serve prefill of Zamba2-1.2B; each summed "
         "over its launches; their launches count phase 8's serve prefills "
         "(each serve's warm-up call and its captured replay), phase 10's "
-        "training steps, phase 13's counted steps and phase 15's ranks)")
+        "training steps, phase 13's counted steps and phase 15's and 16's "
+        "ranks)")
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

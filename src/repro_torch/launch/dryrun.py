@@ -12,30 +12,26 @@ is compiled with an abstract one: it attends over all ``seq_len``
 positions of the static cache and masks those at or past the length on
 the device, as the reference's program does.
 
-Prefill and decode cells are traced partitioned (``"per_device":
-"partitioned"``), as the reference compiles them with the plan's
-``in_shardings``: one rank of the mesh, under ``launch/mesh.py``
-``fake_group`` of the mesh's size, runs ``launch/partition.py``'s step
-on its meta shards (``init_params``, ``init_cache``, the inputs at the
-plan's batch placements).  The record's per-device FLOPs, bytes, peak,
-arguments and collective bytes by kind are that rank's trace's: its
-local ops, its FSDP gathers and its collectives as issued, not a formula.
-One trace per (arch, shape, mesh), since the local batch differs between
-the meshes.  A cell whose partitioned trace fails is a failed cell; it is
-never divided by the chips instead.
-
-Train cells are still traced once on one device, shared by both meshes,
-and divided by the chips (``"per_device": "global/chips"``: the
-partitioned train step, with its backward and ZeRO/FSDP state as
-placements, is not ported yet).  Their collective bytes are the plan's
-collective model (``autoshard.collective_bytes``); their memory record's
-arguments are the plan's per-chip parameters, optimizer state and cache,
-its outputs the step's results over the chips, its temporaries what the
-trace's peak holds beyond the arguments and the new results, over the
-chips.  The roofline reads ``pod``, the
-H100 unless the caller passes another spec.  The records keep the reference's keys
+Every cell is traced partitioned (``"per_device": "partitioned"``), as
+the reference compiles it with the plan's ``in_shardings``: one rank of
+the mesh, under ``launch/mesh.py`` ``fake_group`` of the mesh's size,
+runs ``launch/partition.py``'s step on its meta shards (``init_params``;
+``init_cache``, or for training ``init_opt_state``; the inputs at the
+plan's batch placements).  A train step is the rank's forward, backward
+and optimizer update, its ZeRO or FSDP state as placements.  The record's
+per-device FLOPs, bytes, peak, arguments and collective bytes by kind are
+that rank's trace's: its local ops, its FSDP gathers and their
+reduce-scatters, its gradient reductions and its collectives as issued,
+not a formula.  One trace per (arch, shape, mesh), since the local batch
+differs between the meshes.  A cell whose partitioned trace fails is a
+failed cell.  The memory record's arguments are the rank's parameters and
+optimizer state or cache, its outputs the step's results, its
+temporaries what the rank's peak holds beyond the arguments and the new
+results.  The roofline reads ``pod``, the H100 unless the caller passes
+another spec.  The records keep the reference's keys
 (``xla_cost_analysis`` has no counterpart), so
-``benchmarks/roofline_table.py`` reads them unchanged.
+``benchmarks/roofline_table.py`` reads them unchanged.  ``trace_step``,
+one device's step, is what ``chip_smoke.py`` holds against the card.
 
 Usage (``-m repro_torch.launch.dryrun`` with ``PYTHONPATH=src``):
   python -m repro_torch.launch.dryrun                   # all cells, 16x16
@@ -138,20 +134,24 @@ def trace_partitioned(cfg: ModelConfig, shape: ShapeConfig, mesh,
                       pod=H100Spec(),
                       dtype: torch.dtype = torch.bfloat16) -> PartTrace:
     """Plan ``shape`` on ``mesh`` (shape-only), then trace rank 0's
-    prefill or decode step on its meta shards under a fake group of the
-    mesh's size."""
+    train, prefill or decode step on its meta shards under a fake group
+    of the mesh's size: a train step's backward and optimizer update
+    included, its state at the plan's ``opt_specs``."""
     t0 = time.perf_counter()
-    api = build_model(cfg, device="meta", mesh=mesh, dtype=dtype)
-    cache = api.init_cache(shape.global_batch, shape.seq_len)
-    plan = plan_sharding(cfg, shape, mesh, api.init(0), {},
-                         cache_shapes=cache, pod=pod)
-    del api, cache
+    train = shape.mode == "train"
+    plan = partition.plan_for(cfg, shape, mesh, dtype, pod=pod)
     batch = input_structs(cfg, shape)
     with fake_group(mesh.size):
         papi = build_model(cfg, device="meta", dtype=dtype,
-                           mesh=device_mesh(mesh, "cpu"))
+                           mesh=device_mesh(mesh, "cpu"), trainable=train)
         params = partition.init_params(papi, plan)
-        if shape.mode == "prefill":
+        if train:
+            optimizer = partition.default_optimizer(cfg, params)
+            state = partition.init_opt_state(papi, optimizer, plan)
+            step = partition.partitioned_train_step(papi, optimizer, plan)
+            args = (params, state,
+                    partition.distribute_batch(batch, plan, papi))
+        elif shape.mode == "prefill":
             step = partition.partitioned_prefill_step(papi, shape.seq_len,
                                                       plan)
             args = (params, partition.distribute(
@@ -169,21 +169,21 @@ def trace_partitioned(cfg: ModelConfig, shape: ShapeConfig, mesh,
         held = {t.untyped_storage()._cdata for t in leaf_tensors(args)}
         new = [t for t in leaf_tensors(out)
                if t.untyped_storage()._cdata not in held]
-        cache_out = out[1]
-        arg_b = storage_bytes(params) + storage_bytes(cache_out)
+        # parameters and optimizer state, or parameters and cache
+        arg_b = storage_bytes(params) + storage_bytes(out[1])
         return PartTrace(plan, counter.cost(), arg_b, storage_bytes(out),
                          storage_bytes(new), time.perf_counter() - t0)
 
 
-def trace_hbm_bytes(tr: Trace, plan, chips: int) -> float:
-    """A chip's bytes at the trace's peak: the plan's per-chip arguments
-    (parameters, optimizer state, cache) and the rest of the peak (new
-    results, temporaries) over the chips.  On one chip it is the meta
-    peak, which the card's peak allocation matches; the planner's
-    ``hbm_gb_per_chip`` (the reference's rule, which ``valid`` reads)
-    counts activations by a formula instead."""
+def trace_hbm_bytes(tr: Trace, plan) -> float:
+    """One device's bytes at the trace's peak as the plan counts them:
+    the plan's arguments (parameters, optimizer state, cache) and the
+    rest of the peak (new results, temporaries), which the card's peak
+    allocation matches; the planner's ``hbm_gb_per_chip`` (the
+    reference's rule, which ``valid`` reads) counts activations by a
+    formula instead."""
     rest = tr.cost.peak_bytes - tr.cost.held_bytes - tr.planned_output_bytes
-    return argument_bytes(plan) + max(0, rest) / chips
+    return argument_bytes(plan) + max(0, rest)
 
 
 def argument_bytes(plan) -> float:
@@ -197,9 +197,8 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool = False,
                pod=H100Spec(), traces: Optional[Dict] = None
                ) -> Dict[str, Any]:
     """Trace + plan one (arch x shape x mesh) cell; return its record.
-    ``traces`` (a dict the caller keeps) holds the traces made: a train
-    cell's (arch, shape) trace serves the other mesh too, a partitioned
-    one is the mesh's own."""
+    ``traces`` (a dict the caller keeps) holds the partitioned traces
+    made, by (arch, shape, int8 cache, mesh)."""
     cfg = get_config(arch)
     if kv_int8:
         cfg = dataclasses.replace(cfg, kv_cache_dtype="int8")
@@ -217,50 +216,28 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool = False,
     mesh_name = "x".join(str(s) for s in mesh.devices.shape)
     chips = mesh.size
     traces = {} if traces is None else traces
-    if shape.mode != "train":
-        # one rank of the partitioned step: its own counts, per device
-        key = (arch, shape_name, kv_int8, mesh_name)
-        if key not in traces:
-            traces[key] = trace_partitioned(cfg, shape, mesh, pod=pod)
-        pt = traces[key]
-        plan, cost, per_device = pt.plan, pt.cost, "partitioned"
-        new_out = pt.new_output_bytes
-        temp = max(0, cost.peak_bytes - cost.held_bytes - new_out)
-        trace_b = cost.peak_bytes
-        mem = types.SimpleNamespace(argument_size_in_bytes=pt.argument_bytes,
-                                    output_size_in_bytes=pt.output_bytes,
-                                    temp_size_in_bytes=temp)
-        per_dev = {"flops": cost.flops, "bytes accessed": cost.bytes}
-        coll = dict(cost.coll_by_kind)
-        seconds = pt.seconds
-    else:
-        # one trace on one device serves both meshes, divided by the chips
-        key = (arch, shape_name, kv_int8, mesh.shape.get("model", 1))
-        if key not in traces:
-            traces[key] = trace_step(cfg, shape, mesh)
-        tr = traces[key]
-        plan = plan_sharding(cfg, shape, mesh, tr.params, tr.opt_state,
-                             cache_shapes=tr.cache, pod=pod)
-        cost, per_device, new_out = tr.cost, "global/chips", \
-            tr.new_output_bytes
-        temp = max(0, cost.peak_bytes - cost.held_bytes - new_out)
-        trace_b = trace_hbm_bytes(tr, plan, chips)
-        mem = types.SimpleNamespace(
-            argument_size_in_bytes=argument_bytes(plan),
-            output_size_in_bytes=tr.output_bytes / chips,
-            temp_size_in_bytes=temp / chips)
-        per_dev = {"flops": cost.flops / chips,
-                   "bytes accessed": cost.bytes / chips}
-        coll = dict(plan.coll_by_kind)
-        seconds = tr.seconds
+    # one rank of the partitioned step: its own counts, per device
+    key = (arch, shape_name, kv_int8, mesh_name)
+    if key not in traces:
+        traces[key] = trace_partitioned(cfg, shape, mesh, pod=pod)
+    pt = traces[key]
+    plan, cost = pt.plan, pt.cost
+    new_out = pt.new_output_bytes
+    temp = max(0, cost.peak_bytes - cost.held_bytes - new_out)
+    trace_b = cost.peak_bytes
+    mem = types.SimpleNamespace(argument_size_in_bytes=pt.argument_bytes,
+                                output_size_in_bytes=pt.output_bytes,
+                                temp_size_in_bytes=temp)
+    per_dev = {"flops": cost.flops, "bytes accessed": cost.bytes}
+    coll = dict(cost.coll_by_kind)
     rep = analyze(arch, shape_name, mesh_name, chips, per_dev, "",
                   model_flops_for(cfg, shape), pod=pod, mem_stats=mem,
                   coll=(sum(coll.values()), coll))
     record: Dict[str, Any] = {
         "arch": arch, "shape": shape_name, "mesh": mesh_name,
         "mode": shape.mode, "status": "ok",
-        "compile_seconds": round(seconds, 3),
-        "per_device": per_device,
+        "compile_seconds": round(pt.seconds, 3),
+        "per_device": "partitioned",
         "plan": {"zero": plan.zero_opt, "attn_sharded": plan.attn_sharded,
                  "fsdp": plan.fsdp, "valid": plan.valid,
                  "hbm_gb": round(plan.hbm_gb_per_chip, 2),

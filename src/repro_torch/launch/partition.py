@@ -1,8 +1,8 @@
-"""The partitioned serving program: one rank's prefill and decode step on
-a device mesh, at the sharding plan's placements.
+"""The partitioned programs: one rank's prefill, decode step and train
+step on a device mesh, at the sharding plan's placements.
 
 The port's counterpart of the reference's ``jax.jit(step,
-in_shardings=..., out_shardings=...)`` in ``launch/dryrun.py:81-117``.
+in_shardings=..., out_shardings=...)`` in ``launch/dryrun.py:74-117``.
 ``core/autoshard.py`` ``plan_sharding`` picks the specs;
 ``ShardingPlan.param_shardings`` (``batch_shardings``,
 ``cache_shardings``) turns them into ``torch.distributed.tensor``
@@ -21,6 +21,10 @@ issues the collectives the reference's GSPMD partition inserts.
   their inputs at the plan's batch and cache placements and return the
   cache at ``cache_specs``, as the reference's ``out_shardings`` do (the
   cache is written in place, in each rank's window).
+* ``init_opt_state`` allocates each rank's window of the optimizer state
+  at ``opt_specs``; ``partitioned_train_step`` is one rank's forward,
+  backward and update (ZeRO and FSDP state as placements), parameters
+  and state written in place at their placements.
 * ``run_ranks`` runs one function on every rank of a new process group,
   each in a process of its own (``gloo`` on the CPU, or on one card for
   several ranks, where NCCL refuses two ranks on one device): the CPU
@@ -42,9 +46,12 @@ import torch
 
 from ..configs.base import ModelConfig, ShapeConfig
 from ..core.autoshard import P, ShardingPlan, placements, plan_sharding
-from ..models.api import Model, ModelAPI, build_model
+from ..hw.gpu import H100Spec
+from ..models.api import Model, ModelAPI, build_model, layer_stacks
 from ..models.shards import Shards
+from ..optim.optimizers import Optimizer, make_optimizer, tree_map
 from .mesh import Mesh
+from .steps import build_train_step
 
 
 def shards_of(api: ModelAPI) -> Shards:
@@ -54,15 +61,33 @@ def shards_of(api: ModelAPI) -> Shards:
     return api.shards
 
 
+def meta_params(cfg: ModelConfig, mesh, dtype: torch.dtype) -> Model:
+    """The model's parameters on ``meta``, global shapes (the routed
+    experts padded for ``mesh``'s model axis)."""
+    return build_model(cfg, device="meta", dtype=dtype, mesh=mesh).init(0)
+
+
+def default_optimizer(cfg: ModelConfig, params: Model, **kw) -> Optimizer:
+    """``cfg``'s optimizer, Adafactor over the reference's layer stacks."""
+    return make_optimizer(cfg.optimizer, stacks=layer_stacks(cfg, params),
+                          **kw)
+
+
 def plan_for(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh,
-             dtype: torch.dtype = torch.bfloat16) -> ShardingPlan:
+             dtype: torch.dtype = torch.bfloat16, pod=H100Spec()
+             ) -> ShardingPlan:
     """The sharding plan of ``cfg`` for ``shape`` on ``mesh`` (a
-    shape-only ``Mesh``), from meta parameters and cache."""
+    shape-only ``Mesh``), from meta parameters and cache, or (training)
+    ``default_optimizer``'s state."""
     api = build_model(cfg, device="meta", dtype=dtype, mesh=mesh)
-    cache = api.init_cache(shape.global_batch, shape.seq_len) \
-        if shape.mode != "train" else None
-    return plan_sharding(cfg, shape, mesh, api.init(0), {},
-                         cache_shapes=cache)
+    params = api.init(0)
+    if shape.mode == "train":
+        state = default_optimizer(cfg, params).init(
+            dict(params.named_parameters()))
+        return plan_sharding(cfg, shape, mesh, params, state, pod=pod)
+    return plan_sharding(cfg, shape, mesh, params, {}, pod=pod,
+                         cache_shapes=api.init_cache(shape.global_batch,
+                                                     shape.seq_len))
 
 
 def _placer(api: ModelAPI, plan: ShardingPlan):
@@ -104,6 +129,69 @@ def init_cache(api: ModelAPI, plan: ShardingPlan, batch: int,
         local = torch.zeros(lay.sizes, dtype=dtype, device=api.device)
         out[name] = sh.wrap(local, shape, lay.axes)
     return out
+
+
+def init_opt_state(api: ModelAPI, optimizer: Optimizer,
+                   plan: ShardingPlan) -> Any:
+    """This rank's window of ``optimizer``'s zeroed state (every state
+    starts at zero), as DTensors at the plan's ``opt_specs``: the state
+    the optimizer's ``init`` gives the global meta parameters, each leaf
+    allocated at its window only."""
+    sh = shards_of(api)
+    shape = Mesh(tuple(sh.size[a] for a in sh.axis_names), sh.axis_names)
+    params = meta_params(api.cfg, shape, api.dtype)
+    meta = optimizer.init(dict(params.named_parameters()))
+
+    def place(t, spec):
+        lay = sh.window(tuple(t.shape), placements(spec, sh.mesh))
+        local = torch.zeros(lay.sizes, dtype=t.dtype, device=api.device)
+        return sh.wrap(local, tuple(t.shape), lay.axes)
+    return tree_map(place, meta, plan.opt_specs)
+
+
+def distribute_batch(batch: Dict[str, torch.Tensor], plan: ShardingPlan,
+                     api: ModelAPI) -> Dict[str, Any]:
+    """A train batch (``inputs``, ``targets``, whole on every rank) as
+    DTensors at the plan's ``batch_specs``."""
+    return {k: distribute(v, plan.batch_specs[k], api)
+            for k, v in batch.items()}
+
+
+def partitioned_train_step(api: ModelAPI, optimizer: Optimizer,
+                           plan: ShardingPlan):
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``: one rank's forward, backward and update
+    (``launch/steps.py`` ``build_train_step`` on the partitioned API).
+    ``params`` at ``plan.param_specs`` (``init_params``, trainable),
+    ``opt_state`` at ``plan.opt_specs`` (``init_opt_state``) and
+    ``batch`` at ``plan.batch_specs`` (``distribute_batch``), all
+    DTensors; both trees are updated in place and returned at their
+    placements, as the reference's ``out_shardings`` give them back.
+
+    The backward issues the collectives GSPMD inserts: the transposes of
+    the forward's (``models/shards.py``), the FSDP gathers'
+    reduce-scatters over the data axes; after it, each gradient of a leaf
+    replicated over the data axes is all-reduced over them, or under
+    ZeRO (``plan.zero_opt``: the moments sharded over the data axes, the
+    parameters not) reduce-scattered to the moments' window: each rank
+    updates its window of the parameter and all-gathers the parameter
+    over them, so the data ranks' copies stay equal bit for bit.  Under
+    FSDP parameter, gradient and state are all data-sharded and nothing
+    is gathered back.  The metrics
+    are the reference's, ``loss`` and ``grad_norm`` before clipping, the
+    same 0-d tensors on every rank."""
+    sh = shards_of(api)
+    step = build_train_step(api, optimizer)
+    want = {n: placements(spec, sh.mesh)
+            for n, spec in plan.param_specs.items()}
+
+    def train_step(params: Model, opt_state, batch):
+        for n, p in params.named_parameters():
+            if tuple(p.placements) != want[n]:
+                raise ValueError(f"{n} at {p.placements}: the plan places "
+                                 f"it at {want[n]}")
+        return step(params, opt_state, batch)
+    return train_step
 
 
 def distribute(t: torch.Tensor, spec: P, api: ModelAPI):
@@ -263,9 +351,11 @@ def _rank_main(argv: List[str]) -> int:
     return 0
 
 
-__all__ = ["RankFailure", "distribute", "distribute_params", "init_cache",
-           "init_params", "next_tokens", "partitioned_prefill_step",
-           "partitioned_serve_step", "plan_for", "run_ranks", "shards_of",
+__all__ = ["RankFailure", "default_optimizer", "distribute",
+           "distribute_batch", "distribute_params", "init_cache",
+           "init_opt_state", "init_params", "meta_params", "next_tokens",
+           "partitioned_prefill_step", "partitioned_serve_step",
+           "partitioned_train_step", "plan_for", "run_ranks", "shards_of",
            "token_spec"]
 
 

@@ -10,7 +10,8 @@ import torch
 from ..configs.base import ModelConfig, ShapeConfig
 from ..kernels.graph import CapturedStep
 from ..models.api import Model, ModelAPI
-from ..optim.optimizers import Optimizer, global_norm
+from ..optim.optimizers import (Optimizer, TreeShards, global_norm,
+                                tree_map)
 
 
 def build_train_step(api: ModelAPI, optimizer: Optimizer):
@@ -21,7 +22,15 @@ def build_train_step(api: ModelAPI, optimizer: Optimizer):
     in place (the reference returns new arrays and donates the old ones),
     and the metrics ``loss`` and ``grad_norm``, the global norm of the
     gradients before clipping.  The update runs inside a
-    ``record_function("optimizer")`` range, which a profile reads."""
+    ``record_function("optimizer")`` range, which a profile reads.
+
+    On a partitioned API (``api.shards``) parameters, state and batch are
+    DTensors (``launch/partition.py`` ``partitioned_train_step``): the
+    update reads their local windows (``TreeShards``), after each
+    gradient is summed over the data axes that do not shard its leaf
+    (``TreeShards.reduce``)."""
+    sh = api.shards
+
     def train_step(params: Model, opt_state, batch):
         named = dict(params.named_parameters())
         for p in named.values():
@@ -31,9 +40,19 @@ def build_train_step(api: ModelAPI, optimizer: Optimizer):
         grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
                  for n, p in named.items()}
         with torch.no_grad(), torch.profiler.record_function("optimizer"):
-            optimizer.update(grads, opt_state,
-                             {n: p.detach() for n, p in named.items()})
-            metrics = {"loss": loss.detach(), "grad_norm": global_norm(grads)}
+            shards, state = None, opt_state
+            if sh is not None:
+                shards = TreeShards(
+                    sh, {n: sh.layout(p) for n, p in named.items()},
+                    tree_map(sh.layout, opt_state), optimizer.mirror)
+                grads = {n: shards.reduce(n, g.to_local())
+                         for n, g in grads.items()}
+                state = tree_map(lambda t: t.to_local(), opt_state)
+            optimizer.update(grads, state, {
+                n: p.detach() if sh is None else p.to_local()
+                for n, p in named.items()}, *([shards] if shards else []))
+            metrics = {"loss": loss.detach(),
+                       "grad_norm": global_norm(grads, shards)}
         for p in named.values():
             p.grad = None
         return params, opt_state, metrics

@@ -30,6 +30,11 @@ given parameters.  ``cfg.remat == "block"`` wraps each block's forward in
 ``torch.utils.checkpoint``, as the JAX version wraps its scan body in
 ``jax.checkpoint``; the hybrid's shared block is not wrapped there either,
 and its gradient accumulates over its ``num_layers // attn_every`` calls.
+A block's FSDP gathers run inside its checkpoint, so its recompute gathers
+again and one block's gathered leaves are live at a time.  Built on a
+``DeviceMesh``, ``loss_fn`` is one rank's partitioned loss, whose
+backward issues the transposes of its forward's collectives
+(``models/shards.py``; ``launch/partition.py`` ``partitioned_train_step``).
 """
 from __future__ import annotations
 
@@ -48,7 +53,7 @@ from .attention import attn_decode, attn_forward, init_attn
 from .common import chunked_cross_entropy, dense_init, generator, rms_norm
 from . import moe, ssm
 from .moe import init_moe, moe_ffn, shared_expert_ffn
-from .shards import Shards
+from .shards import Shards, local_share
 from .ssm import (STATE_KEYS, init_mamba, mamba_decode, mamba_forward,
                   mamba_state_shapes)
 
@@ -154,24 +159,33 @@ def _ffn(cfg: ModelConfig, bp: Block, x: torch.Tensor,
     """A block's FFN: the gated MLP, or the routed experts plus the
     shared ones.  With ``sh`` each is finished over ``model``: the routed
     experts by ``moe_ffn``'s own all-reduce, the column/row-sharded MLPs
-    by ``Shards.finish`` (``seq``: this rank's chunk of the sequence)."""
+    by ``Shards.finish`` (``seq``: this rank's chunk of the sequence).
+    A sharded part's input enters it, and so does the replicated router,
+    whose gates weight the local experts (``local_share``)."""
     if "mlp" in bp:
-        out = _gated_mlp(bp["mlp"], x)
+        sharded = sh is not None and bp["mlp"]["wi"].shape[-1] < cfg.d_ff
+        mp, xm = local_share(bp["mlp"], x, sh, sharded, seq)
+        out = _gated_mlp(mp, xm)
         if sh is not None:
-            out = sh.finish(out, bp["mlp"]["wi"].shape[-1] < cfg.d_ff, seq)
+            out = sh.finish(out, sharded, seq)
         return out
     mp = bp["moe"]
     sharded = sh is not None and mp["wi"].shape[0] < mp["router"].shape[-1]
-    out = moe_ffn(mp, x, cfg, model_axis=sh.mesh["model"] if sharded
+    routed, xr = local_share({k: mp[k] for k in ("router", "wi", "wg", "wo")},
+                             x, sh, sharded, seq, ("router",))
+    out = moe_ffn(routed, xr, cfg, model_axis=sh.mesh["model"] if sharded
                   else None)
     if seq:
         out = sh.seq_chunk(out)
     if "shared" in mp:
-        shared = shared_expert_ffn(mp, x)
+        full = cfg.moe_d_ff * cfg.num_shared_experts
+        both = sh is not None and mp["shared"]["wi"].shape[-1] < full
+        # one input entered for both parts where both are sharded
+        sp, xs = local_share(mp["shared"], xr if both and sharded else x,
+                             sh, both, seq or (both and sharded))
+        shared = shared_expert_ffn({"shared": sp}, xs)
         if sh is not None:
-            full = cfg.moe_d_ff * cfg.num_shared_experts
-            shared = sh.finish(shared, mp["shared"]["wi"].shape[-1] < full,
-                               seq)
+            shared = sh.finish(shared, both, seq)
         out = out + shared
     return out
 
@@ -395,22 +409,31 @@ def build_model(cfg: ModelConfig, device=None,
 
     def _dense_block_fwd(bp: Block, h, window: int, collect_kv: bool,
                          seq: bool = False):
-        a_in = rms_norm(h, bp["ln1"])
+        bp = _blk(bp)
+        ln1, ln2 = bp["ln1"], bp["ln2"]
+        if seq:                # the norms read this rank's chunk alone
+            ln1, ln2 = sh.enter(ln1), sh.enter(ln2)
+        a_in = rms_norm(h, ln1)
         if seq:
             a_in = sh.all_gather(a_in, 1)
         res = attn_forward(bp["attn"], a_in, cfg, window=window,
                            collect_kv=collect_kv, sh=sh, seq=seq)
         attn_out, kv = res if collect_kv else (res, None)
         h = h + attn_out
-        f_in = rms_norm(h, bp["ln2"])
+        f_in = rms_norm(h, ln2)
         if seq:
             f_in = sh.all_gather(f_in, 1)
         h = h + _ffn(cfg, bp, f_in, sh, seq)
         return h, kv
 
     def _mamba_block_fwd(bp: Block, h):
+        bp = _blk(bp)
         return h + mamba_forward(bp["mamba"], rms_norm(h, bp["ln"]), cfg,
                                  sh=sh)
+
+    def vocab_sharded(params: Model) -> bool:
+        """The LM head holds this rank's chunk of the vocabulary."""
+        return sh is not None and sh.layout(params.lm_head).sizes[-1] < V
 
     def _remat(fn, *args):
         """``fn(*args)``, recomputed in the backward under ``remat ==
@@ -438,24 +461,28 @@ def build_model(cfg: ModelConfig, device=None,
         kv_all = []
         if cfg.family in ("dense", "moe"):
             for i, bp in enumerate(params.blocks):
-                h, kv = _remat(_dense_block_fwd, _blk(bp), h, window_of(i),
+                h, kv = _remat(_dense_block_fwd, bp, h, window_of(i),
                                collect_kv, seq)
                 kv_all.append(kv)
         elif cfg.family == "ssm":
             for bp in params.blocks:
-                h = _remat(_mamba_block_fwd, _blk(bp), h)
+                h = _remat(_mamba_block_fwd, bp, h)
         else:                                       # hybrid
             shared = _blk(params.shared)
             for i, bp in enumerate(params.blocks):
-                h = _remat(_mamba_block_fwd, _blk(bp), h)
+                h = _remat(_mamba_block_fwd, bp, h)
                 if (i + 1) % cfg.attn_every == 0:
                     h, kv = _dense_block_fwd(shared, h, 0, collect_kv)
                     kv_all.append(kv)
-        if seq:
+        final_norm = _loc(params.final_norm)
+        if seq:      # gathered for the vocabulary-sharded head, as a block
             h = sh.all_gather(h, 1)
+            final_norm = sh.enter(final_norm)
         if last_only:
             h = h[:, -1:]          # slice before the vocab projection
-        h = rms_norm(h, _loc(params.final_norm))
+        h = rms_norm(h, final_norm)
+        if not seq and vocab_sharded(params):
+            h = sh.enter(h)        # it enters this rank's vocabulary
         if return_hidden:
             return h
         logits = _logits(params, h)
@@ -485,15 +512,23 @@ def build_model(cfg: ModelConfig, device=None,
     def loss_fn(params: Model, batch: Mapping[str, torch.Tensor]):
         """The mean token cross-entropy (plus z-loss) of ``batch``
         (``inputs``, ``targets``), through the chunked CE: the [tokens,
-        vocab] f32 logits never materialize."""
-        if sh is not None:
-            raise NotImplementedError(
-                "the partitioned train step is not ported: loss_fn runs "
-                "on one device")
-        h = forward(params, batch["inputs"], return_hidden=True)
-        return chunked_cross_entropy(h, params.lm_head,
-                                     batch["targets"].to(h.device),
-                                     softcap=cfg.final_logit_softcap)
+        vocab] f32 logits never materialize.  Partitioned, ``inputs`` and
+        ``targets`` are DTensors at the plan's batch placements: the CE is
+        vocabulary-parallel over ``model`` and each data shard's sum over
+        the global token count is summed over the data axes, so every
+        rank returns the reference's loss, a plain 0-d tensor."""
+        inputs, targets = batch["inputs"], batch["targets"]
+        if sh is None:
+            h = forward(params, inputs, return_hidden=True)
+            return chunked_cross_entropy(h, params.lm_head,
+                                         targets.to(h.device),
+                                         softcap=cfg.final_logit_softcap)
+        h = _forward(params, inputs.to_local(), False, False, True)
+        return chunked_cross_entropy(h, _loc(params.lm_head),
+                                     targets.to_local(),
+                                     softcap=cfg.final_logit_softcap, sh=sh,
+                                     tokens=inputs.shape[0] * inputs.shape[1],
+                                     vocab=V)
 
     # ---- KV / state caches ----------------------------------------------
     def cache_shapes(batch: int, max_len: int) -> Dict[str, tuple]:

@@ -23,7 +23,7 @@ import torch
 from ..configs.base import ModelConfig
 from ..kernels import ops
 from .common import dense_init, rope
-from .shards import Layout, Shards, heads_for
+from .shards import Layout, Shards, heads_for, local_share
 
 
 def init_attn(generator: torch.Generator, cfg: ModelConfig,
@@ -77,17 +77,33 @@ def attn_forward(p: Mapping[str, torch.Tensor], x: torch.Tensor,
     """Full-sequence (prefill) attention.  With ``collect_kv`` also returns
     (k, v) as [B, KV, S, hd] for the cache (the local KV heads).  With
     ``sh`` the output is finished over ``model`` (``Shards.finish``;
-    ``seq``: this rank's chunk of a sequence-sharded residual)."""
+    ``seq``: this rank's chunk of a sequence-sharded residual); a rank's
+    query heads enter its input, and K/V's projections where the plan
+    keeps them whole (``local_share``)."""
     B, S, _ = x.shape
+    hd, H, KV = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
+    n = p["wq"].shape[-1] // hd                 # the local query heads
+    h0 = sh.model_offset(n, H) if sh is not None else 0
+    whole = [k for k in ("wk", "wv", "bk", "bv")
+             if k in p and p[k].shape[-1] == KV * hd]
+    p, x = local_share(p, x, sh, n < H, seq, whole)
+    kv0, kvn = 0, KV
+    if whole and n < H and not collect_kv:
+        # K/V kept whole: project only the run of KV heads the local
+        # query heads read (the cache, when collected, takes them all)
+        qpk = H // KV
+        kv0 = h0 // qpk
+        kvn = (h0 + n - 1) // qpk + 1 - kv0
+        p = {k: v[..., kv0 * hd:(kv0 + kvn) * hd] if k in whole else v
+             for k, v in p.items()}
     positions = torch.arange(S, device=x.device)
     q, k, v = _project_qkv(p, x, cfg, positions)
     k, v = k.transpose(1, 2), v.transpose(1, 2)
     q = q.transpose(1, 2)
-    n, h0 = _query_heads(q, cfg, sh)
     kq, vq = k, v
-    if k.shape[1] == cfg.num_kv_heads:       # all KV heads: pick the local
-        kq = heads_for(k, cfg.num_heads, cfg.num_kv_heads, h0, n)
-        vq = heads_for(v, cfg.num_heads, cfg.num_kv_heads, h0, n)
+    if k.shape[1] == kvn:          # whole KV heads: each query head's own
+        kq, vq = (heads_for(t, kvn * (H // KV), kvn, h0 - kv0 * (H // KV),
+                            n) for t in (k, v))
     o = ops.attention(q, kq, vq, causal=True, window=window,
                       logit_softcap=cfg.attn_logit_softcap)
     o = o.transpose(1, 2).reshape(B, S, n * cfg.head_dim)

@@ -122,30 +122,75 @@ def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
 
 def chunked_cross_entropy(h: torch.Tensor, lm_head: torch.Tensor,
                           targets: torch.Tensor, softcap: float = 0.0,
-                          chunk: int = 512,
-                          z_loss: float = 1e-4) -> torch.Tensor:
+                          chunk: int = 512, z_loss: float = 1e-4,
+                          sh=None, tokens: Optional[int] = None,
+                          vocab: Optional[int] = None) -> torch.Tensor:
     """CE computed per sequence chunk with rematerialization: the full
     [tokens, vocab] f32 logits tensor never materializes (fwd) and is
     recomputed per chunk (bwd), cutting the vocab projection's working set
     from O(S x V) to O(chunk x V).  The chunks' sums are added in order, as
-    the reference's ``lax.scan`` adds them."""
+    the reference's ``lax.scan`` adds them.
+
+    Partitioned (``sh``, a ``models/shards.py`` ``Shards``): ``h`` and
+    ``targets`` are this rank's data shard, and ``lm_head`` its chunk of
+    the vocabulary where the head is sharded over ``model`` (narrower
+    than ``vocab``, the whole vocabulary); each chunk's
+    log-sum-exp is then a max all-reduce (no gradient) and a sum-of-exp
+    all-reduce, the gold logit an all-reduce of each rank's in-shard part
+    (a recomputed chunk issues them again).  The loss is this data shard's
+    sum over ``tokens``, the global token count, summed over the data
+    axes: on one data shard it is the reference's ``total / (B * S)``."""
     B, S, d = h.shape
-    if S % chunk != 0:
+    if sh is None and S % chunk != 0:
         return cross_entropy_loss(_apply_head(h, lm_head, softcap), targets,
                                   lm_head.shape[-1], z_loss)
 
     def one(hx, tx):
-        logits = _apply_head(hx, lm_head, softcap)
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, tx[..., None].long())[..., 0]
+        lse, gold = _lse_gold(_apply_head(hx, lm_head, softcap), tx,
+                              sh if lm_head.shape[-1] != vocab else None)
         return torch.sum(lse - gold) + z_loss * torch.sum(torch.square(lse))
 
-    total = torch.zeros((), dtype=torch.float32, device=h.device)
-    for i in range(S // chunk):
-        sl = slice(i * chunk, (i + 1) * chunk)
-        total = total + checkpoint(one, h[:, sl], targets[:, sl],
-                                   use_reentrant=False)
-    return total / (B * S)
+    if S % chunk != 0:
+        total = one(h, targets)
+    else:
+        total = torch.zeros((), dtype=torch.float32, device=h.device)
+        for i in range(S // chunk):
+            sl = slice(i * chunk, (i + 1) * chunk)
+            total = total + checkpoint(one, h[:, sl], targets[:, sl],
+                                       use_reentrant=False)
+    if sh is None:
+        return total / (B * S)
+    return sh.all_reduce(total / tokens, sh.data_axes)
+
+
+def token_losses(h: torch.Tensor, lm_head: torch.Tensor,
+                 targets: torch.Tensor, softcap: float = 0.0,
+                 z_loss: float = 1e-4, sh=None,
+                 vocab: Optional[int] = None) -> torch.Tensor:
+    """Each token's term of ``chunked_cross_entropy`` (its cross-entropy
+    plus z-loss), [B, S] in f32; ``sh`` and ``vocab`` as there (this
+    rank's tokens)."""
+    lse, gold = _lse_gold(_apply_head(h, lm_head, softcap), targets,
+                          sh if lm_head.shape[-1] != vocab else None)
+    return lse - gold + z_loss * torch.square(lse)
+
+
+def _lse_gold(logits: torch.Tensor, targets: torch.Tensor, sh=None):
+    """Each token's log-sum-exp over the vocabulary and its target's
+    logit; with ``sh`` ``logits`` are this rank's chunk of the vocabulary,
+    sharded over ``model`` (the chunks in rank order)."""
+    n = logits.shape[-1]
+    if sh is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+        return lse, gold
+    m = sh.all_reduce(logits.detach().amax(-1), op="max")
+    lse = m + torch.log(sh.all_reduce(
+        torch.exp(logits - m[..., None]).sum(-1)))
+    rel = targets.long() - sh.model_rank * n
+    ok = (rel >= 0) & (rel < n)
+    mine = torch.gather(logits, -1, rel.clamp(0, n - 1)[..., None])[..., 0]
+    return lse, sh.all_reduce(mine * ok.to(mine.dtype))
 
 
 def _apply_head(h: torch.Tensor, lm_head: torch.Tensor,
@@ -157,4 +202,4 @@ def _apply_head(h: torch.Tensor, lm_head: torch.Tensor,
 
 
 __all__ = ["chunked_cross_entropy", "cross_entropy_loss", "dense_init",
-           "generator", "rms_norm", "rope"]
+           "generator", "rms_norm", "rope", "token_losses"]

@@ -22,10 +22,20 @@ out from the shards' shapes what each rank holds:
 * a cache leaf's local window (``Layout``) says which batch rows, KV
   heads and positions this rank keeps.
 
-Every collective goes through ``all_reduce``, ``all_gather`` and
-``reduce_scatter`` here: the ``_c10d_functional`` ops, waited on at once,
-over the process group of one mesh axis; over an axis of size 1 nothing is
-issued, so a 1 x 1 mesh runs exactly the one-card program.  A ``gloo``
+Every collective goes through ``all_reduce``, ``enter``, ``all_gather``
+and ``reduce_scatter`` here: the ``_c10d_functional`` ops, waited on at
+once, over the process group of one mesh axis; over an axis of size 1
+nothing is issued, so a 1 x 1 mesh runs exactly the one-card program.
+Each is a ``torch.autograd.Function`` with its transpose as its backward
+(the functional ops have no usable autograd formula): the all-reduce
+that finishes partial sums passes its gradient unchanged; ``enter``, the
+identity, all-reduces its gradient, and stands wherever a tensor every
+``model`` rank holds alike feeds that rank's own share of the work (a
+block's input to its column-sharded projections, a replicated weight
+read by local heads or experts, the gated norm's variance, the final
+hidden state before the vocabulary-sharded head); the all-gather and the
+reduce-scatter are each other's backward, and ``local``'s gather over the
+data axes (FSDP) reduce-scatters a leaf's gradient over them.  A ``gloo``
 group moves host memory, so a CUDA tensor is copied to the host for its
 collectives and back (gloo's own CUDA all-gather faults in PyTorch 2.11);
 NCCL and the dry-run's ``fake`` group take the tensor where it is.
@@ -34,7 +44,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Mapping, Sequence, Tuple
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 
@@ -45,26 +55,31 @@ def _c10d():
 
 def _collective(fn, t: torch.Tensor, group) -> torch.Tensor:
     """``fn(t, group name)``, waited on; through the host for a CUDA
-    tensor on a ``gloo`` group."""
+    tensor on a ``gloo`` group.  The two host copies are not the step's
+    work: they run outside any dispatch mode, so an ``OpCounter`` counts
+    the collective alone, as on ``meta`` under the ``fake`` group."""
     import torch.distributed as dist
+    from torch.utils._python_dispatch import _disable_current_modes
     c = _c10d()
     if t.is_cuda and dist.get_backend(group) == "gloo":
-        return c.wait_tensor(fn(t.cpu(), group.group_name)).to(t.device)
+        with _disable_current_modes():
+            host = t.cpu()
+        out = c.wait_tensor(fn(host, group.group_name))
+        with _disable_current_modes():
+            return out.to(t.device)
     return c.wait_tensor(fn(t, group.group_name))
 
 
-def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
-    """``t`` reduced (``sum``, ``max``) over ``group``'s ranks."""
-    if group is None or group.size() == 1:
-        return t
+def _one(group) -> bool:
+    return group is None or group.size() == 1
+
+
+def _all_reduce(t, group, op="sum"):
     return _collective(lambda x, g: _c10d().all_reduce(x, op, g),
                        t.contiguous(), group)
 
 
-def all_gather(t: torch.Tensor, dim: int, group) -> torch.Tensor:
-    """The ranks' ``t`` concatenated along ``dim``, in rank order."""
-    if group is None or group.size() == 1:
-        return t
+def _all_gather(t, dim, group):
     n = group.size()
     dim = dim % t.dim()
     src = t.movedim(dim, 0).contiguous()
@@ -73,11 +88,7 @@ def all_gather(t: torch.Tensor, dim: int, group) -> torch.Tensor:
     return out.movedim(0, dim)
 
 
-def reduce_scatter(t: torch.Tensor, dim: int, group) -> torch.Tensor:
-    """``t`` summed over ``group``'s ranks, each keeping its chunk of
-    ``dim`` (rank order)."""
-    if group is None or group.size() == 1:
-        return t
+def _reduce_scatter(t, dim, group):
     n = group.size()
     dim = dim % t.dim()
     src = t.movedim(dim, 0).contiguous()
@@ -85,6 +96,97 @@ def reduce_scatter(t: torch.Tensor, dim: int, group) -> torch.Tensor:
         lambda x, g: _c10d().reduce_scatter_tensor(x, "sum", n, g), src,
         group)
     return out.movedim(0, dim)
+
+
+class _AllReduce(torch.autograd.Function):
+    """The sum over the group; its gradient passes unchanged: the sum is
+    used alike on every rank, so each rank's gradient of it is whole."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        return _all_reduce(t, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Enter(torch.autograd.Function):
+    """The identity; its gradient is summed over the group: a tensor every
+    rank holds alike feeds this rank's own share of the work, so each
+    rank's gradient of it is a part."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+class _AllGather(torch.autograd.Function):
+    """The ranks' chunks concatenated; the gradient is reduce-scattered,
+    the all-gather's transpose."""
+
+    @staticmethod
+    def forward(ctx, t, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _all_gather(t, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, ctx.dim, ctx.group), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """The sum over the group, each rank keeping its chunk; the gradient
+    is all-gathered, the reduce-scatter's transpose."""
+
+    @staticmethod
+    def forward(ctx, t, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _reduce_scatter(t, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.dim, ctx.group), None, None
+
+
+def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    """``t`` reduced (``sum``, ``max``) over ``group``'s ranks.  The sum's
+    gradient passes unchanged (``_AllReduce``); the max has none."""
+    if _one(group):
+        return t
+    if op == "sum":
+        return _AllReduce.apply(t, group)
+    return _all_reduce(t.detach(), group, op)
+
+
+def enter(t: torch.Tensor, group) -> torch.Tensor:
+    """``t``, a tensor every rank of ``group`` holds alike, as the input
+    of this rank's share of the work: the identity, whose gradient is
+    summed over the group (``_Enter``)."""
+    if _one(group) or not (t.requires_grad and torch.is_grad_enabled()):
+        return t
+    return _Enter.apply(t, group)
+
+
+def all_gather(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The ranks' ``t`` concatenated along ``dim``, in rank order; the
+    gradient is reduce-scattered."""
+    if _one(group):
+        return t
+    return _AllGather.apply(t, dim, group)
+
+
+def reduce_scatter(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """``t`` summed over ``group``'s ranks, each keeping its chunk of
+    ``dim`` (rank order); the gradient is all-gathered."""
+    if _one(group):
+        return t
+    return _ReduceScatter.apply(t, dim, group)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,20 +241,50 @@ class Shards:
             t = all_gather(t, dim, self.groups.get(a))
         return t
 
+    def enter(self, t: torch.Tensor, axes: Sequence[str] = ("model",)
+              ) -> torch.Tensor:
+        """``t``, held alike on every rank of ``axes``, where it feeds
+        this rank's own share of the work (``enter``): its gradient is
+        summed over ``axes``."""
+        for a in axes:
+            t = enter(t, self.groups.get(a))
+        return t
+
+    @property
+    def data_axes(self) -> Tuple[str, ...]:
+        """The mesh's data axes (``pod``, ``data``), outermost first."""
+        return tuple(a for a in self.axis_names if a != "model")
+
+    def reduce_scatter(self, t: torch.Tensor, dim: int,
+                       axes: Sequence[str] = ("model",)) -> torch.Tensor:
+        """``t`` summed over ``axes``, each rank keeping its chunk of
+        ``dim`` as a multi-axis ``Shard`` lays it out (outermost first)."""
+        for a in axes:
+            t = reduce_scatter(t, dim, self.groups.get(a))
+        return t
+
     def finish(self, out: torch.Tensor, partial: bool,
                seq: bool = False) -> torch.Tensor:
         """A block's output: ``partial`` sums (a row-sharded projection)
         summed over ``model``; with ``seq`` (a sequence-sharded residual,
         Megatron-SP) each rank keeps its chunk of the sequence (dim 1),
-        by a reduce-scatter where the sums are partial."""
+        by a reduce-scatter where the sums are partial.  A whole ``out``
+        under ``seq`` was computed from the all-gathered input, whose
+        gradient is already reduce-scattered, so its chunk is a plain
+        slice."""
         if seq:
             if partial:
                 return reduce_scatter(out, 1, self.model)
-            return self.seq_chunk(out)
+            return self._chunk(out)
         return all_reduce(out, self.model) if partial else out
 
     def seq_chunk(self, h: torch.Tensor) -> torch.Tensor:
-        """This model rank's chunk of the sequence (dim 1) of ``h``."""
+        """This model rank's chunk of the sequence (dim 1) of ``h``, a
+        tensor every model rank holds alike: the chunk's gradient, this
+        rank's alone, enters ``h``'s summed over ``model``."""
+        return self._chunk(self.enter(h))
+
+    def _chunk(self, h: torch.Tensor) -> torch.Tensor:
         n = h.shape[1] // self.tp
         return h[:, self.model_rank * n:(self.model_rank + 1) * n]
 
@@ -258,6 +390,24 @@ class Shards:
         return 0 if local == full else self.model_rank * local
 
 
+def local_share(p: Mapping[str, torch.Tensor], x: torch.Tensor,
+                sh: Optional["Shards"], sharded: bool, seq: bool,
+                whole: Sequence[str] = ()):
+    """(p, x) as one rank's share of a block's work (``Shards.enter``).
+    A sharded block's input enters it (``seq``: it is all-gathered
+    already, and the gather's backward sums its gradient), and so does
+    each leaf of ``whole`` (the leaves the plan keeps whole, which the
+    local heads or experts read); an unsharded block under ``seq`` reads
+    the gathered input too, so every leaf enters it.  Elsewhere every
+    rank runs the whole block alike and nothing enters."""
+    if sh is None or not (sharded or seq):
+        return p, x
+    if not seq:
+        x = sh.enter(x)
+    return {k: sh.enter(v) if k in whole or not sharded else v
+            for k, v in p.items()}, x
+
+
 def heads_for(k: torch.Tensor, H: int, KV: int, h0: int, n: int
               ) -> torch.Tensor:
     """The KV heads (dim 1 of ``k``, all ``KV`` of them) that query heads
@@ -278,5 +428,5 @@ def heads_for(k: torch.Tensor, H: int, KV: int, h0: int, n: int
     return k.index_select(1, idx)
 
 
-__all__ = ["Layout", "Shards", "all_gather", "all_reduce", "heads_for",
-           "reduce_scatter"]
+__all__ = ["Layout", "Shards", "all_gather", "all_reduce", "enter",
+           "heads_for", "local_share", "reduce_scatter"]

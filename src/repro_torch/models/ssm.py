@@ -11,7 +11,9 @@ the heads come from the local ``w_x``/``w_dt`` shards (the plan shards
 them over ``model`` together), the convolution runs on the local
 channels, B and C (replicated, one group) are computed on every rank, the
 gated norm's statistics are summed over ``model``, and the output
-projection's partial sums are finished there.
+projection's partial sums are finished there.  In training the block's
+input, B and C's leaves and the norm's variance enter the local heads
+(``Shards.enter``), so their gradients are summed over ``model``.
 """
 from __future__ import annotations
 
@@ -23,12 +25,15 @@ import torch.nn.functional as F
 from ..configs.base import ModelConfig
 from ..kernels import ops
 from .common import RMS_EPS, dense_init, rms_norm
-from .shards import Shards
+from .shards import Shards, local_share
 
 #: the per-layer decode state of a Mamba2 block
 STATE_KEYS = ("conv_x", "conv_b", "conv_c", "ssm")
 #: leaves kept in f32 whatever the model dtype
 F32_LEAVES = ("a_log", "dt_bias", "d_skip")
+#: the leaves a plan keeps whole when it shards the heads: B and C's
+#: projections and convolutions, read by every local head
+WHOLE = ("w_b", "w_c", "conv_b_w", "conv_b_b", "conv_c_w", "conv_c_b")
 
 
 def ssm_dims(cfg: ModelConfig) -> Tuple[int, int, int]:
@@ -98,7 +103,8 @@ def _gated_norm(y: torch.Tensor, scale: torch.Tensor, cfg: ModelConfig,
     if sh is None or y.shape[-1] == full:
         return rms_norm(y, scale)
     yf = y.float()
-    var = sh.all_reduce(yf.square().sum(-1, keepdim=True)) / full
+    # the variance is read by this rank's channels only: it enters them
+    var = sh.enter(sh.all_reduce(yf.square().sum(-1, keepdim=True))) / full
     return (yf * torch.rsqrt(var + RMS_EPS) * (1.0 + scale.float())
             ).to(y.dtype)
 
@@ -109,6 +115,7 @@ def mamba_forward(p: Mapping[str, torch.Tensor], x_in: torch.Tensor,
     """Full-sequence forward.  x_in: [B, S, d]."""
     B, S, _ = x_in.shape
     di, H = _local_dims(p, cfg)
+    p, x_in = local_share(p, x_in, sh, di < ssm_dims(cfg)[0], seq, WHOLE)
     z = x_in @ p["w_z"]
     xs = _causal_conv(x_in @ p["w_x"], p["conv_x_w"], p["conv_x_b"])
     b = _causal_conv(x_in @ p["w_b"], p["conv_b_w"], p["conv_b_b"])

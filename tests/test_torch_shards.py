@@ -3,7 +3,17 @@ counting of one rank's program (``launch/op_cost.py``), on the CPU, under
 ``launch/mesh.py`` ``fake_group``: the local window of a multi-axis
 shard, the KV heads a rank's query heads read, the collectives counted by
 kind with their result bytes, and a DTensor op counted at its local
-shapes, not at the global ones its sharding propagation infers."""
+shapes, not at the global ones its sharding propagation infers.
+
+Each collective's backward is its transpose: on 4 gloo ranks in f64
+(``tests/_partition_ranks.py`` ``transpose_cases``, one group for the
+file's cases), ⟨op(x), y⟩ = ⟨x, op's backward of y⟩ for ``finish``'s
+all-reduce, ``enter``, ``all_gather``, ``reduce_scatter`` and
+``local``'s gather over ``data``, each summed over the ranks, a tensor
+alike on every rank of the group counted once.  On a 1 x 1 mesh a train
+step issues no collective."""
+from pathlib import Path
+
 import pytest
 import torch
 from torch.distributed.device_mesh import init_device_mesh
@@ -90,3 +100,58 @@ def test_a_dtensor_op_counts_its_local_shapes():
             y = a @ b
         assert y.shape == (32, 4)
     assert counter.cost().by_op["mm"][0] == 2 * 8 * 16 * 4
+
+
+# ---------------------------------------------------------------------------
+# each collective's backward is its transpose
+# ---------------------------------------------------------------------------
+
+TRANSPOSE_MESHES = [(1, 4), (2, 2)]
+
+
+@pytest.fixture(scope="module")
+def transposes():
+    from repro_torch.launch.partition import run_ranks
+    here = Path(__file__).resolve().parent
+    return run_ranks(f"{here / '_partition_ranks.py'}:transpose_cases", 4,
+                     "gloo", {"meshes": TRANSPOSE_MESHES}, timeout=300)[0]
+
+
+@pytest.mark.parametrize("mesh", TRANSPOSE_MESHES,
+                         ids=lambda m: f"{m[0]}x{m[1]}")
+@pytest.mark.parametrize("op", ["finish", "enter", "all_gather",
+                                "reduce_scatter", "local"])
+def test_backward_is_the_transpose(transposes, op, mesh):
+    lhs, rhs, alike = transposes[(mesh, op)]
+    assert lhs == pytest.approx(rhs, rel=1e-12, abs=1e-12)
+    assert lhs != 0.0
+    assert alike              # an input alike on the ranks gets one gradient
+
+
+def test_one_by_one_mesh_issues_no_collective():
+    """Over axes of size 1 the partitioned train step is the one-card
+    program: no collective, forward or backward."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import partition as pt
+    from repro_torch.launch.train import tiny_config
+    from repro_torch.models.api import build_model
+    cfg = tiny_config(get_config("kimi-k2-1t-a32b"))
+    mesh = Mesh((1, 1), ("data", "model"))
+    with fake_group(1):
+        api = build_model(cfg, device="cpu", dtype=torch.float32,
+                          mesh=device_mesh(mesh, "cpu"), trainable=True)
+        plan = pt.plan_for(cfg, ShapeConfig("t", 16, 2, "train"), mesh,
+                           torch.float32)
+        params = pt.init_params(api, plan)
+        opt = pt.default_optimizer(cfg, params)
+        state = pt.init_opt_state(api, opt, plan)
+        g = torch.Generator().manual_seed(0)
+        batch = pt.distribute_batch({
+            k: torch.randint(0, cfg.vocab_size, (2, 16), generator=g)
+            for k in ("inputs", "targets")}, plan, api)
+        with OpCounter() as counter:
+            _, _, m = pt.partitioned_train_step(api, opt, plan)(
+                params, state, batch)
+    assert counter.cost().colls == []
+    assert torch.isfinite(m["loss"]) and float(m["grad_norm"]) > 0
