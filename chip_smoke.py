@@ -7,6 +7,7 @@ Runs on one NVIDIA card, from the root of a checkout:
     python3 chip_smoke.py --check-only  # phases 1-2, untimed, then stop
     python3 chip_smoke.py --partition-only  # the build and phase 15
     python3 chip_smoke.py --partition-train-only  # the build and phase 16
+    python3 chip_smoke.py --multi-card  # 4 cards: phases 15-16 on NCCL
 
 Phases, in order; any failure exits non-zero:
 
@@ -176,7 +177,9 @@ Phases, in order; any failure exits non-zero:
 15. the partitioned serving step (``launch/partition.py``,
    ``[partition]``), after the kernels are built once in this process:
    ``PART_RANKS`` ranks on the one card, each a process of its own, in
-   one gloo group (NCCL refuses two ranks on one device), mesh
+   one gloo group (NCCL takes one rank a card: ``--multi-card`` runs the
+   same ranks on NCCL over 4 cards; gloo stages each CUDA tensor's
+   collective through the host), mesh
    ``PART_MESH`` (data 1, model 4): (a) Qwen2-MoE-A2.7B in bf16 at full
    width and depth, seed 0, each rank drawing the one-card model's leaves
    and keeping its shard (15 of 60 experts, 4 of 16 heads): a prefill of
@@ -195,7 +198,13 @@ Phases, in order; any failure exits non-zero:
    the logits within ``PART_TOL`` (max relative), the greedy tokens and
    the dropped (token, slot) pairs equal; (c) a group of one rank in this
    process, the 1 x 1 mesh: the partitioned Qwen2.5-3B bf16 prefill of
-   phase 8's shape bit for bit the unpartitioned one, launches equal.
+   phase 8's shape bit for bit the unpartitioned one, launches equal;
+   (e) the same 1 x 1 mesh on the one rank of an NCCL group, in a
+   process of its own bound to the card: that prefill and one AdamW step
+   of Zamba2-1.2B at 6 layers (``NCCL_ONE_TRAIN``), each bit for bit the
+   one-card program on the same card (logits and cache; loss, grad_norm
+   and every updated parameter), launches equal, no collective staged
+   through the host, its NCCL log in ``chiprun_out/nccl_one_rank0.log``.
    Each group is destroyed also on failure;
 16. the partitioned train step (``launch/partition.py``
    ``partitioned_train_step``, ``[partition-train]``): first, in this
@@ -232,11 +241,27 @@ Phases, in order; any failure exits non-zero:
    rank 0's counted step (phase 7 holds flash and SSD at a rank's local
    shapes, ``zamba2-1.2b-tp2``).  The 4 ranks share one card and stage
    every collective through the host: the step time is a correctness
-   cell's, not a multi-GPU training speed;
+   cell's, not a multi-GPU training speed (``--multi-card`` measures
+   that);
 14. print ``{"kernels": [...]}`` (flash and SSD count phase 8's serves'
    prefills, warm-up and replay, phase 10's, phase 13's, phase 15's and
    phase 16's launches), the card's name and power limit, and
    last ``{"ok": true, "device": {...}}``.
+
+``--multi-card`` (4 cards of one host; exits 1 on fewer): the build,
+then phases 15 and 16 with the same constants, checks and limits, but
+the 4 ranks form an NCCL group, rank r on card r (``launch/partition.py``
+``run_ranks``), no 1 x 1 rows: each rank logs its card, NCCL's version
+and the transports its channels took (``NCCL_DEBUG=INFO``, kept in
+``chiprun_out/nccl_rank{r}.serve.log`` and ``.train.log``), must sit on
+its own card and stage no collective through the host; rank 0 profiles
+one more prefill and one more train step (``rank_profile``: NCCL's
+device ms by collective kind, busy ms and idle share, bus bandwidth,
+and the same bytes priced by ``H100Spec`` at 450 GB/s); then this
+process times the unpartitioned eager train step on card 0
+(``one_card_step``), prints a ``[multi-card]`` line a rank, each card's
+name and power limit, and last ``{"ok": true, "device": {...,
+"count": 4}}``; details to ``chiprun_out/chip_smoke_multi.json``.
 
 Every ``[kernel]`` line and ``kernels`` entry names the path that ran:
 ``wgmma`` (flash attention's tensor-core kernel, bf16), ``mma-3xtf32`` (fc,
@@ -356,8 +381,8 @@ TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-4, 1e-3
 #: a resumed step's loss against the same step of an uninterrupted run
 CKPT_RUN = (6, 2, 256)
 RESUME_TOL = 1e-3
-#: the partition phase (``launch/partition.py``): ranks on the one card
-#: (``gloo``: NCCL refuses two ranks on one device) and their mesh
+#: the partition phase (``launch/partition.py``): its ranks (on the one
+#: card in a gloo group; ``--multi-card``: one NCCL rank a card) and their mesh
 #: (data, model); the full-size bf16 serve: arch, requests, prompt, decode
 #: steps, and the limit on its prefill's last-position logits: no farther
 #: from the same weights' f32 prefill than this factor times the one-card
@@ -375,6 +400,16 @@ PART_PARITY = (("qwen2-moe-a2.7b", 4), ("zamba2-1.2b", 6))
 PART_PARITY_SHAPE = (2, 128, 4)
 PART_TOL = 1e-4
 PART_ONE = "qwen2.5-3b"
+#: phase 15e, the 1 x 1 mesh on one NCCL rank: the train step's arch,
+#: depth, batch and sequence (phase 10's width and shape); the ranks'
+#: NCCL log (its version, cards and the transports its channels take)
+NCCL_ONE_TRAIN = ("zamba2-1.2b", 6, 8, 512)
+NCCL_ENV = {"NCCL_DEBUG": "INFO", "NCCL_DEBUG_SUBSYS": "INIT,P2P,SHM,NET"}
+#: ``--multi-card``: the NCCL rates' buffer sizes (MiB, bf16) and timed
+#: calls, and each group's time limit (s): a hung collective ends the run
+#: early, its ranks killed
+NCCL_RATE_MIB, NCCL_RATE_ITERS = (8, 64, 256), 20
+MULTI_TIMEOUT = 300
 #: the partitioned train phase (phase 16, ``launch/partition.py``
 #: ``partitioned_train_step``): its ranks' mesh (data 2, model 2: the data
 #: reduction, ZeRO/FSDP and the model axis all run); the full-size bf16
@@ -1221,6 +1256,8 @@ def kernel_group(name: str) -> str:
         return "matmul"
     if "memcpy" in n:
         return "memcpy"
+    if "nccl" in n:
+        return "nccl"
     return "other"
 
 
@@ -1541,13 +1578,23 @@ def moe_consistency(dev):
 # training
 # ---------------------------------------------------------------------------
 
+def _kernels_under(event):
+    """The device kernels (``name``, ``duration`` in us) launched under the
+    host event ``event`` and its children."""
+    yield from event.kernels
+    for child in event.cpu_children:
+        yield from _kernels_under(child)
+
+
 def _train_groups(prof, wall_ms):
     """Device ms of a profiled train step by group (the two kernels,
-    matmuls, the optimizer's kernels, the rest), the device kernels
-    launched and the idle share.  The optimizer's kernels are those of the
-    ops under its ``record_function`` range on the host; the range's own
-    span on the device timeline (a user annotation, first to last kernel,
-    gaps included) is reported apart and kept out of the kernel sums."""
+    matmuls, NCCL's kernels, the optimizer's kernels, the rest), the
+    device kernels launched and the idle share.  Each kernel is in one
+    group: the optimizer's are those launched under its
+    ``record_function`` range on the host, NCCL's apart (its ZeRO and
+    data-axis collectives run there); the range's own span on the device
+    timeline (a user annotation, first to last kernel, gaps included) is
+    reported apart and kept out of the kernel sums."""
     from torch.autograd import DeviceType
     groups = collections.Counter()
     launched = 0
@@ -1562,12 +1609,17 @@ def _train_groups(prof, wall_ms):
         launched += e.count
     busy = sum(groups.values())
     opt = [e for e in prof.events() if e.name == "optimizer"]
-    opt_ms = sum(e.device_time_total for e in opt
-                 if e.device_type == DeviceType.CPU) / 1e3
+    groups["optimizer"] = 0.0
+    for e in opt:
+        if e.device_type != DeviceType.CPU:
+            continue
+        for k in _kernels_under(e):
+            group = kernel_group(k.name)
+            if group != "nccl":
+                groups[group] -= k.duration / 1e3
+                groups["optimizer"] += k.duration / 1e3
     span_ms = sum(e.device_time_total for e in opt
                   if e.device_type != DeviceType.CPU) / 1e3
-    groups["optimizer"] = opt_ms
-    groups["other"] = groups.get("other", 0.0) - opt_ms
     return {"wall_ms": wall_ms, "device_ms": dict(groups),
             "device_busy_ms": busy, "device_kernels": launched,
             "optimizer_span_ms": span_ms,
@@ -2059,6 +2111,162 @@ def dryrun_check(dev, arch, mode, batch, seq, expect, smi):
     return res
 
 
+def rank_start(rank: int, world: int, args: dict):
+    """A phase 15/16 rank's device and the start of its record: under
+    NCCL the rank's own card (``launch/partition.py`` ``rank_device``,
+    which ``run_ranks`` made current), under gloo ``args["device"]``;
+    TF32 off; the card's index, name and bus id and NCCL's version; the
+    count of host-staged collectives set to 0."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.partition import rank_device
+    from repro_torch.models import shards
+    backend = dist.get_backend()
+    dev = rank_device(rank, world) if backend == "nccl" else \
+        torch.device(args["device"])
+    out = {"rank": rank, "backend": backend}
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        props = torch.cuda.get_device_properties(dev)
+        out["card"] = {
+            "index": torch.cuda.current_device(), "name": props.name,
+            "uuid": str(getattr(props, "uuid", "")),
+            "bus": ":".join(f"{getattr(props, k, 0):02x}" for k in (
+                "pci_domain_id", "pci_bus_id", "pci_device_id"))}
+    if backend == "nccl":
+        out["nccl_version"] = ".".join(map(str, torch.cuda.nccl.version()))
+    shards.HOST_STAGED = 0
+    return dev, out
+
+
+def rank_done(out: dict) -> dict:
+    """A rank's record, closed with its count of host-staged
+    collectives (``models/shards.py`` ``HOST_STAGED``)."""
+    from repro_torch.models import shards
+    out["host_staged"] = shards.HOST_STAGED
+    return out
+
+
+def issuing_size(mesh) -> int:
+    """The ranks of each group a collective runs over on ``mesh``: every
+    collective is over one axis and none is issued over an axis of 1, so
+    on (2, 2) and (1, 4) one size holds for all."""
+    sizes = {int(n) for n in mesh if n > 1}
+    if len(sizes) > 1:
+        raise ValueError(f"mesh {tuple(mesh)}: collectives over groups of "
+                         f"{sorted(sizes)} ranks")
+    return sizes.pop() if sizes else 1
+
+
+#: the share of a collective's whole buffer each rank sends (nccl-tests'
+#: bus bandwidth): an all-reduce 2(n - 1)/n, an all-gather and a
+#: reduce-scatter (n - 1)/n
+BUS_FACTOR = {"all-reduce": lambda n: 2 * (n - 1) / n,
+              "all-gather": lambda n: (n - 1) / n,
+              "reduce-scatter": lambda n: (n - 1) / n}
+
+
+def bus_gb_s(kind: str, nbytes: float, n: int, ms: float):
+    """The bus bandwidth (GB/s) of collectives of ``kind`` whose results
+    hold ``nbytes`` over groups of ``n`` ranks, taking ``ms``: nccl-tests'
+    ``BUS_FACTOR`` x the whole buffer (an all-reduce's or all-gather's
+    result, n x a reduce-scatter's) over the time; None for another kind
+    or no time."""
+    factor = BUS_FACTOR.get(kind)
+    if factor is None or not ms:
+        return None
+    whole = nbytes * (n if kind == "reduce-scatter" else 1)
+    return factor(n) * whole / (ms * 1e-3) / 1e9
+
+
+def nccl_kind(name: str):
+    """The collective kind of an NCCL kernel's name, or None."""
+    n = name.lower().replace("_", "")
+    if "nccl" not in n:
+        return None
+    for kind in BUS_FACTOR:
+        if kind.replace("-", "") in n:
+            return kind
+    return "other"
+
+
+def dtoh_copies(prof) -> int:
+    """The device-to-host copies in a profile: a collective staged
+    through the host makes one at least, and neither step of the
+    partitioned program needs one (both trace on ``meta``)."""
+    return sum(e.count for e in prof.key_averages()
+               if "cuda" in str(getattr(e, "device_type", "")).lower()
+               and "memcpy dtoh" in e.key.lower())
+
+
+def rank_profile(fn, colls: dict, n: int, on: bool):
+    """``fn()`` on this rank, under ``torch.profiler`` where ``on`` (the
+    other ranks run it plain, since every rank must issue its
+    collectives), ending in a synchronise: ``_train_groups``' device ms by
+    group (NCCL's and the optimizer's kernels apart, each kernel counted
+    once, the optimizer range's span kept out of the sums), busy ms and
+    idle share against the wall clock; the device-to-host copies
+    (``dtoh_copies``); the heaviest kernels and host ops.  For each kind
+    in ``colls`` (result bytes of one call, ``launch/op_cost.py``): its
+    NCCL kernels' ms and count, the achieved
+    bus bandwidth over those ms (``bus_gb_s``), and the ms ``H100Spec``
+    prices the result bytes at (one direction of NVLink, as
+    ``launch/roofline.py`` divides them).  An NCCL kernel's time includes
+    its wait for the slowest rank to arrive, so the bandwidth is what the
+    step got, not what the link gives; and the profiler slows the host,
+    so the profiled wall clock is not the step's time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.hw.gpu import H100Spec
+    if not on:
+        fn()
+        torch.cuda.synchronize()
+        return None
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    res = _train_groups(prof, wall_ms)
+    nccl, calls, top, host = (collections.Counter() for _ in range(4))
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if "cuda" in str(getattr(e, "device_type", "")).lower():
+            kind = nccl_kind(e.key)
+            if us and kind is not None:
+                nccl[kind] += us / 1e3
+                calls[kind] += e.count
+            elif us and e.key != "optimizer":
+                top[f"{e.key[:72]} x{e.count}"] += us / 1e3
+        elif e.self_cpu_time_total:
+            host[f"{e.key[:48]} x{e.count}"] += e.self_cpu_time_total / 1e3
+    res["dtoh_copies"] = dtoh_copies(prof)
+    link = H100Spec().ici_link_bw * H100Spec().ici_links_per_chip
+    res["by_kind"] = {
+        kind: {"bytes": nbytes, "nccl_ms": nccl.get(kind, 0.0),
+               "nccl_kernels": calls[kind],
+               "bus_gb_s": bus_gb_s(kind, nbytes, n, nccl.get(kind, 0.0)),
+               "h100spec_ms": nbytes / link * 1e3}
+        for kind, nbytes in colls.items()}
+    res.update({"nccl_ms": dict(nccl), "group_ranks": n,
+                "top_kernels_ms": dict(top.most_common(10)),
+                "top_host_ms": dict(host.most_common(10))})
+    return res
+
+
+def rank_summary(r: dict) -> str:
+    """A rank's card, NCCL version and host-staged count, for a log line."""
+    card = r.get("card", {})
+    return (f"{r['backend']}, card {card.get('index')} (bus "
+            f"{card.get('bus')}), NCCL {r.get('nccl_version', '-')}, "
+            f"host-staged collectives {r['host_staged']}")
+
+
 def part_prompt(cfg, B: int, S: int, seed: int):
     """Phase 15's prompt ids [B, S] (int64, on the host) from ``seed``."""
     import numpy as np
@@ -2071,35 +2279,23 @@ def partition_rank(rank: int, world: int, args: dict) -> dict:
     """Phase 15 on one rank, in a process of its own (``run_ranks``): the
     full-size bf16 serve (prefill, then greedy decode steps, eager), then
     the f32 parity rows, rank 0 also running each row unpartitioned.
-    ``args``: device, mesh, serve, parity, parity_shape; ``tiny`` cuts the
-    configurations to ``tiny_config`` (the CPU check of this function)."""
+    ``args``: device, mesh, serve, parity, parity_shape, profile."""
     import gc
 
     import numpy as np
     import torch
-    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.configs import ShapeConfig
     from repro_torch.kernels import ops
     from repro_torch.launch import partition as pt
     from repro_torch.launch.mesh import Mesh, device_mesh
     from repro_torch.launch.op_cost import OpCounter
-    from repro_torch.launch.train import tiny_config
     from repro_torch.models.api import build_model
     from repro_torch.models.moe import counting_drops
 
-    dev = torch.device(args["device"])
+    dev, out = rank_start(rank, world, args)
     cuda = dev.type == "cuda"
-    if cuda:
-        torch.cuda.set_device(dev)
-        torch.backends.cuda.matmul.allow_tf32 = False
     mesh = Mesh(args["mesh"], ("data", "model"))
     dm = device_mesh(mesh, dev.type)
-
-    def config(arch, depth=None):
-        cfg = get_config(arch)
-        if args.get("tiny"):
-            cfg = tiny_config(cfg)
-        return cfg if depth is None else \
-            dataclasses.replace(cfg, num_layers=depth)
 
     def sync():
         if cuda:
@@ -2108,10 +2304,9 @@ def partition_rank(rank: int, world: int, args: dict) -> dict:
     def prompt(cfg, B, S, seed):
         return part_prompt(cfg, B, S, seed).to(dev)
 
-    out = {"rank": rank}
     # ---- the full-size serve, bf16 -------------------------------------
     arch, B, S, steps = args["serve"]
-    cfg = config(arch)
+    cfg = pt_config(arch)
     max_len = S + steps + 1            # the counted step, then the timed
     plan = pt.plan_for(cfg, ShapeConfig("serve", max_len, B, "prefill"),
                        mesh)
@@ -2151,18 +2346,22 @@ def partition_rank(rank: int, world: int, args: dict) -> dict:
         tok, cache = serve(params, cache, tok, S + 1 + i)
     sync()
     decode_s = time.perf_counter() - t0
+    launches_decode = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9 if cuda else 0.0
     out["serve"] = {
         "arch": arch, "init_s": init_s, "prefill_s": prefill_s,
         "decode_s": decode_s, "tok_s": B * steps / decode_s,
-        "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9 if cuda
-        else 0.0,
-        "launches": launches_prefill,
-        "launches_decode": ops.launch_counts(),
+        "peak_gb": peak_gb, "launches": launches_prefill,
+        "launches_decode": launches_decode,
         "colls_prefill": colls_prefill, "colls_decode": colls_decode,
         "tokens": tok.to_local().cpu().tolist(),
         "last_logits": last if rank == 0 else None,
         "local_params": sum(p.to_local().numel()
                             for p in params.parameters())}
+    if args.get("profile"):         # one more prefill, rank 0 profiled
+        out["serve"]["profile"] = rank_profile(
+            lambda: prefill(params, inputs, cache), colls_prefill,
+            issuing_size(args["mesh"]), rank == 0)
     del params, cache, logits, inputs, tok, api, last
     gc.collect()
     if cuda:
@@ -2172,7 +2371,7 @@ def partition_rank(rank: int, world: int, args: dict) -> dict:
     B, S, steps = args["parity_shape"]
     out["parity"] = []
     for arch, depth in args["parity"]:
-        cfg = config(arch, depth)
+        cfg = pt_config(arch, depth)
         plan = pt.plan_for(cfg, ShapeConfig("parity", S + steps, B,
                                             "prefill"), mesh, torch.float32)
         ids = prompt(cfg, B, S, 1)
@@ -2228,62 +2427,172 @@ def partition_rank(rank: int, world: int, args: dict) -> dict:
         gc.collect()
         if cuda:
             torch.cuda.empty_cache()
-    return out
+    return rank_done(out)
 
 
-def partition_one(dev, smi) -> dict:
-    """Phase 15d: a group of one rank in this process, the 1 x 1 mesh:
-    the partitioned bf16 prefill of ``PART_ONE`` at phase 8's shape equal
-    bit for bit to the unpartitioned one (the same kernels in the same
-    order).  The group is destroyed also on failure."""
-    import tempfile
-
-    import numpy as np
+def one_mesh_prefill(dev, shape) -> dict:
+    """The 1 x 1 mesh's partitioned ``PART_ONE`` bf16 prefill of
+    ``shape`` (requests, prompt, cache length) on ``dev``, in the current
+    process group, against the unpartitioned prefill of the same weights:
+    equal bit for bit (logits and cache: the same kernels in the same
+    order) and both programs' launches."""
     import torch
-    import torch.distributed as dist
-    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.configs import ShapeConfig
     from repro_torch.kernels import ops
     from repro_torch.launch import partition as pt
     from repro_torch.launch.mesh import Mesh, device_mesh
     from repro_torch.models.api import build_model
 
-    cfg = get_config(PART_ONE)
-    B, S, max_len = SERVE_REQUESTS, SERVE_PROMPT, SERVE_PROMPT + SERVE_GEN
-    ids = torch.from_numpy(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (B, S))).to(dev)
+    cfg = pt_config(PART_ONE)
+    B, S, max_len = shape
+    ids = part_prompt(cfg, B, S, 0).to(dev)
     api1 = build_model(cfg, device=dev)
     params = api1.init(0)
     ops.reset_launch_counts()
     want, want_cache = api1.prefill(params, ids, max_len)
     launches_ref = ops.launch_counts()
+    mesh = Mesh((1, 1), ("data", "model"))
+    api = build_model(cfg, device=dev, mesh=device_mesh(mesh, dev.type))
+    plan = pt.plan_for(cfg, ShapeConfig("one", max_len, B, "prefill"), mesh)
+    pt.distribute_params(params, plan, api)     # views, no copy
+    ops.reset_launch_counts()
+    got, cache = pt.partitioned_prefill_step(api, max_len, plan)(
+        params, pt.distribute(ids, plan.batch_specs["inputs"], api))
+    return {"arch": PART_ONE, "launches": ops.launch_counts(),
+            "launches_ref": launches_ref,
+            "equal": torch.equal(got.to_local(), want) and all(
+                torch.equal(cache[k].to_local(), want_cache[k])
+                for k in want_cache)}
+
+
+def partition_one(dev, smi) -> dict:
+    """Phase 15d: ``one_mesh_prefill`` at phase 8's shape in a gloo
+    group of one rank in this process, destroyed also on failure."""
+    import tempfile
+
+    import torch.distributed as dist
+    B, S, max_len = SERVE_REQUESTS, SERVE_PROMPT, SERVE_PROMPT + SERVE_GEN
     with tempfile.TemporaryDirectory() as tmp:
         dist.init_process_group("gloo", init_method=f"file://{tmp}/init",
                                 rank=0, world_size=1)
         try:
-            mesh = Mesh((1, 1), ("data", "model"))
-            api = build_model(cfg, device=dev, mesh=device_mesh(mesh,
-                                                                "cuda"))
-            plan = pt.plan_for(cfg, ShapeConfig("one", max_len, B,
-                                                "prefill"), mesh)
-            pt.distribute_params(params, plan, api)   # views, no copy
-            ops.reset_launch_counts()
-            got, cache = pt.partitioned_prefill_step(api, max_len, plan)(
-                params, pt.distribute(ids, plan.batch_specs["inputs"], api))
-            launches = ops.launch_counts()
-            torch.cuda.synchronize(dev)
-            equal = torch.equal(got.to_local(), want) and all(
-                torch.equal(cache[k].to_local(), want_cache[k])
-                for k in want_cache)
+            res = one_mesh_prefill(dev, (B, S, max_len))
         finally:
             dist.destroy_process_group()
-    res = {"arch": PART_ONE, "equal": equal, "launches": launches,
-           "launches_ref": launches_ref}
     log(f"[partition] 1x1 mesh {PART_ONE} bf16 prefill {B} x {S}: "
-        f"partitioned {'==' if equal else '!='} unpartitioned (logits and "
-        f"cache, bit for bit), launches {launches} vs {launches_ref} | {smi}")
-    if not equal or launches != launches_ref:
+        f"partitioned {'==' if res['equal'] else '!='} unpartitioned "
+        f"(logits and cache, bit for bit), launches {res['launches']} vs "
+        f"{res['launches_ref']} | {smi}")
+    if not res["equal"] or res["launches"] != res["launches_ref"]:
         raise AssertionError(f"partition 1x1: {res}")
     return res
+
+
+def nccl_one_rank(rank: int, world: int, args: dict) -> dict:
+    """Phase 15e on the one rank of an NCCL group (``run_ranks(...,
+    1, "nccl")``), the 1 x 1 mesh: ``one_mesh_prefill`` at phase 8's
+    shape, and one partitioned train step of ``NCCL_ONE_TRAIN`` (AdamW)
+    against the one-card step on the same card, bit for bit (loss,
+    grad_norm and every updated parameter), with both launches; no
+    collective may be staged through the host.  ``args``: serve_shape,
+    train (arch, depth, batch, sequence)."""
+    import torch
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import partition as pt
+    from repro_torch.launch.mesh import Mesh, device_mesh
+    from repro_torch.models.api import build_model
+
+    dev, out = rank_start(rank, world, args)
+    out["prefill"] = one_mesh_prefill(dev, args["serve_shape"])
+    arch, depth, B, S = args["train"]
+    cfg = pt_config(arch, depth)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in pt_batches(cfg, B, S, 1)[0].items()}
+    api1, params, state, step = unpartitioned_step(dev, cfg)
+    ops.reset_launch_counts()
+    params, state, m_ref = step(params, state, batch)
+    launches_ref = ops.launch_counts()
+    want = {n: p.detach().clone() for n, p in params.named_parameters()}
+    del api1, params, state, step
+    mesh = Mesh((1, 1), ("data", "model"))
+    api = build_model(cfg, device=dev, mesh=device_mesh(mesh, dev.type),
+                      trainable=True)
+    plan = pt.plan_for(cfg, ShapeConfig("one", S, B, "train"), mesh)
+    params = pt.init_params(api, plan, seed=0)
+    opt = pt.default_optimizer(cfg, params, lr=1e-3)
+    state = pt.init_opt_state(api, opt, plan)
+    ops.reset_launch_counts()
+    params, state, m = pt.partitioned_train_step(api, opt, plan)(
+        params, state, pt.distribute_batch(batch, plan, api))
+    out["train"] = {
+        "arch": arch, "depth": depth, "launches": ops.launch_counts(),
+        "launches_ref": launches_ref,
+        "loss": float(m["loss"]), "loss_ref": float(m_ref["loss"]),
+        "equal": all(torch.equal(m[k], m_ref[k])
+                     for k in ("loss", "grad_norm")) and all(
+            torch.equal(p.to_local(), want[n])
+            for n, p in params.named_parameters())}
+    return rank_done(out)
+
+
+def partition_nccl_one(smi) -> dict:
+    """Phase 15e (``[partition]``): ``nccl_one_rank`` in a process of its
+    own, the one rank of an NCCL group, bound to the card; its NCCL log
+    to ``chiprun_out/nccl_one_rank0.log``.  Fails unless both programs
+    are bit for bit the one-card ones, launches equal, and nothing was
+    staged through the host."""
+    from repro_torch.launch.partition import run_ranks
+    _free_card()
+    t0 = time.perf_counter()
+    r, = run_ranks(f"{Path(__file__).resolve()}:nccl_one_rank", 1, "nccl", {
+        "serve_shape": (SERVE_REQUESTS, SERVE_PROMPT,
+                        SERVE_PROMPT + SERVE_GEN),
+        "train": NCCL_ONE_TRAIN}, timeout=600, env=NCCL_ENV,
+        log_path=str(ROOT / "chiprun_out" / "nccl_one_rank{rank}.log"))
+    seconds = time.perf_counter() - t0
+    nccl = nccl_log(ROOT / "chiprun_out" / "nccl_one_rank0.log")
+    pf, tr = r["prefill"], r["train"]
+    log(f"[partition] 1x1 mesh, one NCCL rank ({rank_summary(r)}; the log: "
+        f"{nccl['lines']} NCCL lines, version {nccl['version']}): "
+        f"{PART_ONE} bf16 prefill {SERVE_REQUESTS} x {SERVE_PROMPT} "
+        f"{'==' if pf['equal'] else '!='} unpartitioned (logits and cache, "
+        f"bit for bit), launches {pf['launches']} vs {pf['launches_ref']}; "
+        f"{tr['arch']} at {tr['depth']} layers, one AdamW step of "
+        f"{NCCL_ONE_TRAIN[2]} x {NCCL_ONE_TRAIN[3]} bf16 "
+        f"{'==' if tr['equal'] else '!='} unpartitioned (loss "
+        f"{tr['loss']:.6f} vs {tr['loss_ref']:.6f}, grad_norm and every "
+        f"updated parameter, bit for bit), launches {tr['launches']} vs "
+        f"{tr['launches_ref']}; {seconds:.1f} s, start-up included | {smi}")
+    bad = [f"{k}: {v}" for k, v in (("prefill", pf), ("train", tr))
+           if not v["equal"] or v["launches"] != v["launches_ref"]]
+    if r["host_staged"] or r.get("card", {}).get("index") != 0 or \
+            nccl["cuda_devs"] != [0]:
+        bad.append(f"rank: {rank_summary(r)}, the log's cudaDev "
+                   f"{nccl['cuda_devs']}")
+    if bad:
+        raise AssertionError("partition NCCL 1x1: " + "; ".join(bad))
+    r["seconds"], r["nccl_log"] = seconds, nccl
+    return r
+
+
+def nccl_log(path: Path) -> dict:
+    """What an ``NCCL_DEBUG=INFO`` log says: NCCL's version, the cards
+    its communicators bound (``cudaDev``), the transports its channels
+    took (``... via P2P/CUMEM``, ``SHM``, ``NET``), NVLS lines and
+    warnings, each counted."""
+    text = path.read_text(errors="replace") if path.is_file() else ""
+    lines = [x for x in text.splitlines() if "NCCL" in x]
+    version = next((m.group(1) for x in lines for m in [re.search(
+        r"NCCL version (\S+)", x)] if m), None)
+    via = collections.Counter(m.group(1) for x in lines for m in [
+        re.search(r" via (\S+)", x)] if m)
+    devs = sorted({int(m.group(1)) for x in lines for m in [
+        re.search(r"cudaDev (\d+)", x)] if m})
+    return {"version": version, "lines": len(lines),
+            "transports": dict(via), "cuda_devs": devs,
+            "nvls_lines": sum("NVLS" in x for x in lines),
+            "warnings": [x for x in lines if " WARN " in x][:5]}
 
 
 def partition_serve_ref(dev, smi, last) -> dict:
@@ -2352,23 +2661,31 @@ def partition_serve_ref(dev, smi, last) -> dict:
     return res
 
 
-def partition_phase(dev, smi) -> dict:
-    """Phase 15 (``[partition]``): ``PART_RANKS`` ranks on the one card
-    (``launch/partition.py`` ``run_ranks``, gloo), mesh ``PART_MESH``:
-    the full-size serve, the f32 parity rows; then the serve's logits
-    against the model unpartitioned and the 1 x 1 mesh, in this process.  The kernels are built here, once, before the ranks start
-    (the build's guard is a thread lock, not a process lock)."""
+def partition_phase(dev, smi, multi_card: bool = False) -> dict:
+    """Phase 15 (``[partition]``): ``PART_RANKS`` ranks
+    (``launch/partition.py`` ``run_ranks``), mesh ``PART_MESH``: the
+    full-size serve, the f32 parity rows; then the serve's logits against
+    the model unpartitioned in this process.  On one card the ranks share
+    it in a gloo group, and the 1 x 1 mesh follows, in this process
+    (gloo) and on one NCCL rank; with ``multi_card`` they form an NCCL
+    group, one rank a card, rank 0 profiles one more prefill, and each
+    rank's NCCL log goes to ``chiprun_out/nccl_rank{r}.serve.log``.  The
+    kernels are built here, once, before the ranks start (the build's
+    guard is a thread lock, not a process lock)."""
     from repro_torch.kernels import backend
     from repro_torch.launch.partition import run_ranks
 
     backend.library(backend.MODEL_SOURCE)
     _free_card()
     t0 = time.perf_counter()
+    group, logs = ranks_group(multi_card, "serve")
     ranks = run_ranks(f"{Path(__file__).resolve()}:partition_rank",
-                      PART_RANKS, "gloo", {
+                      PART_RANKS, group, {
                           "device": "cuda:0", "mesh": PART_MESH,
                           "serve": PART_SERVE, "parity": PART_PARITY,
-                          "parity_shape": PART_PARITY_SHAPE}, timeout=900)
+                          "parity_shape": PART_PARITY_SHAPE,
+                          "profile": multi_card},
+                      timeout=MULTI_TIMEOUT if multi_card else 900, **logs)
     ranks_s = time.perf_counter() - t0
     arch, B, S, steps = PART_SERVE
     bad = []
@@ -2379,7 +2696,7 @@ def partition_phase(dev, smi) -> dict:
         dcolls = ", ".join(f"{k} {v:.4g} B" for k, v in
                            sorted(sv["colls_decode"].items()))
         log(f"[partition] rank {r['rank']} of {PART_RANKS} (mesh "
-            f"{PART_MESH[0]}x{PART_MESH[1]}, gloo, one card) {arch} bf16 "
+            f"{PART_MESH[0]}x{PART_MESH[1]}, {rank_summary(r)}) {arch} bf16 "
             f"full width and depth, {sv['local_params'] / 1e9:.3f} B local "
             f"parameters: prefill {B} x {S} {sv['prefill_s']:.4f} s, "
             f"decode {steps} steps {sv['tok_s']:.2f} tok/s, peak "
@@ -2398,6 +2715,13 @@ def partition_phase(dev, smi) -> dict:
     if any(r["serve"]["tokens"] != ranks[0]["serve"]["tokens"]
            for r in ranks):
         bad.append("the ranks' decoded tokens differ")
+    nccl = check_group(ranks, multi_card, "serve", bad, smi)
+    prof = ranks[0]["serve"].get("profile")
+    if prof:
+        log_profile("[partition]", f"rank 0's prefill {B} x {S}", prof, smi)
+        if prof["dtoh_copies"]:
+            bad.append(f"rank 0's prefill: {prof['dtoh_copies']} "
+                       f"device-to-host copies")
     Bp, Sp, steps_p = PART_PARITY_SHAPE
     for row, *others in zip(ranks[0]["parity"],
                             *(r["parity"] for r in ranks[1:])):
@@ -2415,21 +2739,87 @@ def partition_phase(dev, smi) -> dict:
     if bad:
         raise AssertionError("partition: " + "; ".join(bad))
     serve_ref = partition_serve_ref(dev, smi, ranks[0]["serve"]["last_logits"])
-    one = partition_one(dev, smi)
-    seconds = time.perf_counter() - t0
-    log(f"[partition] phase 15 in {seconds:.1f} s ({ranks_s:.1f} s the "
-        f"{PART_RANKS} ranks, start-up included)")
     launches = collections.Counter()
     for r in ranks:
         launches.update(r["serve"]["launches"])
         launches.update(r["serve"]["launches_decode"])
         for row in r["parity"]:
             launches.update(row["launches"])
-    launches.update(one["launches"])
+    one = nccl_one = None
+    if not multi_card:
+        one = partition_one(dev, smi)
+        nccl_one = partition_nccl_one(smi)
+        launches.update(one["launches"])
+        for k in ("prefill", "train"):
+            launches.update(nccl_one[k]["launches"])
+    seconds = time.perf_counter() - t0
+    log(f"[partition] phase 15 in {seconds:.1f} s ({ranks_s:.1f} s the "
+        f"{PART_RANKS} {group} ranks, start-up included)")
     for r in ranks:
         r["serve"].pop("last_logits")
-    return {"ranks": ranks, "serve_ref": serve_ref, "one": one,
-            "seconds": seconds, "launches": dict(launches)}
+    return {"backend": group, "ranks": ranks, "serve_ref": serve_ref,
+            "one": one, "nccl_one": nccl_one, "nccl": nccl,
+            "seconds": seconds, "ranks_seconds": ranks_s,
+            "launches": dict(launches)}
+
+
+def ranks_group(multi_card: bool, phase: str):
+    """The backend of phase 15's or 16's ranks and ``run_ranks``' log
+    arguments: gloo on one card; NCCL with ``multi_card``, its
+    ``NCCL_DEBUG=INFO`` log kept per rank in ``chiprun_out``."""
+    if not multi_card:
+        return "gloo", {}
+    return "nccl", {"env": NCCL_ENV, "log_path": str(
+        ROOT / "chiprun_out" / f"nccl_rank{{rank}}.{phase}.log")}
+
+
+def check_group(ranks, multi_card: bool, phase: str, bad: list, smi):
+    """Under NCCL, each rank on its own card (rank r on card r, as the
+    rank says and as every communicator in its NCCL log says), none
+    staging a collective through the host; logs each rank's card, NCCL version and the transports its
+    channels took.  Returns the logs' summaries by rank (None on gloo)."""
+    if not multi_card:
+        return None
+    out = {}
+    for r in ranks:
+        nl = nccl_log(ROOT / "chiprun_out" /
+                      f"nccl_rank{r['rank']}.{phase}.log")
+        out[r["rank"]] = nl
+        log(f"[nccl] {phase} rank {r['rank']}: {rank_summary(r)}; its log: "
+            f"NCCL {nl['version']}, cudaDev {nl['cuda_devs']}, channels "
+            f"via {nl['transports']}, {nl['nvls_lines']} NVLS lines, "
+            f"warnings {nl['warnings']} | {smi}")
+        if r.get("card", {}).get("index") != r["rank"] or \
+                nl["cuda_devs"] != [r["rank"]]:
+            bad.append(f"rank {r['rank']} is not on card {r['rank']}: "
+                       f"{r.get('card')}, the log's {nl['cuda_devs']}")
+        if r["host_staged"]:
+            bad.append(f"rank {r['rank']} staged {r['host_staged']} "
+                       f"collectives through the host")
+    if len({r.get("card", {}).get("uuid") or r["rank"]
+            for r in ranks}) != len(ranks):
+        bad.append("two ranks on one card")
+    return out
+
+
+def log_profile(tag: str, what: str, prof: dict, smi):
+    """One line of ``rank_profile``'s figures."""
+    kinds = "; ".join(
+        f"{k} {v['bytes']:.4g} B in {v['nccl_kernels']} kernels, "
+        f"{v['nccl_ms']:.3f} ms, bus "
+        + ("-" if v["bus_gb_s"] is None else f"{v['bus_gb_s']:.1f} GB/s")
+        + f" (H100Spec at 450 GB/s: {v['h100spec_ms']:.3f} ms)"
+        for k, v in sorted(prof["by_kind"].items()))
+    log(f"{tag} profiled: {what}, busy {prof['device_busy_ms']:.2f} of "
+        f"{prof['wall_ms']:.2f} ms (idle {prof['idle_share']:.3f}, "
+        f"{prof['device_kernels']} kernels, {prof['dtoh_copies']} "
+        f"device-to-host copies), device ms "
+        f"{ {k: round(v, 3) for k, v in prof['device_ms'].items()} } "
+        f"(the optimizer range's span {prof['optimizer_span_ms']:.2f}), "
+        f"NCCL ms { {k: round(v, 3) for k, v in prof['nccl_ms'].items()} }; "
+        f"groups of {prof['group_ranks']}: {kinds}; heaviest host ops "
+        f"{ {k: round(v, 2) for k, v in prof['top_host_ms'].items()} } "
+        f"| {smi}")
 
 
 # ---------------------------------------------------------------------------
@@ -2460,12 +2850,9 @@ def fsdp_budget(cfg, shape, mesh, dtype):
     return hbm
 
 
-def pt_config(arch, depth=None, tiny=False):
+def pt_config(arch, depth=None):
     from repro_torch.configs import get_config
-    from repro_torch.launch.train import tiny_config
     cfg = get_config(arch)
-    if tiny:
-        cfg = tiny_config(cfg)
     return cfg if depth is None else dataclasses.replace(cfg,
                                                          num_layers=depth)
 
@@ -2486,9 +2873,8 @@ def partition_train_rank(rank: int, world: int, args: dict) -> dict:
     then the f32 parity rows, each rank's gradient windows of the first
     batch held against the unpartitioned step's, which the parent saved
     (``refs``: per row a file of whole gradients, read a window at a
-    time).  ``args``: device, mesh, train, parity, parity_shape, refs and
-    budgets; ``tiny`` cuts the configurations to ``tiny_config`` (the CPU
-    check of this function)."""
+    time).  ``args``: device, mesh, train, parity, parity_shape, witness,
+    refs, budgets and profile."""
     import gc
 
     import torch
@@ -2502,12 +2888,8 @@ def partition_train_rank(rank: int, world: int, args: dict) -> dict:
     from repro_torch.models.common import token_losses
     from repro_torch.optim.optimizers import TreeShards, tree_map
 
-    dev = torch.device(args["device"])
+    dev, out = rank_start(rank, world, args)
     cuda = dev.type == "cuda"
-    if cuda:
-        torch.cuda.set_device(dev)
-        torch.backends.cuda.matmul.allow_tf32 = False
-    tiny = args.get("tiny", False)
     axes = ("data", "model")
     dms = {m: device_mesh(Mesh(m, axes), dev.type)
            for m in {tuple(args["mesh"])} | {tuple(r[3])
@@ -2561,10 +2943,9 @@ def partition_train_rank(rank: int, world: int, args: dict) -> dict:
                 bad += (sh.all_gather(x, 0, peers) != x).any().float()
         return float(sh.all_reduce(bad, sh.axis_names)) == 0.0
 
-    out = {"rank": rank}
     # ---- the full-size train steps, bf16 --------------------------------
     arch, steps, B, S = args["train"]
-    cfg = pt_config(arch, tiny=tiny)
+    cfg = pt_config(arch)
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
@@ -2595,13 +2976,21 @@ def partition_train_rank(rank: int, world: int, args: dict) -> dict:
         seconds.append(time.perf_counter() - t0)
     launches = ops.launch_counts()
     step_s = min(seconds[1:])
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9 if cuda else 0.0
+    profile = None
+    if args.get("profile"):          # one more step, rank 0 profiled
+        batch = pt.distribute_batch({k: torch.from_numpy(v).to(dev) for k, v
+                                     in pt_batches(cfg, B, S, steps + 1)[
+                                         -1].items()}, plan, api)
+        profile = rank_profile(lambda: step(params, state, batch),
+                               cost.coll_by_kind,
+                               issuing_size(args["mesh"]), rank == 0)
     out["train"] = {
         "arch": arch, "init_s": init_s, "losses": losses,
         "token_losses": tokens if rank == 0 else None,
         "grad_norm": float(m["grad_norm"]), "step_seconds": seconds,
         "step_s": step_s, "tokens_per_s": B * S / step_s,
-        "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9 if cuda
-        else 0.0, "launches": launches,
+        "peak_gb": peak_gb, "launches": launches, "profile": profile,
         "plan": {"zero": plan.zero_opt, "fsdp": plan.fsdp,
                  "attn_sharded": plan.attn_sharded},
         "flops": cost.flops, "bytes": cost.bytes,
@@ -2615,7 +3004,7 @@ def partition_train_rank(rank: int, world: int, args: dict) -> dict:
     Bp, Sp, steps_p = args["parity_shape"]
     out["parity"] = []
     for name, arch_p, depth, mesh, force, eps in args["parity"]:
-        cfg_p = pt_config(arch_p, depth, tiny)
+        cfg_p = pt_config(arch_p, depth)
         pod = dataclasses.replace(H100Spec(), hbm_bytes=args["budgets"][
             name]) if force else H100Spec()
         api, opt, plan, params, state = setup(cfg_p, tuple(mesh), Bp, Sp,
@@ -2684,27 +3073,35 @@ def partition_train_rank(rank: int, world: int, args: dict) -> dict:
         out["witness"]["x".join(map(str, mesh))] = t if rank == 0 else None
         del api, params
         free()
-    return out
+    return rank_done(out)
 
 
-def pt_reference(dev, arch, depth, tiny, path, eps=None) -> dict:
+def unpartitioned_step(dev, cfg, dtype=None, **opt_kw):
+    """The one-card train step of ``cfg`` on ``dev``: the model, its
+    parameters from seed 0 (in ``dtype`` where given), the state of
+    ``default_optimizer`` (lr 1e-3, ``opt_kw``), and
+    ``build_train_step``'s step."""
+    from repro_torch.launch import partition as pt
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models.api import build_model
+    api = build_model(cfg, device=dev, trainable=True,
+                      **({} if dtype is None else {"dtype": dtype}))
+    params = api.init(0)
+    opt = pt.default_optimizer(cfg, params, lr=1e-3, **opt_kw)
+    state = opt.init(dict(params.named_parameters()))
+    return api, params, state, build_train_step(api, opt)
+
+
+def pt_reference(dev, arch, depth, path, eps=None) -> dict:
     """The unpartitioned f32 step of a parity row on ``dev`` (AdamW's
     ``eps`` where given): its first batch's gradients to ``path`` (whole,
     on the host), each leaf's max |g|, and the losses and gradient norms
     of ``PT_PARITY_SHAPE``'s steps."""
     import torch
-    from repro_torch.launch import partition as pt
-    from repro_torch.launch.steps import build_train_step
-    from repro_torch.models.api import build_model
-
-    cfg = pt_config(arch, depth, tiny)
+    cfg = pt_config(arch, depth)
     B, S, steps = PT_PARITY_SHAPE
-    api = build_model(cfg, device=dev, dtype=torch.float32, trainable=True)
-    params = api.init(0)
-    opt = pt.default_optimizer(cfg, params, lr=1e-3,
-                               **({} if eps is None else {"eps": eps}))
-    state = opt.init(dict(params.named_parameters()))
-    step = build_train_step(api, opt)
+    api, params, state, step = unpartitioned_step(
+        dev, cfg, torch.float32, **({} if eps is None else {"eps": eps}))
     res = {"loss": [], "grad_norm": [], "path": path}
     for i, b in enumerate(pt_batches(cfg, B, S, steps)):
         batch = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
@@ -2727,7 +3124,7 @@ def pt_reference(dev, arch, depth, tiny, path, eps=None) -> dict:
     return res
 
 
-def pt_loss_ref(dev, arch, B, S, tiny=False) -> dict:
+def pt_loss_ref(dev, arch, B, S) -> dict:
     """Phase 16a's check: the loss of each token of the first
     ``PT_WITNESS_BATCHES`` batches of the full-size model, seed 0,
     unpartitioned in this process, forward only: in bf16, and in f32 with
@@ -2736,7 +3133,7 @@ def pt_loss_ref(dev, arch, B, S, tiny=False) -> dict:
     import torch
     from repro_torch.models.api import build_model
     from repro_torch.models.common import token_losses
-    cfg = pt_config(arch, tiny=tiny)
+    cfg = pt_config(arch)
     batches = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()}
                for b in pt_batches(cfg, B, S, PT_WITNESS_BATCHES)]
     out = {}
@@ -2758,7 +3155,7 @@ def pt_loss_ref(dev, arch, B, S, tiny=False) -> dict:
     return out
 
 
-def pt_meta_count(arch, B, S, mesh, tiny=False) -> dict:
+def pt_meta_count(arch, B, S, mesh) -> dict:
     """Rank 0's step of phase 16a traced on ``meta`` under a fake group of
     the mesh's size: its FLOPs, bytes and collective bytes by kind."""
     import torch
@@ -2769,7 +3166,7 @@ def pt_meta_count(arch, B, S, mesh, tiny=False) -> dict:
     from repro_torch.launch.steps import input_structs
     from repro_torch.models.api import build_model
 
-    cfg = pt_config(arch, tiny=tiny)
+    cfg = pt_config(arch)
     shape = ShapeConfig("pt", S, B, "train")
     m = Mesh(mesh, ("data", "model"))
     t0 = time.perf_counter()
@@ -2790,20 +3187,55 @@ def pt_meta_count(arch, B, S, mesh, tiny=False) -> dict:
             "peak_bytes": c.peak_bytes, "seconds": time.perf_counter() - t0}
 
 
+def one_card_step(dev, smi) -> dict:
+    """``PT_TRAIN``'s step unpartitioned on this process's card, eager,
+    seed 0, the same batches: the step seconds (min of steps 2 on, as
+    the ranks' are read), tokens/s and peak, beside the 4 ranks'."""
+    import torch
+    arch, steps, B, S = PT_TRAIN
+    cfg = pt_config(arch)
+    _free_card()
+    torch.cuda.reset_peak_memory_stats(dev)
+    api, params, state, step = unpartitioned_step(dev, cfg)
+    seconds, losses = [], []
+    for b in pt_batches(cfg, B, S, steps):
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize(dev)
+        seconds.append(time.perf_counter() - t0)
+    res = {"step_s": min(seconds[1:]), "step_seconds": seconds,
+           "losses": losses, "tokens_per_s": B * S / min(seconds[1:]),
+           "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    log(f"[partition-train] {arch} bf16 {B} x {S} unpartitioned on card "
+        f"{dev.index or 0}, eager: step {res['step_s']:.4f} s (min of steps "
+        f"2-{steps}; all {[round(x, 4) for x in seconds]}), "
+        f"{res['tokens_per_s']:.1f} tokens/s, peak {res['peak_gb']:.2f} GB, "
+        f"losses {[round(x, 5) for x in losses]} | {smi}")
+    del api, params, state, step, batch
+    _free_card()
+    return res
+
+
 def pt_ref_key(arch, eps) -> str:
     """The name of a parity row's unpartitioned reference."""
     return arch if eps is None else f"{arch}-eps{eps:g}"
 
 
-def partition_train_phase(dev, smi, tiny=False) -> dict:
+def partition_train_phase(dev, smi, multi_card=False) -> dict:
     """Phase 16 (``[partition-train]``): the unpartitioned f32 parity
     steps in this process first (their gradients saved to the host, the
-    card freed), then ``PART_RANKS`` ranks on the one card, mesh
-    ``PT_MESH``: the full-size bf16 train steps and the f32 parity rows;
-    then, the ranks gone, the full-size model's first loss unpartitioned
-    in bf16 and f32, and rank 0's step traced on meta.  A rank that fails
-    fails the phase.  ``tiny`` cuts every configuration to
-    ``tiny_config`` (the CPU check of this function, ``dev`` the CPU)."""
+    card freed), then ``PART_RANKS`` ranks, mesh ``PT_MESH``: the
+    full-size bf16 train steps and the f32 parity rows; then, the ranks
+    gone, the full-size model's first loss unpartitioned in bf16 and f32,
+    and rank 0's step traced on meta.  On one card the ranks share it in
+    a gloo group; with ``multi_card`` they form an NCCL group, one rank a
+    card, rank 0 profiles one more step, each rank's NCCL log goes to
+    ``chiprun_out/nccl_rank{r}.train.log``, and this process then times
+    the one-card eager step (``one_card_step``).  A rank that fails fails
+    the phase."""
     import tempfile
 
     from repro_torch.configs import ShapeConfig
@@ -2822,34 +3254,35 @@ def partition_train_phase(dev, smi, tiny=False) -> dict:
         for name, arch, depth, mesh, force, eps in PT_PARITY:
             key = pt_ref_key(arch, eps)
             if key not in refs:
-                refs[key] = pt_reference(dev, arch, depth, tiny,
+                refs[key] = pt_reference(dev, arch, depth,
                                          str(Path(tmp) / f"{key}.pt"), eps)
             ref_paths[name] = refs[key]["path"]
             if force:
                 budgets[name] = fsdp_budget(
-                    pt_config(arch, depth, tiny), ShapeConfig("pt", Sp, Bp,
-                                                              "train"),
+                    pt_config(arch, depth), ShapeConfig("pt", Sp, Bp,
+                                                        "train"),
                     Mesh(mesh, ("data", "model")), torch.float32)
         ref_s = time.perf_counter() - t0
         t1 = time.perf_counter()
+        group, logs = ranks_group(multi_card, "train")
         ranks = run_ranks(
             f"{Path(__file__).resolve()}:partition_train_rank", PART_RANKS,
-            "gloo", {"device": str(dev), "mesh": PT_MESH, "train": PT_TRAIN,
-                     "parity": PT_PARITY, "parity_shape": PT_PARITY_SHAPE,
-                     "witness": PT_WITNESS, "refs": ref_paths,
-                     "budgets": budgets, "tiny": tiny},
-            timeout=1000)
+            group, {"device": str(dev), "mesh": PT_MESH, "train": PT_TRAIN,
+                    "parity": PT_PARITY, "parity_shape": PT_PARITY_SHAPE,
+                    "witness": PT_WITNESS, "refs": ref_paths,
+                    "budgets": budgets, "profile": multi_card},
+            timeout=MULTI_TIMEOUT if multi_card else 1000, **logs)
         ranks_s = time.perf_counter() - t1
     arch, steps, B, S = PT_TRAIN
-    losses = pt_loss_ref(dev, arch, B, S, tiny)
-    meta = pt_meta_count(arch, B, S, PT_MESH, tiny)
+    losses = pt_loss_ref(dev, arch, B, S)
+    meta = pt_meta_count(arch, B, S, PT_MESH)
     bad = []
     for r in ranks:
         tr = r["train"]
         colls = ", ".join(f"{k} {v:.4g} B" for k, v in
                           sorted(tr["coll_by_kind"].items()))
         log(f"[partition-train] rank {r['rank']} of {PART_RANKS} (mesh "
-            f"{PT_MESH[0]}x{PT_MESH[1]}, gloo, one card) {arch} bf16 full "
+            f"{PT_MESH[0]}x{PT_MESH[1]}, {rank_summary(r)}) {arch} bf16 full "
             f"width and depth, {tr['local_params'] / 1e9:.3f} B local "
             f"parameters, AdamW, plan zero={tr['plan']['zero']} "
             f"fsdp={tr['plan']['fsdp']}: {steps} eager steps of {B} x {S} "
@@ -2866,6 +3299,13 @@ def partition_train_phase(dev, smi, tiny=False) -> dict:
     tr0 = ranks[0]["train"]
     if any(r["train"]["losses"] != tr0["losses"] for r in ranks):
         bad.append("the ranks' losses differ")
+    nccl = check_group(ranks, multi_card, "train", bad, smi)
+    if tr0["profile"]:
+        log_profile("[partition-train]", f"rank 0's eager step {steps + 1} "
+                    f"of {B} x {S}", tr0["profile"], smi)
+        if tr0["profile"]["dtoh_copies"]:
+            bad.append(f"rank 0's step: {tr0['profile']['dtoh_copies']} "
+                       f"device-to-host copies")
     tokens, f32 = tr0.pop("token_losses"), losses["f32"]
 
     def dist(a, rows=None):
@@ -2968,16 +3408,19 @@ def partition_train_phase(dev, smi, tiny=False) -> dict:
                        f"{equal}")
     if bad:
         raise AssertionError("partition-train: " + "; ".join(bad))
+    one_card = one_card_step(dev, smi) if multi_card else None
     seconds = time.perf_counter() - t0
     log(f"[partition-train] phase 16 in {seconds:.1f} s ({ref_s:.1f} s the "
-        f"unpartitioned references, {ranks_s:.1f} s the {PART_RANKS} ranks, "
-        f"start-up included)")
+        f"unpartitioned references, {ranks_s:.1f} s the {PART_RANKS} "
+        f"{group} ranks, start-up included)")
     launches = collections.Counter()
     for r in ranks:
         launches.update(r["train"]["launches"])
         for row in r["parity"]:
             launches.update(row["launches"])
-    return {"ranks": ranks, "references": refs,
+    return {"backend": group, "ranks": ranks, "references": refs,
+            "nccl": nccl, "one_card_step": one_card,
+            "ranks_seconds": ranks_s,
             "token_losses": {"partitioned_vs_f32": part,
                              "one_card_vs_f32": one,
                              "scalar_offsets_by_mesh": offsets,
@@ -2985,6 +3428,126 @@ def partition_train_phase(dev, smi, tiny=False) -> dict:
                              "means": {k: float(v[:B].mean())
                                        for k, v in losses.items()}},
             "meta": meta, "seconds": seconds, "launches": dict(launches)}
+
+
+def nccl_rates_rank(rank: int, world: int, args: dict) -> dict:
+    """The NCCL group's own rates, apart from any step: each collective
+    kind on bf16 buffers of ``NCCL_RATE_MIB`` MiB (the whole buffer: an
+    all-reduce's, an all-gather's result, a reduce-scatter's input), over
+    all ranks and over pairs (0, 1), (2, 3), after a warm-up and a
+    barrier, ``NCCL_RATE_ITERS`` calls between two CUDA events on each
+    rank; the ms a call and the bus bandwidth (``bus_gb_s``), by rank."""
+    import torch
+    import torch.distributed as dist
+    dev, out = rank_start(rank, world, args)
+    pairs = [dist.new_group([r, r + 1]) for r in range(0, world, 2)]
+    groups = {world: dist.group.WORLD, 2: pairs[rank // 2]}
+    out["rates"] = []
+    for n, g in groups.items():
+        for mib in args["mib"]:
+            whole = torch.zeros(mib * 2**19, dtype=torch.bfloat16,
+                                device=dev)
+            part = torch.zeros(whole.numel() // n, dtype=whole.dtype,
+                               device=dev)
+            calls = {
+                "all-reduce": (lambda: dist.all_reduce(whole, group=g),
+                               whole),
+                "all-gather": (lambda: dist.all_gather_into_tensor(
+                    whole, part, group=g), whole),
+                "reduce-scatter": (lambda: dist.reduce_scatter_tensor(
+                    part, whole, group=g), part)}
+            for kind, (fn, result) in calls.items():
+                for _ in range(3):
+                    fn()
+                torch.cuda.synchronize(dev)
+                dist.barrier(group=g, device_ids=[rank])
+                start, stop = (torch.cuda.Event(enable_timing=True)
+                               for _ in range(2))
+                start.record()
+                for _ in range(args["iters"]):
+                    fn()
+                stop.record()
+                torch.cuda.synchronize(dev)
+                ms = start.elapsed_time(stop) / args["iters"]
+                nbytes = result.numel() * result.element_size()
+                out["rates"].append({
+                    "ranks": n, "kind": kind, "mib": mib, "ms": ms,
+                    "bus_gb_s": bus_gb_s(kind, nbytes, n, ms)})
+            del whole, part
+    return rank_done(out)
+
+
+def nccl_rates(smi) -> dict:
+    """``--multi-card``'s first group (``nccl_rates_rank``): 4 NCCL
+    ranks, each on its own card; the slowest rank's bus bandwidth per
+    (ranks, kind, MiB) beside ``H100Spec``'s 450 GB/s one way."""
+    from repro_torch.hw.gpu import H100Spec
+    from repro_torch.launch.partition import run_ranks
+    spec = H100Spec().ici_link_bw * H100Spec().ici_links_per_chip / 1e9
+    _free_card()
+    bad = []
+    group, logs = ranks_group(True, "rates")
+    ranks = run_ranks(f"{Path(__file__).resolve()}:nccl_rates_rank",
+                      PART_RANKS, group, {"mib": NCCL_RATE_MIB,
+                                          "iters": NCCL_RATE_ITERS},
+                      timeout=MULTI_TIMEOUT, **logs)
+    nccl = check_group(ranks, True, "rates", bad, smi)
+    rows = []
+    for rs in zip(*(r["rates"] for r in ranks)):
+        slow = max(rs, key=lambda x: x["ms"])
+        rows.append({**slow, "by_rank_ms": [x["ms"] for x in rs]})
+        log(f"[nccl] rate: {slow['kind']} over {slow['ranks']} ranks, "
+            f"{slow['mib']} MiB bf16: {slow['ms']:.4f} ms a call (slowest "
+            f"rank; all {[round(x['ms'], 4) for x in rs]}), bus "
+            f"{slow['bus_gb_s']:.1f} GB/s, H100Spec {spec:.0f} GB/s | {smi}")
+    if bad:
+        raise AssertionError("nccl rates: " + "; ".join(bad))
+    return {"rows": rows, "nccl": nccl, "h100spec_gb_s": spec}
+
+
+def multi_card(dev, detail: dict, t_main: float) -> int:
+    """``--multi-card``: phases 15 and 16 with ``PART_RANKS`` NCCL ranks,
+    rank r on card r of this host (the kernels built once, above); per
+    rank its card, NCCL's version and transports, prefill s, decode
+    tok/s, train step s, peak and collective bytes by kind, beside the
+    one-card eager step; rank 0's profiled prefill and step.  Details to
+    ``chiprun_out/chip_smoke_multi.json``; the last line names the cards
+    used."""
+    import torch
+    smi_lines = card_power().splitlines()
+    smi = "; ".join(smi_lines)
+    rates = nccl_rates(smi)
+    serve = partition_phase(dev, smi, multi_card=True)
+    train = partition_train_phase(dev, smi, multi_card=True)
+    arch, B, S, steps = PART_SERVE
+    one = train["one_card_step"]
+    for sv, tr in zip(serve["ranks"], train["ranks"]):
+        s_, t_ = sv["serve"], tr["train"]
+        log(f"[multi-card] rank {sv['rank']} on card "
+            f"{sv['card']['index']}: {arch} prefill {B} x {S} "
+            f"{s_['prefill_s']:.4f} s, decode {s_['tok_s']:.2f} tok/s, peak "
+            f"{s_['peak_gb']:.2f} GB; {PT_TRAIN[0]} step "
+            f"{t_['step_s']:.4f} s (min of steps 2-{PT_TRAIN[1]}; all "
+            f"{[round(x, 4) for x in t_['step_seconds']]}), peak "
+            f"{t_['peak_gb']:.2f} GB, step 1's collectives "
+            f"{ {k: f'{v:.4g}' for k, v in t_['coll_by_kind'].items()} } B; "
+            f"launches serve {s_['launches']}, train {t_['launches']}; the "
+            f"one-card eager step {one['step_s']:.4f} s | {smi}")
+    detail.update({"multi_card": {"cards": PART_RANKS, "rates": rates,
+                                  "partition": serve,
+                                  "partition_train": train}})
+    detail["seconds"] = time.perf_counter() - t_main
+    log(f"[total] --multi-card in {detail['seconds']:.1f} s")
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke_multi.json").write_text(json.dumps(detail,
+                                                              indent=1))
+    for line in smi_lines:
+        log(line)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": PART_RANKS}}))
+    return 0
 
 
 def model_kernel_entry(name, rows, uses, serve_res, source, replaces):
@@ -3025,6 +3588,10 @@ def main(argv=None) -> int:
                     help="build, run phase 16 (the partitioned train step "
                     "on ranks of the one card) and stop without a result "
                     "line")
+    ap.add_argument("--multi-card", action="store_true",
+                    help=f"on {PART_RANKS} cards of one host: build, run "
+                    "phases 15 and 16 as one NCCL rank a card, and end with "
+                    "the result line of the cards used")
     args = ap.parse_args(argv)
     t_main = time.perf_counter()
     if not (ROOT / "src" / "repro_torch" / "csrc"
@@ -3035,6 +3602,11 @@ def main(argv=None) -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
+        return 1
+    if args.multi_card and torch.cuda.device_count() < PART_RANKS:
+        print(f"chip_smoke.py: --multi-card needs {PART_RANKS} cards, one "
+              f"NCCL rank a card; this host has {torch.cuda.device_count()}",
+              file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     import torch.nn.functional as F
@@ -3091,6 +3663,8 @@ def main(argv=None) -> int:
         partition_train_phase(dev, card_power())
         log("[partition-train] stopping (--partition-train-only)")
         return 0
+    if args.multi_card:
+        return multi_card(dev, detail, t_main)
 
     # solve + lower the three configurations --------------------------------
     configs = [("resnet", eyeriss_multinode()),
@@ -3404,7 +3978,8 @@ def main(argv=None) -> int:
     kernels[-2]["launches_wgmma"] += \
         train_res["launches"]["flash_attention_wgmma"] \
         + dry_launches["flash_attention_wgmma"]
-    # phase 15's ranks (serve, parity) and its 1 x 1 prefill join them
+    # phase 15's ranks (serve, parity) and its 1 x 1 rows (the prefill in
+    # this process; the prefill and train step on one NCCL rank) join them
     part_launches = detail["partition"]["launches"]
     for k in kernels[-2:]:
         k["uses"].append("partition")

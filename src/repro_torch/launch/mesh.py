@@ -71,7 +71,11 @@ def make_local_mesh(axes: Sequence[str] = ("data", "model"),
 
 def device_mesh(mesh: Mesh, device_type: str = "cuda"):
     """The ``DeviceMesh`` of ``mesh``'s shape and axis names over the
-    current process group, whose size must be the mesh's."""
+    current process group, whose size must be the mesh's.  Under NCCL the
+    group must be bound to a card (``init_process_group(device_id=...)``,
+    as ``launch/partition.py`` ``run_ranks`` binds it) and that card must
+    be the current device: this raises rather than let the mesh pick one
+    from the rank's number."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     shape = tuple(mesh.shape[a] for a in mesh.axis_names)
@@ -80,6 +84,15 @@ def device_mesh(mesh: Mesh, device_type: str = "cuda"):
             f"a {'x'.join(map(str, shape))} mesh needs a process group of "
             f"{mesh.size} ranks; have "
             f"{dist.get_world_size() if dist.is_initialized() else 'none'}")
+    if dist.get_backend() == "nccl":
+        import torch
+        bound = dist.distributed_c10d._get_default_group().bound_device_id
+        current = torch.cuda.current_device()
+        if bound is None or bound.index != current:
+            raise RuntimeError(
+                f"rank {dist.get_rank()}: the NCCL group is bound to "
+                f"{bound}, the current device is cuda:{current}; bind the "
+                f"group to the rank's card and set it current first")
     return init_device_mesh(device_type, shape,
                             mesh_dim_names=mesh.axis_names)
 

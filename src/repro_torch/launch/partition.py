@@ -26,10 +26,14 @@ issues the collectives the reference's GSPMD partition inserts.
   backward and update (ZeRO and FSDP state as placements), parameters
   and state written in place at their placements.
 * ``run_ranks`` runs one function on every rank of a new process group,
-  each in a process of its own (``gloo`` on the CPU, or on one card for
-  several ranks, where NCCL refuses two ranks on one device): the CPU
-  tests and ``chip_smoke.py`` spawn their ranks through it.  The backend
-  is the caller's; nothing switches backends.
+  each in a process of its own: the CPU tests and ``chip_smoke.py`` spawn
+  their ranks through it.  Under ``nccl`` rank r computes on card r of
+  its host (``rank_device``), one rank a card, its communicator bound to
+  that card, and a group of more ranks than cards is refused before
+  anything starts; under ``gloo`` the ranks run where the caller puts
+  them (the CPU, or several ranks on one card, whose CUDA tensors
+  ``models/shards.py`` stages through the host).  The backend is the
+  caller's; nothing switches backends.
 """
 from __future__ import annotations
 
@@ -260,30 +264,70 @@ class RankFailure(RuntimeError):
                 f"{self.stderr[-6000:]}")
 
 
+def rank_device(rank: int, world: int) -> torch.device:
+    """The card rank ``rank`` of an NCCL group of ``world`` computes on:
+    card ``rank`` of this host, one rank a card.  Raises when the host
+    has fewer than ``world`` cards (NCCL refuses two ranks on one
+    device; nothing falls back to gloo or to the CPU)."""
+    cards = torch.cuda.device_count()
+    if world > cards:
+        raise RuntimeError(f"an NCCL group of {world} ranks needs {world} "
+                           f"cards, one a rank; this host has {cards}")
+    if not 0 <= rank < world:
+        raise ValueError(f"rank {rank} of a group of {world}")
+    return torch.device("cuda", rank)
+
+
+def rank_env(env: Optional[Dict[str, str]] = None) -> Dict[str, str]:
+    """The environment of a rank's process: this one's, then ``env``
+    over it, with the port's package first on ``PYTHONPATH``; gloo's and
+    NCCL's bootstrap sockets on the loopback device unless set (a machine
+    without a network has no other), and faulthandler on."""
+    child = {**os.environ, **(env or {})}
+    child["PYTHONPATH"] = os.pathsep.join(
+        [str(_SRC)] + [p for p in child.get("PYTHONPATH", "").split(
+            os.pathsep) if p])
+    child.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    child.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    child.setdefault("PYTHONFAULTHANDLER", "1")
+    return child
+
+
+def load_result(path) -> Any:
+    """A rank's saved result, every tensor on the CPU (one saved on card
+    3 would land on card 3 of the loading process otherwise)."""
+    return torch.load(path, map_location="cpu", weights_only=False)
+
+
 def run_ranks(target: str, world: int, backend: str, args: Any = None,
-              timeout: float = 600.0) -> List[Any]:
+              timeout: float = 600.0, env: Optional[Dict[str, str]] = None,
+              log_path: Optional[str] = None) -> List[Any]:
     """Run ``target`` (``"package.module:function"`` or
     ``"path/to/file.py:function"``) as ``function(rank, world, args)`` on
     ``world`` processes joined in one process group of ``backend``
     (``gloo``, ``nccl``), initialised through a file, so nothing listens
     on a network port; returns each rank's result (anything ``torch.save``
-    writes), by rank.  Each process is this Python with the port's
-    package on its path.  A rank that fails, or a group that outlives
-    ``timeout`` seconds, ends every process and raises."""
+    writes), by rank, on the CPU.  Each process is this Python with the
+    port's package on its path, in ``rank_env(env)``; under ``nccl`` rank
+    r runs on card r (``rank_device``: a group of more ranks than cards
+    raises here, before any process starts).  With ``log_path`` (a path
+    holding ``{rank}``) each rank's output is kept there.  A rank that
+    fails, or a group that outlives ``timeout`` seconds, ends every
+    process and raises."""
+    if backend == "nccl":
+        rank_device(0, world)
     with tempfile.TemporaryDirectory(prefix="ranks_") as tmp:
         tmp = Path(tmp)
         torch.save(args, tmp / "args.pt")
-        child_env = dict(os.environ)
-        child_env["PYTHONPATH"] = os.pathsep.join(
-            [str(_SRC)] + [p for p in child_env.get("PYTHONPATH", "").split(
-                os.pathsep) if p])
-        child_env.setdefault("GLOO_SOCKET_IFNAME", "lo")
-        child_env.setdefault("PYTHONFAULTHANDLER", "1")
+        child_env = rank_env(env)
+        log_path = log_path or str(tmp / "rank{rank}.log")
         procs, logs = [], []
         for r in range(world):
             cmd = [sys.executable, "-m", "repro_torch.launch.partition",
                    target, str(r), str(world), backend, str(tmp)]
-            logs.append(open(tmp / f"log{r}.txt", "w+"))
+            path = Path(log_path.format(rank=r))
+            path.parent.mkdir(parents=True, exist_ok=True)
+            logs.append(open(path, "w+"))
             procs.append(subprocess.Popen(cmd, env=child_env,
                                           stdout=logs[r],
                                           stderr=subprocess.STDOUT))
@@ -311,8 +355,7 @@ def run_ranks(target: str, world: int, backend: str, args: Any = None,
                     p.wait()
             for f in logs:
                 f.close()
-        return [torch.load(tmp / f"out{r}.pt", weights_only=False)
-                for r in range(world)]
+        return [load_result(tmp / f"out{r}.pt") for r in range(world)]
 
 
 def _tail(log) -> str:
@@ -339,12 +382,17 @@ def _rank_main(argv: List[str]) -> int:
     import torch.distributed as dist
     target, rank, world, backend, tmp = argv
     rank, world, tmp = int(rank), int(world), Path(tmp)
+    bind = {}
+    if backend == "nccl":          # the communicator bound to its card
+        dev = rank_device(rank, world)
+        torch.cuda.set_device(dev)
+        bind = {"device_id": dev}
     dist.init_process_group(backend, init_method=f"file://{tmp / 'init'}",
-                            rank=rank, world_size=world)
+                            rank=rank, world_size=world, **bind)
     try:
         args = torch.load(tmp / "args.pt", weights_only=False)
         out = _load_target(target)(rank, world, args)
-        dist.barrier()
+        dist.barrier(device_ids=[rank] if bind else None)
     finally:
         dist.destroy_process_group()
     torch.save(out, tmp / f"out{rank}.pt")
@@ -353,9 +401,10 @@ def _rank_main(argv: List[str]) -> int:
 
 __all__ = ["RankFailure", "default_optimizer", "distribute",
            "distribute_batch", "distribute_params", "init_cache",
-           "init_opt_state", "init_params", "meta_params", "next_tokens",
-           "partitioned_prefill_step", "partitioned_serve_step",
-           "partitioned_train_step", "plan_for", "run_ranks", "shards_of",
+           "init_opt_state", "init_params", "load_result", "meta_params",
+           "next_tokens", "partitioned_prefill_step",
+           "partitioned_serve_step", "partitioned_train_step", "plan_for",
+           "rank_device", "rank_env", "run_ranks", "shards_of",
            "token_spec"]
 
 

@@ -35,10 +35,18 @@ block's input to its column-sharded projections, a replicated weight
 read by local heads or experts, the gated norm's variance, the final
 hidden state before the vocabulary-sharded head); the all-gather and the
 reduce-scatter are each other's backward, and ``local``'s gather over the
-data axes (FSDP) reduce-scatters a leaf's gradient over them.  A ``gloo``
-group moves host memory, so a CUDA tensor is copied to the host for its
-collectives and back (gloo's own CUDA all-gather faults in PyTorch 2.11);
-NCCL and the dry-run's ``fake`` group take the tensor where it is.
+data axes (FSDP) reduce-scatters a leaf's gradient over them.
+
+Which backend does what: an NCCL group (one rank a card,
+``launch/partition.py`` ``run_ranks``) takes the CUDA tensor where it is,
+forward and backward alike (a backward collective runs on autograd's
+thread for the tensor's card, on the stream its forward ran on); so does
+the dry-run's ``fake`` group, which moves nothing.  A ``gloo`` group moves
+host memory: a CPU tensor goes as it is, and a CUDA tensor (several gloo
+ranks sharing one card) is copied to the host for its collective and
+back, since gloo's own CUDA all-gather faults in PyTorch 2.11.
+``HOST_STAGED`` counts those staged collectives, so a run can show that
+its NCCL path staged none.
 """
 from __future__ import annotations
 
@@ -49,19 +57,27 @@ from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 import torch
 
 
+#: collectives of a CUDA tensor staged through the host (a ``gloo``
+#: group) since the count was last set to 0
+HOST_STAGED = 0
+
+
 def _c10d():
     return torch.ops._c10d_functional
 
 
 def _collective(fn, t: torch.Tensor, group) -> torch.Tensor:
     """``fn(t, group name)``, waited on; through the host for a CUDA
-    tensor on a ``gloo`` group.  The two host copies are not the step's
-    work: they run outside any dispatch mode, so an ``OpCounter`` counts
-    the collective alone, as on ``meta`` under the ``fake`` group."""
+    tensor on a ``gloo`` group (counted in ``HOST_STAGED``).  The two host
+    copies are not the step's work: they run outside any dispatch mode,
+    so an ``OpCounter`` counts the collective alone, as on ``meta`` under
+    the ``fake`` group."""
+    global HOST_STAGED
     import torch.distributed as dist
     from torch.utils._python_dispatch import _disable_current_modes
     c = _c10d()
     if t.is_cuda and dist.get_backend(group) == "gloo":
+        HOST_STAGED += 1
         with _disable_current_modes():
             host = t.cpu()
         out = c.wait_tensor(fn(host, group.group_name))
