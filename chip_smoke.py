@@ -1594,21 +1594,23 @@ def _train_groups(prof, wall_ms):
     ``record_function`` range on the host, NCCL's apart (its ZeRO and
     data-axis collectives run there); the range's own span on the device
     timeline (a user annotation, first to last kernel, gaps included) is
-    reported apart and kept out of the kernel sums."""
+    reported apart and kept out of the kernel sums.  The range is
+    ``launch/steps.py`` ``OPTIMIZER_SPAN``."""
     from torch.autograd import DeviceType
+    from repro_torch.launch.steps import OPTIMIZER_SPAN
     groups = collections.Counter()
     launched = 0
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0)
-        if not us or e.key == "optimizer" or \
+        if not us or e.key == OPTIMIZER_SPAN or \
                 "cuda" not in str(getattr(e, "device_type", "")).lower():
             continue
         groups[kernel_group(e.key)] += us / 1e3
         launched += e.count
     busy = sum(groups.values())
-    opt = [e for e in prof.events() if e.name == "optimizer"]
+    opt = [e for e in prof.events() if e.name == OPTIMIZER_SPAN]
     groups["optimizer"] = 0.0
     for e in opt:
         if e.device_type != DeviceType.CPU:
@@ -2219,6 +2221,7 @@ def rank_profile(fn, colls: dict, n: int, on: bool):
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.hw.gpu import H100Spec
+    from repro_torch.launch.steps import OPTIMIZER_SPAN
     if not on:
         fn()
         torch.cuda.synchronize()
@@ -2241,7 +2244,7 @@ def rank_profile(fn, colls: dict, n: int, on: bool):
             if us and kind is not None:
                 nccl[kind] += us / 1e3
                 calls[kind] += e.count
-            elif us and e.key != "optimizer":
+            elif us and e.key != OPTIMIZER_SPAN:
                 top[f"{e.key[:72]} x{e.count}"] += us / 1e3
         elif e.self_cpu_time_total:
             host[f"{e.key[:48]} x{e.count}"] += e.self_cpu_time_total / 1e3

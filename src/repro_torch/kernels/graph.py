@@ -17,6 +17,12 @@ A step with effects (a train step updates its parameters) takes
 ``keep_warmup=True``: the warm-up call's outputs are kept as
 ``warmup_outputs``, so that its caller can count that call as a step.
 
+The warm-up and the capture are the host spans ``graph.warmup`` and
+``graph.capture`` (``obs/device.py``), each carrying the owner's
+arguments (``owner``: ``train``, ``net.boundary``, ``seg``, ...), and
+their seconds go to the ``graph_capture_seconds`` histogram by owner and
+phase, always: one observation each a capture.
+
 Launch counters stay truthful: the capture records the launches of each
 kind (``backend.recording_launches``: the capturing thread's, and any
 thread's onto the capture stream, such as a backward's on autograd's
@@ -31,17 +37,27 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from ..obs import device as obs_device
+from ..obs import metrics
 from .backend import recording_launches
+
+_m_capture = metrics.histogram(
+    "graph_capture_seconds",
+    "wall clock per CUDA-graph capture: the eager warm-up call and the "
+    "capture itself", ("owner", "phase"))
 
 
 class CapturedStep:
     """One captured step: the graph, its static outputs, the launches of
-    each kind a replay makes, the bytes its pool took and the capture's
-    seconds (the warm-up call and the capture).  On the CPU the step runs
+    each kind a replay makes, the bytes its pool took and the seconds of
+    its warm-up call (``warmup_seconds``) and of the capture itself
+    (``graph_seconds``); ``capture_seconds`` is their sum.  ``owner`` and
+    ``args`` label the spans and the histogram.  On the CPU the step runs
     each time."""
 
     def __init__(self, step: Callable[[], Dict[str, torch.Tensor]],
-                 device: torch.device, keep_warmup: bool = False):
+                 device: torch.device, keep_warmup: bool = False,
+                 owner: str = "step", **args):
         self.step = step
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.outputs: Dict[str, torch.Tensor] = {}
@@ -50,39 +66,49 @@ class CapturedStep:
         self.launches: Dict[str, int] = {}
         self._tally = None
         self.pool_bytes = 0             # the card's memory the pool took
+        self.warmup_seconds = self.graph_seconds = 0.0
         self.capture_seconds = 0.0
         if device.type != "cuda":
             return
-        t0 = time.perf_counter()
         with torch.cuda.device(device):
-            # first calls stay out of the capture
-            side = torch.cuda.Stream(device)
-            side.wait_stream(torch.cuda.current_stream(device))
-            with torch.cuda.stream(side):
-                first = step()
-            if keep_warmup:
-                self.warmup_outputs = first
-            del first
-            torch.cuda.current_stream(device).wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            # the private pool takes segments of its own: what the card
-            # reserves across the capture is the pool.  The capture
-            # empties the allocator's cache first; so does this, so that
-            # the warm-up's freed blocks do not offset the pool
-            torch.cuda.synchronize(device)
-            torch.cuda.empty_cache()
-            before = torch.cuda.memory_reserved(device)
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                # the capture stream's launches from any thread: a
-                # backward runs on autograd's device thread
-                with recording_launches(
-                        torch.cuda.current_stream(device).cuda_stream
-                ) as tally:
-                    self.outputs = step()
-            self.pool_bytes = max(
-                0, torch.cuda.memory_reserved(device) - before)
-            torch.cuda.synchronize(device)
-        self.capture_seconds = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            with obs_device.span("graph.warmup", owner=owner, **args):
+                # first calls stay out of the capture
+                side = torch.cuda.Stream(device)
+                side.wait_stream(torch.cuda.current_stream(device))
+                with torch.cuda.stream(side):
+                    first = step()
+                if keep_warmup:
+                    self.warmup_outputs = first
+                del first
+                torch.cuda.current_stream(device).wait_stream(side)
+                torch.cuda.synchronize(device)
+            t1 = time.perf_counter()
+            with obs_device.span("graph.capture", owner=owner, **args):
+                graph = torch.cuda.CUDAGraph()
+                # the private pool takes segments of its own: what the
+                # card reserves across the capture is the pool.  The
+                # capture empties the allocator's cache first; so does
+                # this, so that the warm-up's freed blocks do not offset
+                # the pool
+                torch.cuda.empty_cache()
+                before = torch.cuda.memory_reserved(device)
+                with torch.cuda.graph(graph,
+                                      capture_error_mode="thread_local"):
+                    # the capture stream's launches from any thread: a
+                    # backward runs on autograd's device thread
+                    with recording_launches(
+                            torch.cuda.current_stream(device).cuda_stream
+                    ) as tally:
+                        self.outputs = step()
+                self.pool_bytes = max(
+                    0, torch.cuda.memory_reserved(device) - before)
+                torch.cuda.synchronize(device)
+            t2 = time.perf_counter()
+        self.warmup_seconds, self.graph_seconds = t1 - t0, t2 - t1
+        self.capture_seconds = t2 - t0
+        _m_capture.observe(self.warmup_seconds, owner=owner, phase="warmup")
+        _m_capture.observe(self.graph_seconds, owner=owner, phase="capture")
         self.graph = graph
         self._tally = tally
         self.launches = {k: n for k, n in tally.items() if n}

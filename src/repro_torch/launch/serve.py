@@ -99,8 +99,8 @@ class CompiledServing:
             cache_len.add_(1)
             return {"tokens": tokens}
 
-        self.prefill_graph = CapturedStep(prefill, dev)
-        self.decode_graph = CapturedStep(decode, dev)
+        self.prefill_graph = CapturedStep(prefill, dev, owner="prefill")
+        self.decode_graph = CapturedStep(decode, dev, owner="decode")
         self.capture_seconds = self.prefill_graph.capture_seconds \
             + self.decode_graph.capture_seconds
         self.pool_bytes = self.prefill_graph.pool_bytes \

@@ -10,19 +10,26 @@ import torch
 from ..configs.base import ModelConfig, ShapeConfig
 from ..kernels.graph import CapturedStep
 from ..models.api import Model, ModelAPI
+from ..obs import device as obs_device
 from ..optim.optimizers import (Optimizer, TreeShards, global_norm,
                                 tree_map)
 
+#: the host span around the optimizer's update, which a profile reads
+OPTIMIZER_SPAN = "train.optimizer"
 
-def build_train_step(api: ModelAPI, optimizer: Optimizer):
+
+def build_train_step(api: ModelAPI, optimizer: Optimizer,
+                     marks: Optional[obs_device.Marks] = None):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``: the loss and its gradients (``backward``), the gradients
     in ``named_parameters()`` order, ``optimizer.update``, which writes the
     new parameters and optimizer state into ``params`` and ``opt_state``
     in place (the reference returns new arrays and donates the old ones),
     and the metrics ``loss`` and ``grad_norm``, the global norm of the
-    gradients before clipping.  The update runs inside a
-    ``record_function("optimizer")`` range, which a profile reads.
+    gradients before clipping.  The update runs inside the host span
+    ``OPTIMIZER_SPAN``, which a profile reads.  ``marks`` (``obs/device.py``)
+    are marked ``forward``, ``backward``, ``optimizer`` and ``end`` at the
+    phases' boundaries.
 
     On a partitioned API (``api.shards``) parameters, state and batch are
     DTensors (``launch/partition.py`` ``partitioned_train_step``): the
@@ -30,16 +37,20 @@ def build_train_step(api: ModelAPI, optimizer: Optimizer):
     gradient is summed over the data axes that do not shard its leaf
     (``TreeShards.reduce``)."""
     sh = api.shards
+    mark = marks.mark if marks is not None else (lambda name: None)
 
     def train_step(params: Model, opt_state, batch):
         named = dict(params.named_parameters())
         for p in named.values():
             p.grad = None
+        mark("forward")
         loss = api.loss_fn(params, batch)
+        mark("backward")
         loss.backward()
         grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
                  for n, p in named.items()}
-        with torch.no_grad(), torch.profiler.record_function("optimizer"):
+        mark("optimizer")
+        with torch.no_grad(), obs_device.span(OPTIMIZER_SPAN):
             shards, state = None, opt_state
             if sh is not None:
                 shards = TreeShards(
@@ -53,6 +64,7 @@ def build_train_step(api: ModelAPI, optimizer: Optimizer):
                 for n, p in named.items()}, *([shards] if shards else []))
             metrics = {"loss": loss.detach(),
                        "grad_norm": global_norm(grads, shards)}
+        mark("end")
         for p in named.values():
             p.grad = None
         return params, opt_state, metrics
@@ -76,7 +88,12 @@ class CompiledTraining:
     The capture is built at the first ``step``: ``CapturedStep``'s
     warm-up call is that step, its metrics are that step's, and the
     capture itself executes nothing; every later ``step`` is one replay.
-    On the CPU every ``step`` runs the body.  A failed capture raises."""
+    On the CPU every ``step`` runs the body.  A failed capture raises.
+
+    Each ``step`` is the host spans ``train.copy_in`` and ``train.replay``
+    (``obs/device.py``), carrying ``step=<n>``; with a tracer installed
+    across the capture, the graph holds the step's marks and ``phase_ms``
+    reads the device ms of each phase of the last replay."""
 
     def __init__(self, api: ModelAPI, params: Model, opt_state,
                  optimizer: Optimizer, batch_like: Mapping[str, torch.Tensor]):
@@ -88,12 +105,14 @@ class CompiledTraining:
                            dtype=params.embed.dtype if v.is_floating_point()
                            else v.dtype)
             for k, v in batch_like.items()}
-        train_step = build_train_step(api, optimizer)
+        self.marks = obs_device.Marks(self.device)
+        train_step = build_train_step(api, optimizer, self.marks)
 
         def body():
             return train_step(params, opt_state, batch)[2]
         self._body = body
         self.captured: Optional[CapturedStep] = None
+        self.steps = 0
 
     @property
     def capture_seconds(self) -> float:
@@ -106,23 +125,33 @@ class CompiledTraining:
         """The card's memory the graph's private pool took."""
         return self.captured.pool_bytes if self.captured else 0
 
+    def phase_ms(self) -> Dict[str, float]:
+        """``{forward, backward, optimizer}``: device ms of each phase of
+        the last step (empty unless a tracer was installed across the
+        capture, or on the CPU across the step)."""
+        return self.marks.phase_ms()
+
     def step(self, batch: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         """One train step on the host ``batch``: copied into the buffers,
         then replayed (the first: the warm-up step and the capture).
         Returns ``loss`` and ``grad_norm``, the graph's static outputs,
         rewritten by the next step."""
-        for k, buf in self.batch.items():
-            v = torch.as_tensor(batch[k])
-            if tuple(v.shape) != tuple(buf.shape):
-                raise ValueError(f"batch {k} {tuple(v.shape)}: the graph "
-                                 f"holds {tuple(buf.shape)}")
-            buf.copy_(v)
+        n = self.steps + 1
+        with obs_device.span("train.copy_in", step=n):
+            for k, buf in self.batch.items():
+                v = torch.as_tensor(batch[k])
+                if tuple(v.shape) != tuple(buf.shape):
+                    raise ValueError(f"batch {k} {tuple(v.shape)}: the "
+                                     f"graph holds {tuple(buf.shape)}")
+                buf.copy_(v)
+        self.steps = n
         if self.captured is None:
             self.captured = CapturedStep(self._body, self.device,
-                                         keep_warmup=True)
+                                         keep_warmup=True, owner="train")
             if self.captured.warmup_outputs is not None:
                 return self.captured.warmup_outputs
-        return self.captured()
+        with obs_device.span("train.replay", step=n):
+            return self.captured()
 
 
 def build_serve_step(api: ModelAPI):
@@ -166,5 +195,5 @@ def input_structs(cfg: ModelConfig, shape: ShapeConfig
     return batch
 
 
-__all__ = ["CompiledTraining", "build_prefill_step", "build_serve_step",
-           "build_train_step", "input_structs"]
+__all__ = ["OPTIMIZER_SPAN", "CompiledTraining", "build_prefill_step",
+           "build_serve_step", "build_train_step", "input_structs"]

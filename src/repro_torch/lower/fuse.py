@@ -46,7 +46,6 @@ from __future__ import annotations
 import hashlib
 import json
 import threading
-import time
 from collections import OrderedDict
 from typing import Callable, Dict, List, Mapping, NamedTuple, Optional, \
     Sequence, Tuple
@@ -56,7 +55,8 @@ import torch
 
 from ..kernels.backend import resolve_device
 from ..kernels.graph import CapturedStep
-from ..obs import metrics, trace
+from ..obs import device as obs_device
+from ..obs import metrics
 from .exec import (input_shapes, run_attention, run_conv, run_eltwise, run_fc,
                    run_pool)
 from .netexec import _check_executable, _layer_fn, network_input_shapes
@@ -246,7 +246,10 @@ class FusedNetwork:
     call of a built variant, or a cache hit, captures nothing.  One lock
     serializes each capture and each copy-in plus replay.  ``nbytes`` is
     the device memory the network holds: its buffers and its graphs'
-    pools."""
+    pools.  A call is the host spans ``fused.bind`` and ``fused.replay``
+    (``obs/device.py``), carrying ``call=<n>``, and marks ``copy_in``,
+    ``replay`` and ``end`` on the device's stream, outside the graph, which
+    ``phase_ms`` reads."""
 
     def __init__(self, nplan: NetworkPlan, device=None):
         _check_executable(nplan)             # errors name the layer
@@ -261,6 +264,8 @@ class FusedNetwork:
         self._pool_bytes = 0
         self._lock = threading.Lock()
         self._bufs = _Buffers(self.device)
+        self._calls = 0
+        self._marks = obs_device.Marks(self.device)
         self._feed = network_input_shapes(nplan)
         for name, shape in self._feed.items():
             self._bufs.add(name, shape)
@@ -268,6 +273,12 @@ class FusedNetwork:
     @property
     def nbytes(self) -> int:
         return self._bufs.nbytes + self._pool_bytes
+
+    def phase_ms(self) -> Dict[str, float]:
+        """``{copy_in, replay}``: device ms of the last call's copy of the
+        inputs into the buffers and of its replay (empty unless a tracer
+        was installed across that call)."""
+        return self._marks.phase_ms()
 
     # -- variants -----------------------------------------------------------
 
@@ -304,16 +315,15 @@ class FusedNetwork:
         else:                                # "boundary": serving outputs
             step = self._chain(self.nplan.order,
                                [n for s in self.segment_io for n in s[1]])
-        t0 = time.perf_counter()
-        graph = CapturedStep(step, self.device)
-        dt = time.perf_counter() - t0
+        graph = CapturedStep(
+            step, self.device,
+            owner="seg" if key[0] == "seg" else f"net.{key[1]}",
+            net=self.nplan.graph_name, signature=self.signature[:12],
+            variant=str(key))
         self.traces += 1
         self._pool_bytes += graph.pool_bytes
-        self.capture_seconds[key] = dt
-        _m_compile.observe(dt)
-        trace.instant("fuse.compile", net=self.nplan.graph_name,
-                      signature=self.signature[:12], variant=str(key),
-                      seconds=round(dt, 6))
+        self.capture_seconds[key] = graph.capture_seconds
+        _m_compile.observe(graph.capture_seconds)
         return graph
 
     def _boundary_buffers(self, names: Sequence[str]) -> None:
@@ -332,10 +342,16 @@ class FusedNetwork:
     def _run(self, key: Tuple, values: Mapping, names: Sequence[str],
              copy: bool = False) -> Dict[str, torch.Tensor]:
         with self._lock:
+            self._calls += 1
             self._boundary_buffers(names)
-            self._bufs.bind(values, names)       # checked before a capture
+            self._marks.mark("copy_in")
+            with obs_device.span("fused.bind", call=self._calls):
+                self._bufs.bind(values, names)   # checked before a capture
             graph, built = self._graph(key)
-            out = graph()
+            self._marks.mark("replay")
+            with obs_device.span("fused.replay", call=self._calls):
+                out = graph()
+            self._marks.mark("end")
             if copy:
                 out = {k: v.clone() for k, v in out.items()}
         if built:                                # it holds more memory now

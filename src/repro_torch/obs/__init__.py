@@ -1,8 +1,10 @@
 """Observability: spans (``obs.trace``), the metrics registry
 (``obs.metrics``), the solver flight recorder (``obs.explain``) and the
-drift watchdog (``obs.watch``), all byte-identical copies of ``repro``'s.
-``python -m repro_torch.obs`` is the CLI (summarize, metrics, explain,
-watch)."""
+drift watchdog (``obs.watch``), all byte-identical copies of ``repro``'s;
+and the port's own ``obs.device`` (not a copy, imported where used): host
+spans that a ``torch.profiler`` sees too, and device marks that survive
+CUDA-graph capture.  ``python -m repro_torch.obs`` is the CLI
+(summarize, metrics, explain, watch)."""
 from . import explain, metrics, trace, watch
 from .metrics import (REGISTRY, Counter, CounterGroup, Gauge, Histogram,
                       Registry, counter, gauge, histogram)

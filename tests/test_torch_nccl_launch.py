@@ -20,6 +20,7 @@ import torch
 
 from repro_torch.launch import partition as pt
 from repro_torch.launch.mesh import Mesh, fake_group
+from repro_torch.launch.steps import OPTIMIZER_SPAN
 from repro_torch.models import shards
 from repro_torch.models.shards import Shards
 
@@ -222,13 +223,13 @@ def test_train_groups_count_each_kernel_once():
     the backward launches more of each outside it.  NCCL's kernels stay
     in ``nccl`` wherever they ran, the optimizer's others move to
     ``optimizer``, and the groups add up to the busy time."""
-    optimizer = _Event("optimizer", [(EW, 3000.0)], [
+    optimizer = _Event(OPTIMIZER_SPAN, [(EW, 3000.0)], [
         _Event("aten::mm", [(GEMM, 1000.0)]),
         _Event("_c10d_functional::all_reduce", [(AR, 4000.0)]),
         _Event("_c10d_functional::reduce_scatter_tensor", [(RS, 2000.0)])])
     prof = _Profile([
         _Avg(EW, 10000.0, 5), _Avg(GEMM, 8000.0, 2), _Avg(AR, 9000.0, 3),
-        _Avg(RS, 2000.0), _Avg("optimizer", 7777.0),
+        _Avg(RS, 2000.0), _Avg(OPTIMIZER_SPAN, 7777.0),
         _Avg("aten::mm", 50.0, device="DeviceType.CPU")],
         [_Event("forward"), optimizer])
     got = _chip_smoke()._train_groups(prof, 100.0)
