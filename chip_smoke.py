@@ -136,6 +136,15 @@ Phases, in order; any failure exits non-zero:
    ``torch.profiler`` (device ms by group: the two kernels, matmul, the
    optimizer's ``record_function`` range, the rest; the idle share) and
    one replay of the captured step (busy, idle share, kernels);
+   10b. the multi-tensor AdamW (``kernels/multi_tensor.py``) on the
+   parameters of that model (658 leaves, bf16 and f32, random gradients,
+   the clip active): the update kernel against the per-leaf plain version
+   bit for bit over 3 steps given the same scale, the norm within 1e-6 of
+   the plain one and the same bits twice, each one's launches, ms (mean of
+   5 back to back, median of 3) beside the plain version's and the bytes' bound; then the
+   captured train step of phase 10 with the tracer installed, its forward,
+   backward and optimizer phases in ms (median of 3 replays)
+   (``--optimizer-only``: the build and this phase);
 11. the f32 training path on the card against the host's CPU: Zamba2 at
    full width cut to 6 layers (one shared-attention call), 2 x 128
    tokens, the same weights, TF32 off: the loss within 1e-4 relative,
@@ -203,7 +212,8 @@ Phases, in order; any failure exits non-zero:
    process of its own bound to the card: that prefill and one AdamW step
    of Zamba2-1.2B at 6 layers (``NCCL_ONE_TRAIN``), each bit for bit the
    one-card program on the same card (logits and cache; loss, grad_norm
-   and every updated parameter), launches equal, no collective staged
+   and every updated parameter; both updates on the multi-tensor
+   kernels), launches equal, no collective staged
    through the host, its NCCL log in ``chiprun_out/nccl_one_rank0.log``.
    Each group is destroyed also on failure;
 16. the partitioned train step (``launch/partition.py``
@@ -336,7 +346,8 @@ EARLIER_PEAK_GB = {"train": 50.01, "dryrun-meta": 40.574, "dryrun": 40.577}
 #: the kernels whose ptxas registers and spills ``[ptxas]`` reports
 REDESIGNED = ("flash_wgmma_kernel", "fc_kernel", "fc_reduce_kernel",
               "conv_kernel", "attention_mma_kernel", "eltwise_kernel",
-              "ssd_intra_kernel")
+              "ssd_intra_kernel", "mt_sumsq_kernel", "mt_total_kernel",
+              "mt_adamw_kernel")
 #: the eltwise case past one launch's operands (chained launches)
 ELTWISE_MANY = 9
 
@@ -368,10 +379,12 @@ LSE_TOL = 1e-4
 #: the training phase: arch, steps, batch, sequence, full width and depth
 #: in bf16, and the kernel launches over its steps (6 flash, all on the
 #: tensor cores, and 38 SSD a step, all in the forward: remat is "none",
-#: so the backward runs no kernel)
+#: so the backward runs no kernel; the update's 658 leaves in 9 launches,
+#: each of the two gradient norms in 5 and the final sum)
 TRAIN = ("zamba2-1.2b", 4, 8, 512)
 TRAIN_LAUNCHES = {"flash_attention": 24, "flash_attention_wgmma": 24,
-                  "ssd_intra_chunk": 152}
+                  "ssd_intra_chunk": 152, "multi_tensor_sumsq": 48,
+                  "multi_tensor_adamw": 36}
 #: the f32 training row, card against the host CPU: depth, batch,
 #: sequence; the loss's limit (relative) and each gradient leaf's (of its
 #: max |g|)
@@ -452,11 +465,13 @@ DRYRUN_SKIPS = 16
 #: shapes x both meshes, traced on meta with ``H100Spec()``; (b) two steps
 #: held against the card at full width and depth in bf16 on the one-card
 #: mesh: arch, mode, batch, sequence and the kernel launches of one step
-#: (Zamba2's is phase 10's configuration: AdamW, remat "none")
+#: (Zamba2's is phase 10's configuration: AdamW, remat "none"; its 658
+#: leaves take 9 launches of the update and 2 x 6 of the norm)
 DRYRUN_CHECKS = (
     ("zamba2-1.2b", "train", 8, 512,
      {"flash_attention": 6, "flash_attention_wgmma": 6,
-      "ssd_intra_chunk": 38}),
+      "ssd_intra_chunk": 38, "multi_tensor_sumsq": 12,
+      "multi_tensor_adamw": 9}),
     ("qwen2.5-3b", "prefill", 8, 512,
      {"flash_attention": 36, "flash_attention_wgmma": 36,
       "ssd_intra_chunk": 0}))
@@ -489,6 +504,13 @@ def peaks(name: str):
 
 def log(*a) -> None:
     print(*a, flush=True)
+
+
+def zoo_launches(counts: dict) -> dict:
+    """``counts`` over every kind of ``ops.launch_counts()``, 0 where it
+    has none."""
+    from repro_torch.kernels import ops
+    return {k: counts.get(k, 0) for k in ops.launch_counts()}
 
 
 def calibration_phase(dev, out_dir: Path):
@@ -1397,7 +1419,8 @@ def serve_phase(dev):
                     params=params)
         launches = ops.launch_counts()
         # the prefill's warm-up call before its capture, and its replay
-        want = {k: SERVE_PREFILLS * n for k, n in expect.items()}
+        want = zoo_launches({k: SERVE_PREFILLS * n
+                             for k, n in expect.items()})
         if launches != want:
             raise AssertionError(f"{arch}: launches {launches}, the serve "
                                  f"makes {want}")
@@ -1709,7 +1732,7 @@ def train_phase(dev):
                           tiny=False, device=dev, log_every=1)
     launches = ops.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    if launches != TRAIN_LAUNCHES:
+    if launches != zoo_launches(TRAIN_LAUNCHES):
         raise AssertionError(f"train {arch}: launches {launches}, the "
                              f"forward has {TRAIN_LAUNCHES}")
     if len(losses) != steps or not all(math.isfinite(x) for x in losses):
@@ -1737,6 +1760,142 @@ def train_phase(dev):
     _free_card()
     res["profile"] = profile_train_step(dev, cfg, batch, seq)
     log(f"[profile] train {arch}: {json.dumps(res['profile'])}")
+    _free_card()
+    return res
+
+
+#: phase 10b: the steps the update kernel is held over, and the calls each
+#: kernel and plain version is timed over (``stream_ms``, median of 3)
+OPT_STEPS, OPT_CALLS = 3, 5
+
+
+def optimizer_phase(dev, peak_bw):
+    """Phase 10b: the multi-tensor AdamW's kernels against their plain
+    versions on the parameters of ``TRAIN``'s model, then the captured
+    train step's phases with the tracer installed."""
+    import statistics
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.kernels import multi_tensor as mt
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import CompiledTraining, input_structs
+    from repro_torch.models.api import build_model
+    from repro_torch.obs import trace
+    from repro_torch.optim.optimizers import clip_scale, make_optimizer
+
+    arch, _, batch, seq = TRAIN
+    cfg = get_config(arch)
+    _free_card()
+    api = build_model(cfg, device=dev, trainable=True)
+    params = [p.detach() for p in api.init(0).parameters()]
+    g = torch.Generator(device=dev).manual_seed(0)
+    grads = [(torch.randn(p.shape, generator=g, device=dev)
+              * 1e-2).to(p.dtype) for p in params]
+    ms = [torch.randn(p.shape, generator=g, device=dev) * 1e-3
+          for p in params]
+    vs = [torch.rand(p.shape, generator=g, device=dev) * 1e-6
+          for p in params]
+    sides = [(params, ms, vs), ([t.clone() for t in params],
+                                [t.clone() for t in ms],
+                                [t.clone() for t in vs])]
+    steps = [torch.zeros((), dtype=torch.int32, device=dev)
+             for _ in range(2)]
+    hp = dict(lr=1e-3, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+
+    def corrections(step):
+        t = step.add_(1).float()
+        return 1.0 - torch.pow(hp["b1"], t), 1.0 - torch.pow(hp["b2"], t)
+    numels = [p.numel() for p in params]
+    res = {"arch": arch, "leaves": len(params), "elements": sum(numels),
+           "launches_adamw": len(mt.plan(numels, mt.ADAMW_LEAVES)),
+           "launches_sumsq": len(mt.plan(numels, mt.SUMSQ_LEAVES)) + 1}
+    # the kernels against the plain versions
+    norm, norm2 = mt.norm(grads), mt.norm(grads)
+    plain = torch.sqrt(mt.plain_sumsq(grads))
+    res["norm"], res["plain_norm"] = float(norm), float(plain)
+    res["norm_rel_err"] = abs(float(norm) - float(plain.double())) \
+        / float(plain)
+    if not torch.equal(norm, norm2) or res["norm_rel_err"] > 1e-6:
+        raise AssertionError(f"optimizer: norm {float(norm)!r} then "
+                             f"{float(norm2)!r}, plain {float(plain)!r}")
+    scale = clip_scale(norm, 1.0)
+    res["scale"] = float(scale)
+    bad = []
+    for k in range(OPT_STEPS):
+        ops.reset_launch_counts()
+        mt.adamw(*sides[0][:1], grads, *sides[0][1:],
+                 *corrections(steps[0]), scale, **hp)
+        launches = ops.launch_counts()
+        mt.plain_adamw(*sides[1][:1], grads, *sides[1][1:],
+                       *corrections(steps[1]), scale, **hp)
+        torch.cuda.synchronize()
+        for what, a, b in zip(("param", "m", "v"), sides[0], sides[1]):
+            bad += [(k + 1, what, i) for i, (x, y) in enumerate(zip(a, b))
+                    if not torch.equal(x, y)]
+    if bad or launches["multi_tensor_adamw"] != res["launches_adamw"]:
+        raise AssertionError(f"optimizer: leaves unequal (step, tensor, "
+                             f"leaf) {bad[:8]} of {len(bad)}; launches "
+                             f"{launches}")
+    es = {p.element_size() for p in params}
+    nbytes = sum(n * (3 * p.element_size() + 16)
+                 for n, p in zip(numels, params))
+    gbytes = sum(n * p.element_size() for n, p in zip(numels, params))
+    bc = corrections(steps[0])
+    res["adamw_ms"] = stream_ms(lambda: mt.adamw(
+        *sides[0][:1], grads, *sides[0][1:], *bc, scale, **hp),
+        OPT_CALLS, 3)
+    res["plain_adamw_ms"] = stream_ms(lambda: mt.plain_adamw(
+        *sides[1][:1], grads, *sides[1][1:], *bc, scale, **hp),
+        OPT_CALLS, 3)
+    res["norm_ms"] = stream_ms(lambda: mt.norm(grads), OPT_CALLS, 3)
+    res["plain_norm_ms"] = stream_ms(
+        lambda: torch.sqrt(mt.plain_sumsq(grads)), OPT_CALLS, 3)
+    res["adamw_bound_ms"] = 1e3 * nbytes / peak_bw
+    res["norm_bound_ms"] = 1e3 * gbytes / peak_bw
+    log(f"[optimizer] {arch} {len(params)} leaves ({sum(numels)} elements"
+        f", element bytes {sorted(es)}): update kernel equal to the plain "
+        f"version bit for bit over {OPT_STEPS} steps at scale "
+        f"{res['scale']!r}, norm {res['norm']!r} against plain "
+        f"{res['plain_norm']!r} (rel {res['norm_rel_err']:.2e}), the same "
+        f"bits twice; launches a call: update {res['launches_adamw']}, "
+        f"norm {res['launches_sumsq']}; update {res['adamw_ms']:.3f} ms "
+        f"(plain {res['plain_adamw_ms']:.3f}, bound "
+        f"{res['adamw_bound_ms']:.3f}: {nbytes} B), norm "
+        f"{res['norm_ms']:.3f} ms (plain {res['plain_norm_ms']:.3f}, bound "
+        f"{res['norm_bound_ms']:.3f})")
+    del params, grads, ms, vs, sides, api, plain, norm, norm2, scale, bc
+    _free_card()
+
+    # the captured train step's phases, marked with the tracer installed
+    trace.enable()
+    try:
+        api = build_model(cfg, device=dev, trainable=True)
+        params = api.init(1)
+        opt = make_optimizer(cfg.optimizer, lr=1e-3)
+        state = opt.init(dict(params.named_parameters()))
+        shape = ShapeConfig("train", seq, batch, "train")
+        step = CompiledTraining(api, params, state, opt,
+                                input_structs(cfg, shape))
+        phases = []
+        ops.reset_launch_counts()
+        for i in range(1 + OPT_STEPS):
+            step.step(synth_batch(cfg, shape, i, DataConfig(seed=1)))
+            if i:
+                phases.append(step.phase_ms())
+        launches = ops.launch_counts()
+    finally:
+        trace.disable()
+    res["phase_ms"] = {k: statistics.median(p[k] for p in phases)
+                       for k in phases[0]}
+    res["step_launches"] = {k: v // (1 + OPT_STEPS)
+                            for k, v in launches.items()}
+    log(f"[optimizer] {arch} captured train step {batch} x {seq}, tracer "
+        f"installed: phases {json.dumps(res['phase_ms'])} ms (median of "
+        f"{OPT_STEPS} replays; each {json.dumps(phases)}), launches a step "
+        f"{res['step_launches']}")
+    del step, state, opt, params, api
     _free_card()
     return res
 
@@ -1791,8 +1950,9 @@ def train_consistency(dev):
         f"{seq} tokens: card vs host CPU loss rel err {loss_err:.3e}, worst "
         f"gradient leaf {worst_leaf} {worst:.3e} of its max |g|, launches "
         f"{launches} (host forward + backward {host_s:.2f} s)")
-    if launches != {"flash_attention": layers // cfg.attn_every,
-                    "flash_attention_wgmma": 0, "ssd_intra_chunk": layers}:
+    if launches != zoo_launches({"flash_attention":
+                                 layers // cfg.attn_every,
+                                 "ssd_intra_chunk": layers}):
         raise AssertionError(f"train consistency: launches {launches}")
     if not (loss_err <= TRAIN_LOSS_TOL and worst <= TRAIN_GRAD_TOL):
         raise AssertionError(f"train consistency: loss rel err "
@@ -2027,9 +2187,14 @@ def dryrun_check(dev, arch, mode, batch, seq, expect, smi):
     if not bool(torch.isfinite(out).all()):
         raise AssertionError(f"dryrun {arch} {mode}: non-finite output")
     del out
-    units = {k: v for k, v in launches.items()
-             if k != "flash_attention_wgmma" and v}
-    if launches != expect or card.kernel_units != units:
+    # a unit a call: flash and SSD launch once a call; a train step calls
+    # the update once and the norm twice (the clip's and the metric's)
+    units = {k: v for k, v in launches.items() if v and k not in (
+        "flash_attention_wgmma", "multi_tensor_sumsq",
+        "multi_tensor_adamw")}
+    if train:
+        units.update(multi_tensor_sumsq=2, multi_tensor_adamw=1)
+    if launches != zoo_launches(expect) or card.kernel_units != units:
         raise AssertionError(f"dryrun {arch} {mode}: launches {launches} "
                              f"(expected {expect}), counted units "
                              f"{card.kernel_units}")
@@ -2497,8 +2662,11 @@ def nccl_one_rank(rank: int, world: int, args: dict) -> dict:
     shape, and one partitioned train step of ``NCCL_ONE_TRAIN`` (AdamW)
     against the one-card step on the same card, bit for bit (loss,
     grad_norm and every updated parameter), with both launches; no
-    collective may be staged through the host.  ``args``: serve_shape,
-    train (arch, depth, batch, sequence)."""
+    collective may be staged through the host.  Both updates take the
+    multi-tensor kernels (``kernels/multi_tensor.py``): the rank's windows
+    and the one card's leaves alike, its one group's sum of squares the
+    one card's.
+    ``args``: serve_shape, train (arch, depth, batch, sequence)."""
     import torch
     from repro_torch.configs import ShapeConfig
     from repro_torch.kernels import ops
@@ -2563,9 +2731,11 @@ def partition_nccl_one(smi) -> dict:
         f"bit for bit), launches {pf['launches']} vs {pf['launches_ref']}; "
         f"{tr['arch']} at {tr['depth']} layers, one AdamW step of "
         f"{NCCL_ONE_TRAIN[2]} x {NCCL_ONE_TRAIN[3]} bf16 "
-        f"{'==' if tr['equal'] else '!='} unpartitioned (loss "
-        f"{tr['loss']:.6f} vs {tr['loss_ref']:.6f}, grad_norm and every "
-        f"updated parameter, bit for bit), launches {tr['launches']} vs "
+        f"{'==' if tr['equal'] else '!='} unpartitioned, both updates on "
+        f"the multi-tensor kernels (loss {tr['loss']:.6f} vs "
+        f"{tr['loss_ref']:.6f}, "
+        f"grad_norm and every updated parameter, bit for bit), launches "
+        f"{tr['launches']} vs "
         f"{tr['launches_ref']}; {seconds:.1f} s, start-up included | {smi}")
     bad = [f"{k}: {v}" for k, v in (("prefill", pf), ("train", tr))
            if not v["equal"] or v["launches"] != v["launches_ref"]]
@@ -3584,6 +3754,10 @@ def main(argv=None) -> int:
                     "layer-tier kernel against its plain version once per "
                     "distinct plan (phases 1-2, untimed) and stop without "
                     "a result line")
+    ap.add_argument("--optimizer-only", action="store_true",
+                    help="build, run phase 10b (the multi-tensor AdamW "
+                    "against its plain version, the train step's phases) "
+                    "and stop without a result line")
     ap.add_argument("--partition-only", action="store_true",
                     help="build, run phase 15 (the partitioned serve on "
                     "ranks of the one card) and stop without a result line")
@@ -3658,6 +3832,10 @@ def main(argv=None) -> int:
             f"{use['spill_stores']} B, spill loads {use['spill_loads']} B")
     detail["build_seconds"] = build_s
     detail["ptxas"] = ptxas
+    if args.optimizer_only:
+        optimizer_phase(dev, peak_bw)
+        log("[optimizer] stopping (--optimizer-only)")
+        return 0
     if args.partition_only:
         partition_phase(dev, card_power())
         log("[partition] stopping (--partition-only)")
@@ -3884,6 +4062,7 @@ def main(argv=None) -> int:
     t_phase = time.perf_counter()
     train_res = train_phase(dev)
     detail["train"] = train_res
+    detail["optimizer"] = optimizer_phase(dev, peak_bw)
     detail["train_consistency"] = train_consistency(dev)
     detail["checkpoint"] = checkpoint_phase(dev)
     detail["train_tiny_lm"] = tiny_lm_phase()

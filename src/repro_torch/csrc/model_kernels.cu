@@ -1,6 +1,7 @@
-// Hand-written Hopper (sm_90a) kernels for the model zoo's prefill: flash
-// attention (dense and hybrid blocks) and the Mamba2 SSD intra-chunk term
-// (Mamba2 blocks).
+// Hand-written Hopper (sm_90a) kernels for the model zoo: flash attention
+// (dense and hybrid blocks) and the Mamba2 SSD intra-chunk term (Mamba2
+// blocks) in the forward, and the training step's multi-tensor AdamW (the
+// gradients' global norm and the clipped update over every leaf at once).
 //
 // Flash attention has two kernels, and the wrapper (repro_torch/kernels/
 // flash_attention.py, its `PATHS` table) names which one runs:
@@ -12,10 +13,11 @@
 // Both compute and accumulate in float32 and write the output in the input's
 // type.  The SSD intra-chunk kernel runs its two products on the tensor
 // cores in 3xTF32 (tf32_mma.cuh), float32 inside, x's type at the output.
-// Each entry point takes a host int64 parameter array (and flash a host
-// double array for the scale and soft-cap), launches on the given stream and
-// returns cudaGetLastError().  The Python wrappers (repro_torch/kernels/
-// flash_attention.py and ssd_scan.py) check shapes, types and contiguity.
+// Each entry point takes a host int64 parameter array (and flash and AdamW a
+// host double array of scalars), launches on the given stream and returns
+// cudaGetLastError().  The Python wrappers (repro_torch/kernels/
+// flash_attention.py, ssd_scan.py and multi_tensor.py) check shapes, types
+// and contiguity.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (repro_torch/kernels/backend.py does this).
@@ -971,6 +973,306 @@ cudaError_t launch_ssd(const void* x, const float* dt, const float* acum,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Multi-tensor AdamW (repro_torch/kernels/multi_tensor.py): the gradients'
+// global norm and the clipped AdamW update over every leaf of a parameter
+// tree in a few launches, where the per-leaf PyTorch path
+// (optim/optimizers.py) issues about 30 kernels a leaf.  Bound: bytes; the
+// update reads a bf16 parameter and gradient and the f32 moments and writes
+// the parameter and both moments back (22 B a bf16 element); a sum of
+// squares reads the gradient once.
+//
+// Design: a launch takes up to MT_*_LEAVES leaves, their addresses, sizes
+// and first blocks in a kernel-argument struct passed by value (the wrapper
+// packs them in leaf order, multi_tensor.py plan()), so a captured graph
+// holds them and no table is copied from the host.  Block b of a launch
+// finds its leaf by a binary search of the leaves' first blocks and takes
+// MT_CHUNK elements of it, so a 64-element leaf and a 103 M-element head
+// share one launch.  A thread takes 8 consecutive elements at a time in
+// 16-byte loads where every pointer of the leaf is 16-byte aligned
+// (MT_CHUNK is a multiple of 8, so every chunk starts aligned), else one
+// element at a time; a leaf's last chunk ends in a scalar tail.
+//
+// mt_sumsq_kernel: each block's sum of squares of its chunk in f32 (each
+// thread over its elements in order, then a fixed tree over the block) into
+// its own partial; mt_total_kernel, one block, sums the partials in f64 in
+// a fixed order and writes the f32 sum of squares, whose root the wrapper
+// takes (a sharded update all-reduces the sums first).  No atomics: the
+// sum has the same bits on every run.
+//
+// mt_adamw_kernel: per element, in f32, each operation rounded once as the
+// per-leaf path's PyTorch kernels round it (the intrinsics keep nvcc from
+// contracting a multiply and an add into an FMA):
+//   g = to_grad_type(g * scale)     (the clip; no scale, no clip)
+//   m = b1 * m + (1 - b1) * g
+//   v = b2 * v + (1 - b2) * (g * g)
+//   p = to_param_type(p - lr * ((m / bc1) / (sqrt(v / bc2) + eps) + wd * p))
+// with bc1, bc2 and the scale read through device pointers, so a replayed
+// graph reads each step's.  Given the same scale the result equals the
+// per-leaf path's bit for bit.
+// ---------------------------------------------------------------------------
+
+constexpr int MT_THREADS = 256;
+constexpr int MT_CHUNK = 16384;
+constexpr int MT_SUMSQ_LEAVES = 160;
+constexpr int MT_ADAMW_LEAVES = 80;
+constexpr int MT_TOTAL_THREADS = 1024;
+// the classic limit of a kernel's arguments, which every toolkit takes
+constexpr size_t MT_ARG_BYTES = 4096;
+
+struct MtSumsqArgs {
+  long long n[MT_SUMSQ_LEAVES];
+  const void* g[MT_SUMSQ_LEAVES];
+  int start[MT_SUMSQ_LEAVES + 1];     // each leaf's first block, then all
+  unsigned char bf16[MT_SUMSQ_LEAVES];
+  unsigned char vec[MT_SUMSQ_LEAVES];
+  int count;
+  float* partials;                     // one a block of the launch
+};
+
+struct MtAdamwArgs {
+  long long n[MT_ADAMW_LEAVES];
+  void* p[MT_ADAMW_LEAVES];
+  const void* g[MT_ADAMW_LEAVES];
+  float* m[MT_ADAMW_LEAVES];
+  float* v[MT_ADAMW_LEAVES];
+  int start[MT_ADAMW_LEAVES + 1];
+  unsigned char bf16[MT_ADAMW_LEAVES];  // the parameter's and gradient's type
+  unsigned char vec[MT_ADAMW_LEAVES];
+  int count;
+  const float* bc1;
+  const float* bc2;
+  const float* scale;                  // null: no clip
+  float lr, b1, omb1, b2, omb2, eps, wd;
+};
+
+static_assert(sizeof(MtSumsqArgs) <= MT_ARG_BYTES, "sumsq arguments");
+static_assert(sizeof(MtAdamwArgs) <= MT_ARG_BYTES, "adamw arguments");
+static_assert(MT_CHUNK % (8 * MT_THREADS) == 0, "chunks of whole vectors");
+
+// the leaf of block b: the last whose first block is at most b (a leaf of
+// no element is never packed)
+__device__ __forceinline__ int mt_leaf(const int* start, int count, int b) {
+  int lo = 0, hi = count - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (start[mid] <= b) lo = mid;
+    else hi = mid - 1;
+  }
+  return lo;
+}
+
+template <bool BF16>
+__device__ __forceinline__ float mt_load(const void* base, long long e) {
+  if (BF16)
+    return __bfloat162float(static_cast<const __nv_bfloat16*>(base)[e]);
+  return static_cast<const float*>(base)[e];
+}
+
+template <bool BF16>
+__device__ __forceinline__ void mt_store(void* base, long long e, float x) {
+  if (BF16)
+    static_cast<__nv_bfloat16*>(base)[e] = __float2bfloat16_rn(x);
+  else
+    static_cast<float*>(base)[e] = x;
+}
+
+// 8 elements from e on, 16-byte aligned: one uint4 of bf16, two float4s
+template <bool BF16>
+__device__ __forceinline__ void mt_load8(const void* base, long long e,
+                                         float (&x)[8]) {
+  if (BF16) {
+    const uint4 u = *reinterpret_cast<const uint4*>(
+        static_cast<const __nv_bfloat16*>(base) + e);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float2 f = __bfloat1622float2(h[k]);
+      x[2 * k] = f.x;
+      x[2 * k + 1] = f.y;
+    }
+  } else {
+    const float4* q = reinterpret_cast<const float4*>(
+        static_cast<const float*>(base) + e);
+    const float4 a = q[0], b = q[1];
+    x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+    x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
+  }
+}
+
+template <bool BF16>
+__device__ __forceinline__ void mt_store8(void* base, long long e,
+                                          const float (&x)[8]) {
+  if (BF16) {
+    uint4 u;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      h[k] = __floats2bfloat162_rn(x[2 * k], x[2 * k + 1]);
+    *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(base) + e) = u;
+  } else {
+    float4* q = reinterpret_cast<float4*>(static_cast<float*>(base) + e);
+    q[0] = make_float4(x[0], x[1], x[2], x[3]);
+    q[1] = make_float4(x[4], x[5], x[6], x[7]);
+  }
+}
+
+// the sum of v over the block's threads in a fixed order, to every thread
+// (the block a whole number of warps)
+template <typename T>
+__device__ __forceinline__ T mt_block_sum(T v, T* warp_sums) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = v;
+  __syncthreads();
+  T s = 0;
+  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) s += warp_sums[w];
+  return s;
+}
+
+template <bool BF16>
+__device__ __forceinline__ float mt_sumsq_chunk(const void* g, long long lo,
+                                                long long hi, bool vec) {
+  float acc = 0.f;
+  long long tail = lo;
+  if (vec) {
+    const long long nv = (hi - lo) >> 3;
+    for (long long k = threadIdx.x; k < nv; k += MT_THREADS) {
+      float x[8];
+      mt_load8<BF16>(g, lo + 8 * k, x);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc += x[j] * x[j];
+    }
+    tail = lo + 8 * nv;
+  }
+  for (long long e = tail + threadIdx.x; e < hi; e += MT_THREADS) {
+    const float x = mt_load<BF16>(g, e);
+    acc += x * x;
+  }
+  return acc;
+}
+
+__global__ void __launch_bounds__(MT_THREADS)
+mt_sumsq_kernel(const __grid_constant__ MtSumsqArgs a) {
+  __shared__ float warp_sums[MT_THREADS / 32];
+  const int b = blockIdx.x;
+  const int i = mt_leaf(a.start, a.count, b);
+  const long long lo = (long long)(b - a.start[i]) * MT_CHUNK;
+  const long long hi = min(a.n[i], lo + MT_CHUNK);
+  const float acc = a.bf16[i]
+                        ? mt_sumsq_chunk<true>(a.g[i], lo, hi, a.vec[i])
+                        : mt_sumsq_chunk<false>(a.g[i], lo, hi, a.vec[i]);
+  const float s = mt_block_sum(acc, warp_sums);
+  if (threadIdx.x == 0) a.partials[b] = s;
+}
+
+__global__ void __launch_bounds__(MT_TOTAL_THREADS)
+mt_total_kernel(const float* partials, long long n, float* out) {
+  __shared__ double warp_sums[MT_TOTAL_THREADS / 32];
+  double acc = 0.0;
+  for (long long k = threadIdx.x; k < n; k += MT_TOTAL_THREADS)
+    acc += (double)partials[k];
+  const double s = mt_block_sum(acc, warp_sums);
+  if (threadIdx.x == 0) *out = (float)s;
+}
+
+struct MtAdamwConsts {
+  float lr, b1, omb1, b2, omb2, eps, wd, bc1, bc2, scale;
+  bool clip;
+};
+
+template <bool BF16>
+__device__ __forceinline__ void mt_adamw_elem(float& p, float g, float& m,
+                                              float& v,
+                                              const MtAdamwConsts& c) {
+  if (c.clip) {
+    g = __fmul_rn(g, c.scale);
+    if (BF16) g = __bfloat162float(__float2bfloat16_rn(g));
+  }
+  m = __fadd_rn(__fmul_rn(m, c.b1), __fmul_rn(c.omb1, g));
+  v = __fadd_rn(__fmul_rn(v, c.b2), __fmul_rn(c.omb2, __fmul_rn(g, g)));
+  const float dir = __fdiv_rn(__fdiv_rn(m, c.bc1),
+                              __fadd_rn(__fsqrt_rn(__fdiv_rn(v, c.bc2)),
+                                        c.eps));
+  p = __fsub_rn(p, __fmul_rn(c.lr, __fadd_rn(dir, __fmul_rn(c.wd, p))));
+}
+
+template <bool BF16>
+__device__ __forceinline__ void mt_adamw_chunk(void* p, const void* g,
+                                               float* m, float* v,
+                                               long long lo, long long hi,
+                                               bool vec,
+                                               const MtAdamwConsts& c) {
+  long long tail = lo;
+  if (vec) {
+    const long long nv = (hi - lo) >> 3;
+    for (long long k = threadIdx.x; k < nv; k += MT_THREADS) {
+      const long long e = lo + 8 * k;
+      float pf[8], gf[8], mf[8], vf[8];
+      mt_load8<BF16>(p, e, pf);
+      mt_load8<BF16>(g, e, gf);
+      mt_load8<false>(m, e, mf);
+      mt_load8<false>(v, e, vf);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        mt_adamw_elem<BF16>(pf[j], gf[j], mf[j], vf[j], c);
+      mt_store8<BF16>(p, e, pf);
+      mt_store8<false>(m, e, mf);
+      mt_store8<false>(v, e, vf);
+    }
+    tail = lo + 8 * nv;
+  }
+  for (long long e = tail + threadIdx.x; e < hi; e += MT_THREADS) {
+    float pf = mt_load<BF16>(p, e), mf = m[e], vf = v[e];
+    mt_adamw_elem<BF16>(pf, mt_load<BF16>(g, e), mf, vf, c);
+    mt_store<BF16>(p, e, pf);
+    m[e] = mf;
+    v[e] = vf;
+  }
+}
+
+__global__ void __launch_bounds__(MT_THREADS)
+mt_adamw_kernel(const __grid_constant__ MtAdamwArgs a) {
+  const int b = blockIdx.x;
+  const int i = mt_leaf(a.start, a.count, b);
+  const long long lo = (long long)(b - a.start[i]) * MT_CHUNK;
+  const long long hi = min(a.n[i], lo + MT_CHUNK);
+  const MtAdamwConsts c{a.lr, a.b1, a.omb1, a.b2, a.omb2, a.eps, a.wd,
+                        *a.bc1, *a.bc2, a.scale ? *a.scale : 1.f,
+                        a.scale != nullptr};
+  if (a.bf16[i])
+    mt_adamw_chunk<true>(a.p[i], a.g[i], a.m[i], a.v[i], lo, hi, a.vec[i],
+                         c);
+  else
+    mt_adamw_chunk<false>(a.p[i], a.g[i], a.m[i], a.v[i], lo, hi, a.vec[i],
+                          c);
+}
+
+// A launch's leaves from the wrapper's table t: the leaf count, the blocks,
+// then `fields` int64s a leaf, starting with its elements, its first block,
+// bf16 and vec (the pointers follow, read by the caller).  False unless
+// they fit the struct and each leaf has its elements' blocks, in order.
+template <typename Args, int L>
+bool mt_fill(const long long* t, int fields, Args& a, int& blocks) {
+  if (t[0] <= 0 || t[0] > L || t[1] <= 0 || t[1] >= (1LL << 31))
+    return false;
+  a.count = (int)t[0];
+  blocks = (int)t[1];
+  const long long* leaf = t + 2;
+  for (int i = 0; i < a.count; ++i, leaf += fields) {
+    a.n[i] = leaf[0];
+    a.start[i] = (int)leaf[1];
+    a.bf16[i] = (unsigned char)leaf[2];
+    a.vec[i] = (unsigned char)leaf[3];
+    const long long last = i + 1 < a.count ? leaf[fields + 1] : blocks;
+    if (a.n[i] <= 0 || (i == 0 && a.start[0] != 0) ||
+        last - a.start[i] != (a.n[i] + MT_CHUNK - 1) / MT_CHUNK)
+      return false;
+  }
+  a.start[a.count] = blocks;
+  return true;
+}
+
 }  // namespace
 
 // ---------------------------------------------------------------------------
@@ -1026,4 +1328,66 @@ extern "C" int kapla_ssd_intra_chunk(const void* x, const float* dt,
     return (int)launch_ssd<__nv_bfloat16>(x, dt, acum, bmat, cmat, y, ws, a,
                                           grid, smem, s);
   return (int)cudaErrorInvalidValue;
+}
+
+
+// t: the leaf count, the blocks, then per leaf its elements, first block,
+// bf16 (1) or float32 (0), vec (16-byte loads) and the gradient's address
+// (multi_tensor.py); partials: a float32 a block of the launch
+extern "C" int kapla_mt_sumsq(const long long* t, float* partials,
+                              void* stream) {
+  MtSumsqArgs a;
+  int blocks = 0;
+  if (partials == nullptr ||
+      !mt_fill<MtSumsqArgs, MT_SUMSQ_LEAVES>(t, 5, a, blocks))
+    return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < a.count; ++i)
+    a.g[i] = reinterpret_cast<const void*>(t[2 + 5 * i + 4]);
+  a.partials = partials;
+  mt_sumsq_kernel<<<blocks, MT_THREADS, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// p: the count of partials; out: their sum, float32
+extern "C" int kapla_mt_total(const float* partials, const long long* p,
+                              float* out, void* stream) {
+  if (p[0] <= 0 || partials == nullptr || out == nullptr)
+    return (int)cudaErrorInvalidValue;
+  mt_total_kernel<<<1, MT_TOTAL_THREADS, 0, (cudaStream_t)stream>>>(
+      partials, p[0], out);
+  return (int)cudaGetLastError();
+}
+
+// t: as kapla_mt_sumsq's, each leaf's fields followed by the addresses of
+// its parameter, gradient, m and v; f: lr, b1, 1 - b1, b2, 1 - b2, eps,
+// weight decay (each rounded to float32 here, as PyTorch rounds a Python
+// float for a float32 tensor); bc1, bc2: the bias corrections, 0-d float32
+// on the card; scale: the clip's, or null
+extern "C" int kapla_mt_adamw(const long long* t, const double* f,
+                              const float* bc1, const float* bc2,
+                              const float* scale, void* stream) {
+  MtAdamwArgs a;
+  int blocks = 0;
+  if (bc1 == nullptr || bc2 == nullptr ||
+      !mt_fill<MtAdamwArgs, MT_ADAMW_LEAVES>(t, 8, a, blocks))
+    return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < a.count; ++i) {
+    const long long* leaf = t + 2 + 8 * i;
+    a.p[i] = reinterpret_cast<void*>(leaf[4]);
+    a.g[i] = reinterpret_cast<const void*>(leaf[5]);
+    a.m[i] = reinterpret_cast<float*>(leaf[6]);
+    a.v[i] = reinterpret_cast<float*>(leaf[7]);
+  }
+  a.bc1 = bc1;
+  a.bc2 = bc2;
+  a.scale = scale;
+  a.lr = (float)f[0];
+  a.b1 = (float)f[1];
+  a.omb1 = (float)f[2];
+  a.b2 = (float)f[3];
+  a.omb2 = (float)f[4];
+  a.eps = (float)f[5];
+  a.wd = (float)f[6];
+  mt_adamw_kernel<<<blocks, MT_THREADS, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
 }

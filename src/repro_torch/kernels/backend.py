@@ -18,8 +18,9 @@ The kernels live in two sources under ``repro_torch/csrc/``:
 ``lower_kernels.cu`` (the layer and network tiers: fc, conv, pool,
 eltwise, attention) and
 ``model_kernels.cu`` (the model zoo: flash attention, the SSD intra-chunk
-term).  Each is compiled at first use with ``nvcc`` for ``sm_90a`` into a
-shared library of its own with a plain C interface, loaded with ``ctypes``.
+term, the train step's multi-tensor AdamW).  Each is compiled at first use
+with ``nvcc`` for ``sm_90a`` into a shared library of its own with a plain
+C interface, loaded with ``ctypes``.
 A library goes into ``build/repro_torch/<hash>/`` under the repository root
 (``REPRO_TORCH_BUILD_DIR`` overrides it), keyed by the hash of its source,
 the headers both include (``online_softmax.cuh``, ``hopper.cuh``) and the
@@ -57,7 +58,8 @@ ENTRY_POINTS = {
     SOURCE.name: {"kapla_fc": 6, "kapla_conv": 5, "kapla_pool": 4,
                   "kapla_eltwise": 4, "kapla_attention": 7},
     MODEL_SOURCE.name: {"kapla_flash_attention": 8,
-                        "kapla_ssd_intra_chunk": 9},
+                        "kapla_ssd_intra_chunk": 9, "kapla_mt_sumsq": 3,
+                        "kapla_mt_total": 4, "kapla_mt_adamw": 6},
 }
 
 #: element-type codes the model kernels' C entry points take

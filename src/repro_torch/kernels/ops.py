@@ -20,19 +20,20 @@ from typing import Dict, Optional
 import torch
 
 from . import flash_attention as fa
-from . import ref
+from . import multi_tensor, ref
 from . import ssd_scan
 from .flash_attention import NEG_INF, flash_attention
 from .ssd_scan import ssd_intra_chunk_vjp
 
 
 def launch_counts() -> Dict[str, int]:
-    """Kernel launches of the model zoo's kernels since the last reset."""
-    return {**fa.LAUNCHES, **ssd_scan.LAUNCHES}
+    """Kernel launches of the model zoo's kernels since the last reset:
+    the forward's and the train step's multi-tensor AdamW's."""
+    return {**fa.LAUNCHES, **ssd_scan.LAUNCHES, **multi_tensor.LAUNCHES}
 
 
 def reset_launch_counts() -> None:
-    for table in (fa.LAUNCHES, ssd_scan.LAUNCHES):
+    for table in (fa.LAUNCHES, ssd_scan.LAUNCHES, multi_tensor.LAUNCHES):
         for k in table:
             table[k] = 0
 

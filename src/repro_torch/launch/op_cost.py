@@ -145,9 +145,27 @@ def _ssd_unit(x, b):
             ssd_bytes(B, H, NC, Lc, P, N, x.element_size()))
 
 
+def _sumsq_unit(tensors):
+    """A square and an add an element; each tensor read once, the sum
+    written."""
+    return (2 * sum(t.numel() for t in tensors),
+            sum(_nbytes(t) for t in tensors) + 4)
+
+
+def _adamw_unit(params, grads, clip=False):
+    """``mt_adamw_kernel``'s 16 flops an element, 17 with the clip; the
+    parameter and gradient read, the float32 moments read and written, the
+    parameter written (22 B a bfloat16 element)."""
+    n = sum(p.numel() for p in params)
+    return ((17 if clip else 16) * n,
+            sum(2 * _nbytes(p) + 16 * p.numel() for p in params)
+            + sum(_nbytes(g) for g in grads))
+
+
 #: a wrapper's name -> (flops, bytes) of one call from its arguments
 KERNEL_UNITS: Dict[str, Callable[..., Tuple[int, int]]] = {
-    "flash_attention": _flash_unit, "ssd_intra_chunk": _ssd_unit}
+    "flash_attention": _flash_unit, "ssd_intra_chunk": _ssd_unit,
+    "multi_tensor_sumsq": _sumsq_unit, "multi_tensor_adamw": _adamw_unit}
 
 
 # ---------------------------------------------------------------------------

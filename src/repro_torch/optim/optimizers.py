@@ -11,7 +11,9 @@ given tensors as soon as that leaf is done, and returns the same ``params`` and 
 reference's train step, which donates both (``donate_argnums=(0, 1)``),
 so no second copy of either is ever held.  The gradients are left as they
 are.  The step count is a tensor on the parameters' device, so an update
-never waits for the host.
+never waits for the host.  AdamW's update and the global norm go through
+``kernels/multi_tensor.py``: on the card a few launches over every leaf (a
+rank's windows too), the clip inside the update; on the CPU leaf by leaf.
 
 The reference stacks every block leaf on a layer axis; the port keeps one
 leaf per layer.  AdamW is elementwise, so that is all the same to it.
@@ -30,6 +32,8 @@ import math
 from typing import Any, Callable, List, Mapping, Optional, Sequence, Tuple
 
 import torch
+
+from ..kernels import multi_tensor
 
 Tree = Any
 
@@ -70,12 +74,15 @@ class TreeShards:
         ranks: reduce-scattered where its window narrows the parameter's
         (ZeRO), all-reduced over the other data axes that do not shard
         the parameter (a data-sharded leaf's arrives summed through
-        ``Shards.local``'s reduce-scatter)."""
+        ``Shards.local``'s reduce-scatter); contiguous, as the
+        multi-tensor kernels take it (a chunk of a dim past the first
+        arrives as a strided view)."""
         lay, glay = self.params[name], self.grads[name]
         for d, _, _, axes in self.narrower(lay, glay):
             g = self.sh.reduce_scatter(g, d, axes)
         return self.sh.all_reduce(g, [a for a in self.sh.data_axes
-                                      if a not in self.axes(glay)])
+                                      if a not in self.axes(glay)]
+                                  ).contiguous()
 
     def axes(self, lay, dims: Optional[Sequence[int]] = None
              ) -> Tuple[str, ...]:
@@ -150,26 +157,31 @@ def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
 
 def global_norm(tree: Tree, shards: Optional[TreeShards] = None
                 ) -> torch.Tensor:
-    """The norm of every leaf together.  With ``shards`` ``tree`` is a
-    flat dict of parameter windows by name: each leaf's sum of squares is
-    summed over the axes that shard it (the leaves grouped by those axes,
-    one all-reduce a group)."""
+    """The norm of every leaf together (``kernels/multi_tensor.py``: its
+    kernels on the card, a sum of squares a leaf on the CPU).  With
+    ``shards`` ``tree`` is a flat dict of parameter windows by name: each
+    leaf's sum of squares is summed over the axes that shard it (the
+    leaves grouped by those axes, a sum and one all-reduce a group), so a
+    mesh of one rank gives the unsharded norm's bits."""
     if shards is None:
-        return torch.sqrt(sum(torch.sum(torch.square(leaf.float()))
-                              for leaf in tree_leaves(tree)))
+        return multi_tensor.norm(tree_leaves(tree))
     groups: dict = {}
     for name, leaf in tree.items():
-        ax = shards.axes(shards.grads[name])
-        groups[ax] = groups.get(ax, 0) + torch.sum(torch.square(
-            leaf.float()))
-    return torch.sqrt(sum(shards.sh.all_reduce(v, ax)
-                          for ax, v in groups.items()))
+        groups.setdefault(shards.axes(shards.grads[name]), []).append(leaf)
+    return torch.sqrt(sum(shards.sh.all_reduce(multi_tensor.sumsq(leaves),
+                                               ax)
+                          for ax, leaves in groups.items()))
+
+
+def clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    """The factor that clips gradients of global norm ``norm`` to
+    ``max_norm`` (1 below it)."""
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
 
 
 def clip_by_global_norm(grads: Tree, max_norm: float,
                         shards: Optional[TreeShards] = None) -> Tree:
-    norm = global_norm(grads, shards)
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    scale = clip_scale(global_norm(grads, shards), max_norm)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads)
 
 
@@ -188,39 +200,46 @@ def adamw(lr: float = 3e-4, b1: float = 0.9, b2: float = 0.95,
         return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
                 "step": _step0(params)}
 
+    hp = dict(lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
+
+    def corrections(state):
+        """The step count advanced, and the bias corrections (0-d, on the
+        step's device)."""
+        t = state["step"].add_(1).float()
+        return 1.0 - torch.pow(b1, t), 1.0 - torch.pow(b2, t)
+
     def update(grads, state, params, shards=None):
-        if clip_norm > 0:
-            grads = clip_by_global_norm(grads, clip_norm, shards)
-        step = state["step"].add_(1)
-        t = step.float()
-        bc1 = 1.0 - torch.pow(b1, t)
-        bc2 = 1.0 - torch.pow(b2, t)
-
-        def upd(p, g, m, v):
-            # the reference's formulas, each op rounding as it does there
-            # (``m.mul_(b1)`` is ``b1 * m``); every temporary dropped once
-            # read, so one leaf's few f32 temporaries are all it adds
-            g = g.float()
-            m.mul_(b1).add_((1 - b1) * g)
-            v.mul_(b2).add_((1 - b2) * torch.square(g))
-            del g
-            step_dir = (m / bc1) / (torch.sqrt(v / bc2) + eps)
-            pf = p.float()
-            p.copy_(pf - lr * (step_dir + weight_decay * pf))  # cast: .to
-
+        # the norm, then the clip inside the update: no clipped tree
+        scale = clip_scale(global_norm(grads, shards), clip_norm) \
+            if clip_norm > 0 else None
+        bc1, bc2 = corrections(state)
         if shards is None:
-            tree_map(upd, params, grads, state["m"], state["v"])
+            leaves = []        # (param, grad, m, v) of each leaf, by name
+            tree_map(lambda *x: leaves.append(x), params, grads,
+                     state["m"], state["v"])
+            multi_tensor.adamw(*(zip(*leaves) if leaves else ((),) * 4),
+                               bc1, bc2, scale, **hp)
             return params, state
-        for name, p in params.items():
-            win = shards.narrower(shards.params[name], shards.grads[name])
-            pw = p
+        # ZeRO: each rank updates its window of a parameter, taken
+        # contiguous, and gathers it whole again after
+        names = list(params)
+        wins = [shards.narrower(shards.params[n], shards.grads[n])
+                for n in names]
+        pws = []
+        for name, win in zip(names, wins):
+            pw = params[name]
             for d, start, n, _ in win:
                 pw = pw.narrow(d, start, n)
-            upd(pw, grads[name], state["m"][name], state["v"][name])
-            if win:            # ZeRO: each rank updated its window
-                for d, _, _, axes in reversed(win):
-                    pw = shards.sh.all_gather(pw, d, axes)
-                p.copy_(pw)
+            pws.append(pw.contiguous())
+        multi_tensor.adamw(pws, [grads[n] for n in names],
+                           [state["m"][n] for n in names],
+                           [state["v"][n] for n in names], bc1, bc2, scale,
+                           **hp)
+        for name, win, pw in zip(names, wins, pws):
+            for d, _, _, axes in reversed(win):
+                pw = shards.sh.all_gather(pw, d, axes)
+            if pw is not params[name]:
+                params[name].copy_(pw)
         return params, state
 
     return Optimizer("adamw", init, update, mirror="m")
@@ -387,5 +406,5 @@ def make_optimizer(name: str, stacks: Optional[Mapping[str, Sequence[str]]]
 
 
 __all__ = ["Optimizer", "TreeShards", "adafactor", "adamw",
-           "clip_by_global_norm", "global_norm", "make_optimizer",
-           "tree_leaves", "tree_map"]
+           "clip_by_global_norm", "clip_scale", "global_norm",
+           "make_optimizer", "tree_leaves", "tree_map"]

@@ -310,7 +310,9 @@ def test_flash_lse_matches_plain_on_card(dtype, D, H, KV, Sq, Sk, causal,
 def test_zamba2_train_step_at_reduced_depth_on_card():
     """One bf16 train step of Zamba2-1.2B at full width, 6 layers (one
     shared-attention call): the forward launches flash once (tensor-core
-    path) and SSD 6 times, the backward launches no kernel, and the loss,
+    path) and SSD 6 times, the backward launches no kernel, the update
+    takes its 114 leaves in 2 launches and each of the two gradient norms
+    (the clip's, the metric's) in one and its final sum, and the loss,
     the gradient norm and every updated parameter are finite."""
     import dataclasses
     from repro_torch.configs import get_config
@@ -334,7 +336,9 @@ def test_zamba2_train_step_at_reduced_depth_on_card():
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"flash_attention": 1,
                                    "flash_attention_wgmma": 1,
-                                   "ssd_intra_chunk": 6}
+                                   "ssd_intra_chunk": 6,
+                                   "multi_tensor_sumsq": 2 * 2,
+                                   "multi_tensor_adamw": 2}
     assert bool(torch.isfinite(m["loss"])) and float(m["grad_norm"]) > 0
     assert all(bool(torch.isfinite(p).all()) for p in params.parameters())
     assert not torch.equal(params.embed, before)

@@ -77,9 +77,13 @@ def test_qwen_train_cell_full_width(traces):
     _check_record(rec, "16x16")
     assert rec["mode"] == "train" and rec["plan"]["valid"]
     cfg = get_config("qwen2.5-3b")
-    # remat="block": each layer's flash forward runs again in the backward
+    # remat="block": each layer's flash forward runs again in the backward;
+    # the optimizer: one update of the rank's windows, and two norms (the
+    # clip's and the metric's), each a sum of squares a group of leaves
+    # sharded over the same mesh axes (four groups on this plan)
     assert rec["trace"]["kernel_units"] == {
-        "flash_attention": 2 * cfg.num_layers}
+        "flash_attention": 2 * cfg.num_layers, "multi_tensor_adamw": 1,
+        "multi_tensor_sumsq": 2 * 4}
     # the parameters and the optimizer state are updated in place, as the
     # reference donates them; the new results are the two f32 metrics
     tr = traces[("qwen2.5-3b", "train_4k", False, "16x16")]
@@ -271,7 +275,9 @@ def test_kernel_wrappers_on_meta_launch_nothing():
     assert (dx.shape, db.shape) == (x.shape, b.shape)
     assert ops.launch_counts() == {"flash_attention": 0,
                                    "flash_attention_wgmma": 0,
-                                   "ssd_intra_chunk": 0}
+                                   "ssd_intra_chunk": 0,
+                                   "multi_tensor_sumsq": 0,
+                                   "multi_tensor_adamw": 0}
 
 
 @pytest.mark.parametrize("arch", ["qwen2.5-3b", "zamba2-1.2b",
