@@ -88,7 +88,11 @@ Phases, in order; any failure exits non-zero:
    non-causal float32 case on the FMA tile; the SSD
    intra-chunk term (tensor cores, 3xTF32) at the Mamba2-1.3B and
    Zamba2-1.2B shapes in bf16, Zamba2-1.2B's in float32, and a chunk of
-   256 with head dim 128 in float32.  float32
+   256 with head dim 128 in float32; both at the benchmark's Zamba2-7B
+   train step in bf16: flash at a site (32 heads of 224, 4,096 tokens,
+   causal, scale (224 / 2)^-1/2, with its lse) and the SSD at a layer (112
+   heads, B and C in 2 groups), each with its launches, ms and bound a
+   step (``[kernel] ... a train step``).  float32
    within 1e-5 max rel error, bf16 within 8e-3 x max|plain| (one bf16
    ulp); time the kernel, the plain version and, where one PyTorch call
    computes the same function, ``F.scaled_dot_product_attention``; at the
@@ -374,7 +378,7 @@ MOE_CONSISTENCY = ("qwen2-moe-a2.7b", 2, 4, 64)
 #: case, a rank's heads in phase 16's train step), and its limit: both are
 #: f32 from the same operands
 LSE_CASES = ("qwen2.5-3b", "zamba2-1.2b", "qwen2-moe-a2.7b", "non-causal-f32",
-             "zamba2-1.2b-tp2")
+             "zamba2-1.2b-tp2", "zamba2-7b")
 LSE_TOL = 1e-4
 #: the training phase: arch, steps, batch, sequence, full width and depth
 #: in bf16, and the kernel launches over its steps (6 flash, all on the
@@ -1124,6 +1128,13 @@ FLASH_CASES = [
     ("zamba2-1.2b-tp2", 4, 16, 16, 512, 512, 64, True, 0, 0.0, "bf16",
      True),
 ]
+#: the flash case of the benchmark's Zamba2-7B train step, as FLASH_CASES'
+#: rows: a shared-block site, 32 heads of 224 over 4,096 tokens, causal, at
+#: the published scale ``FLASH_SCALES`` gives (others: D^-1/2)
+TRAIN_FLASH_CASES = [
+    ("zamba2-7b", 1, 32, 32, 4096, 4096, 224, True, 0, 0.0, "bf16", True),
+]
+FLASH_SCALES = {"zamba2-7b": 112 ** -0.5}
 #: SSD cases: name, B, S, H, P, N, chunk, dtype (the first two are the
 #: serve prefills' shapes; then Zamba2-1.2B's in float32, a chunk of 256
 #: with head dim 128: two row tiles, two P tiles, one rank's 16 local
@@ -1135,6 +1146,13 @@ SSD_CASES = [("mamba2-1.3b", 8, 512, 64, 64, 128, 128, "bf16"),
              ("lc256-p128", 4, 1024, 32, 128, 64, 256, "f32"),
              ("zamba2-1.2b-tp4", 2, 128, 16, 64, 64, 128, "f32"),
              ("zamba2-1.2b-tp2", 4, 512, 32, 64, 64, 128, "bf16")]
+#: SSD cases with B and C in groups, as SSD_CASES' rows plus the groups:
+#: a layer of the benchmark's Zamba2-7B train step (112 heads in 2 groups)
+GROUPED_SSD_CASES = [("zamba2-7b", 1, 4096, 112, 64, 64, 128, "bf16", 2)]
+#: each phase-7 case of that step: its launches a step (3 shared-block
+#: sites' flash, 20 Mamba2 layers' SSD, each in the forward; the backward
+#: launches neither kernel)
+TRAIN_STEP_LAUNCHES = {"flash zamba2-7b": 3, "ssd zamba2-7b": 20}
 
 
 def kernel_row(name, path, out, want, ms, plain_ms, library_ms, ops, nbytes,
@@ -1170,7 +1188,7 @@ def model_kernel_phase(dev, path_ops, peak_bw):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ssd_scan
+    from repro_torch.kernels import ops, ssd_scan
     from repro_torch.launch.op_cost import (flash_bytes, flash_ops,
                                             ssd_bytes, ssd_ops)
 
@@ -1178,29 +1196,33 @@ def model_kernel_phase(dev, path_ops, peak_bw):
     types = {"bf16": torch.bfloat16, "f32": torch.float32}
     flash, ssd = [], []
     for (case, B, H, KV, Sq, Sk, D, causal, window, cap, dtype,
-         has_lib) in FLASH_CASES:
+         has_lib) in FLASH_CASES + TRAIN_FLASH_CASES:
         t = types[dtype]
         q = torch.randn((B, H, Sq, D), generator=g, device=dev).to(t)
         k = torch.randn((B, KV, Sk, D), generator=g, device=dev).to(t)
         v = torch.randn((B, KV, Sk, D), generator=g, device=dev).to(t)
 
         with_lse = case in LSE_CASES
+        scale = FLASH_SCALES.get(case)
 
         def kern():
-            return fa.flash_attention(q, k, v, causal, window, cap)
+            return fa.flash_attention(q, k, v, causal, window, cap, scale)
 
         def kern_lse():
-            return fa.flash_attention(q, k, v, causal, window, cap,
+            return fa.flash_attention(q, k, v, causal, window, cap, scale,
                                       return_lse=True)
 
         def plain():
             return fa.plain_flash_attention(q, k, v, causal, window, cap,
-                                            return_lse=with_lse)
+                                            scale, return_lse=with_lse)
 
         def library():
             return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                  scale=scale,
                                                   enable_gqa=True)
+        ops.reset_launch_counts()
         out = kern()
+        launches = ops.launch_counts()
         want, plain_ms = host_ms(plain)
         lse_row = {}
         if with_lse:
@@ -1230,14 +1252,15 @@ def model_kernel_phase(dev, path_ops, peak_bw):
                                      f"same function (abs err {lib_err})")
             library_ms = stream_ms(library)
         elem = 2 if dtype == "bf16" else 4
-        ops = flash_ops(B, H, Sq, Sk, D, causal, window)
+        n_ops = flash_ops(B, H, Sq, Sk, D, causal, window)
         nbytes = flash_bytes(B, H, KV, Sq, Sk, D, elem)
         path = fa.flash_path(t, D)
-        flash.append({**kernel_row(
-            f"flash {case}", path, out, want, ms, plain_ms, library_ms, ops,
-            nbytes, path_ops[path], peak_bw, dtype), **lse_row})
+        flash.append(train_step_row({**kernel_row(
+            f"flash {case}", path, out, want, ms, plain_ms, library_ms, n_ops,
+            nbytes, path_ops[path], peak_bw, dtype), **lse_row}, launches))
         del q, k, v, out, want
-    for case, B, S, H, P, N, Lc, dtype in SSD_CASES:
+    for case, B, S, H, P, N, Lc, dtype, G in \
+            [(*row, 1) for row in SSD_CASES] + GROUPED_SSD_CASES:
         NC = S // Lc
         x = torch.randn((B, H, NC, Lc, P), generator=g,
                         device=dev).to(types[dtype])
@@ -1245,26 +1268,50 @@ def model_kernel_phase(dev, path_ops, peak_bw):
             + 1e-3
         a = -torch.exp(torch.randn((H,), generator=g, device=dev) * 0.5)
         acum = torch.cumsum(dt * a[None, :, None, None], dim=-1)
-        b = torch.randn((B, NC, Lc, N), generator=g, device=dev) * 0.5
-        c = torch.randn((B, NC, Lc, N), generator=g, device=dev) * 0.5
+        b = torch.randn((B, NC, G, Lc, N), generator=g, device=dev) * 0.5
+        c = torch.randn((B, NC, G, Lc, N), generator=g, device=dev) * 0.5
 
         def kern():
             return ssd_scan.ssd_intra_chunk(x, dt, acum, b, c)
 
         def plain():
             return ssd_scan.plain_ssd_intra_chunk(x, dt, acum, b, c)
+        ops.reset_launch_counts()
         out = kern()
+        launches = ops.launch_counts()
         want, plain_ms = host_ms(plain)
         ms = stream_ms(kern)
-        ops = ssd_ops(B, H, NC, Lc, P, N)
-        nbytes = ssd_bytes(B, H, NC, Lc, P, N, x.element_size())
+        n_ops = ssd_ops(B, H, NC, Lc, P, N, G)
+        nbytes = ssd_bytes(B, H, NC, Lc, P, N, x.element_size(), G)
         path = PATHS["ssd_intra_chunk"]
-        ssd.append(kernel_row(f"ssd {case}", path, out, want, ms, plain_ms,
-                              None, ops, nbytes, path_ops[path], peak_bw,
-                              dtype))
+        ssd.append(train_step_row(kernel_row(
+            f"ssd {case}", path, out, want, ms, plain_ms, None, n_ops, nbytes,
+            path_ops[path], peak_bw, dtype), launches))
         del x, dt, acum, b, c, out, want
     torch.cuda.empty_cache()
     return {"flash_attention": flash, "ssd_intra_chunk": ssd}
+
+
+def train_step_row(row, launches):
+    """``row`` with the launches of its one call (every kind's, by
+    ``ops.launch_counts()``) and, for a case of the benchmark's Zamba2-7B
+    train step (``TRAIN_STEP_LAUNCHES``), its launches, ms and bound ms a
+    step."""
+    row["launches"] = {k: n for k, n in launches.items() if n}
+    per_step = TRAIN_STEP_LAUNCHES.get(row["case"])
+    if per_step:
+        row["train_step"] = {"launches": per_step,
+                             "ms": row["ms"] * per_step,
+                             "bound_ms": row["bound_ms"] * per_step}
+        lib = "-" if row["library_ms"] is None else \
+            f"{row['library_ms'] * per_step:.3f} ms"
+        log(f"[kernel] {row['case']} ({row['path']}) a train step of the "
+            f"Zamba2-7B cell: {per_step} launches, "
+            f"{row['train_step']['ms']:.3f} ms, bound "
+            f"{row['train_step']['bound_ms']:.3f} ms "
+            f"({100 * row['bound_ms'] / row['ms']:.2f}% of it), library "
+            f"{lib}; one call launches {row['launches']}")
+    return row
 
 
 def kernel_group(name: str) -> str:

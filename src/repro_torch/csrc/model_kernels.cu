@@ -5,7 +5,7 @@
 //
 // Flash attention has two kernels, and the wrapper (repro_torch/kernels/
 // flash_attention.py, its `PATHS` table) names which one runs:
-// - flash_wgmma_kernel, bf16 at head dims 64, 128 and 256: the tensor-core
+// - flash_wgmma_kernel, bf16 at head dims 64, 128, 224 and 256: the tensor-core
 //   kernel (wgmma fed by TMA, warp-specialised; below);
 // - flash_kernel, float32 at every head dim and bf16 at 16 and 32: f32 FMA on
 //   the CUDA cores through the online-softmax tile of online_softmax.cuh,
@@ -144,7 +144,7 @@ cudaError_t flash_by_dim(int D, const void* q, const void* k, const void* v,
 }
 
 // ---------------------------------------------------------------------------
-// flash_wgmma_kernel, the tensor-core path (bf16, D in {64, 128, 256}).
+// flash_wgmma_kernel, the tensor-core path (bf16, D in {64, 128, 224, 256}).
 // Bound: at the serve shapes, bytes (each of q, k, v, o once) and bf16
 // tensor-core operations are within 2x of each other (Qwen2.5-3B prefill:
 // 0.0113 ms of bytes, 0.0087 ms of operations at 989 TFLOP/s).  Design: one
@@ -170,8 +170,14 @@ cudaError_t flash_by_dim(int D, const void* q, const void* k, const void* v,
 //   in two passes over the keys, each holding half of O's columns (64
 //   floats) and recomputing S: the first pass stores its half straight from
 //   registers (Q is still needed), the second through shared memory by TMA.
+// - D 224 (Zamba2-7B's shared attention) is laid out as D 256: the last
+//   128-byte column block of each tile is half past D, and TMA fills it
+//   with zeros (reads) and drops it (the epilogue's store).  S takes the 14
+//   k16 steps of D alone; the second pass's P V runs over 128 columns, of
+//   which 96 are D's (its last 32 are zeros, never stored).
 // q, k, v and o are described as 3-D [B*H (or B*KV), S, D] maps, so a box
-// that runs past S reads zeros (the ragged edge) instead of the next head.
+// that runs past S (or, at D 224, past D) reads zeros (the ragged edge)
+// instead of the next head or row.
 // Masking: a masked score is -inf, and the softmax subtracts 0 while a row's
 // max is still -inf, so a masked key's p is exactly 0.
 // ---------------------------------------------------------------------------
@@ -181,13 +187,14 @@ constexpr int FW_THREADS = FW_CONSUMERS + 128;
 
 template <int D>
 struct FwTile {
-  static_assert(D == 64 || D == 128 || D == 256, "wgmma flash head dim");
+  static_assert(D == 64 || D == 128 || D == 224 || D == 256,
+                "wgmma flash head dim");
   static constexpr int BK = D == 64 ? 128 : 64;  // keys a stage
-  static constexpr int CB = D / 64;              // 128-byte column blocks
+  static constexpr int CB = (D + 63) / 64;       // 128-byte column blocks
   static constexpr int ON = D < 128 ? D : 128;   // O columns a pass holds
-  static constexpr int PASSES = D / ON;
-  static constexpr uint32_t Q_BYTES = FW_BQ * D * 2;
-  static constexpr uint32_t KV_BYTES = BK * D * 2;  // K or V, one stage
+  static constexpr int PASSES = (D + ON - 1) / ON;
+  static constexpr uint32_t Q_BYTES = FW_BQ * CB * 128;
+  static constexpr uint32_t KV_BYTES = BK * CB * 128;  // K or V, one stage
   static constexpr size_t SMEM =
       1024 + Q_BYTES + 2 * FW_STAGES * KV_BYTES + 8 * (1 + 2 * FW_STAGES);
 };
@@ -471,6 +478,7 @@ cudaError_t flash_wgmma_by_dim(int D, const void* q, const void* k,
   switch (D) {
     case 64: return launch_flash_wgmma<64>(q, k, v, o, a, stream);
     case 128: return launch_flash_wgmma<128>(q, k, v, o, a, stream);
+    case 224: return launch_flash_wgmma<224>(q, k, v, o, a, stream);
     case 256: return launch_flash_wgmma<256>(q, k, v, o, a, stream);
     default: return cudaErrorInvalidValue;
   }
@@ -479,7 +487,8 @@ cudaError_t flash_wgmma_by_dim(int D, const void* q, const void* k,
 // ---------------------------------------------------------------------------
 // SSD intra-chunk term (Mamba2):
 //   y[l] = sum_{m <= l} (C[l] . B[m]) * exp(acum[l] - acum[m]) * dt[m] * x[m]
-// per (b, h, chunk); B and C are shared across heads (G = 1).
+// per (b, h, chunk); B and C come in G groups, head h reading group
+// h / (H / G) (G = 1: shared by every head).
 // Replaces src/repro/kernels/ssd_scan.py ssd_intra_chunk and
 // _ssd_intra_kernel.  Bound: bytes at the models' shapes (Zamba2-1.2B's
 // prefill reads x and writes y, 67 MB a launch in bf16, against 2.2 GFLOP
@@ -487,7 +496,10 @@ cudaError_t flash_wgmma_by_dim(int D, const void* q, const void* k,
 // - G = C B^T once per (b, chunk, head group).  One block per (b * NC + chunk,
 //   group of hg heads; ssd_scan.py ssd_launch picks hg and passes it): G
 //   depends on no head, so the block forms each 128 x 128 tile of it once and
-//   applies it to every head of its group.  Eight warps, each owning a
+//   applies it to every head of its group.  A block's heads never straddle
+//   two B/C groups: each B/C group of H / G heads gets blocks of its own
+//   (blockIdx.y = group * its blocks + block), and B and C are laid out
+//   [B, NC, G, Lc, N], so a group's chunk is one [Lc, N] slab.  Eight warps, each owning a
 //   16-row strip of the tile; a warp keeps its strip of G in registers (16
 //   m16n8 accumulators) across the heads.
 // - Both products in 3xTF32 on mma.sync m16n8k8 (tf32_mma.cuh): G over the
@@ -576,6 +588,7 @@ constexpr size_t ssd_smem() {
 struct SsdArgs {
   int B, H, NC, Lc, P, N;
   int hg;     // heads a block
+  int G;      // groups of B and C; H / G heads read each
   int xvec;   // x rows 16-byte aligned: 16-byte cp.async, else element loads
   int bcvec;  // B and C rows 16-byte aligned: 16-byte cp.async, else 4-byte
 };
@@ -669,7 +682,11 @@ ssd_intra_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 
   const int bc = blockIdx.x;  // b * NC + chunk
   const int b = bc / a.NC, ch = bc - b * a.NC;
-  const int h0 = blockIdx.y * a.hg, nh = min(a.hg, a.H - h0);
+  // the B/C group of the block, and its heads within the group's
+  const int hpg = a.H / a.G, bpg = (hpg + a.hg - 1) / a.hg;
+  const int grp = blockIdx.y / bpg;
+  const int h0 = grp * hpg + (blockIdx.y - grp * bpg) * a.hg;
+  const int nh = min(a.hg, (grp + 1) * hpg - h0);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t4 = lane % 4;
   // warp w runs on SM sub-partition w % 4 with warp w + 4: strips s and
@@ -678,8 +695,8 @@ ssd_intra_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   const int rt = (a.Lc + SSD_T - 1) / SSD_T;
   const int pt = (a.P + SSD_PT - 1) / SSD_PT;
   const int items = nh * pt;  // (head, P tile) pairs of a tile pair
-  const float* cg = cmat + (size_t)bc * a.Lc * a.N;
-  const float* bg = bmat + (size_t)bc * a.Lc * a.N;
+  const float* cg = cmat + ((size_t)bc * a.G + grp) * a.Lc * a.N;
+  const float* bg = bmat + ((size_t)bc * a.G + grp) * a.Lc * a.N;
   // element (b, h0 + hh, ch, 0) of dt, acum and, times P, of x and y
   const size_t row0 = (((size_t)b * a.H + h0) * a.NC + ch) * a.Lc;
   auto head_row = [&](int hh) { return row0 + (size_t)hh * a.NC * a.Lc; };
@@ -1304,20 +1321,21 @@ extern "C" int kapla_flash_attention(const void* q, const void* k,
 
 
 // p: B, H, NC, Lc, P, N, dtype, hg, xvec, bcvec, grid (x, y), the dynamic
-// shared memory in bytes (ssd_scan.py ssd_launch); ws: a float32 workspace
+// shared memory in bytes, G (ssd_scan.py ssd_launch); ws: a float32 workspace
 // [B, H, NC, Lc, P] where Lc > 128 (y itself for float32), else unused
 extern "C" int kapla_ssd_intra_chunk(const void* x, const float* dt,
                                      const float* acum, const float* bmat,
                                      const float* cmat, void* y, float* ws,
                                      const long long* p, void* stream) {
   SsdArgs a{(int)p[0], (int)p[1], (int)p[2], (int)p[3], (int)p[4],
-            (int)p[5], (int)p[7], (int)p[8], (int)p[9]};
+            (int)p[5], (int)p[7], (int)p[13], (int)p[8], (int)p[9]};
   const int dtype = (int)p[6];
   const dim3 grid((unsigned)p[10], (unsigned)p[11]);
   const size_t smem = (size_t)p[12];
   if (a.Lc <= 0 || a.P <= 0 || a.N <= 0 || a.hg <= 0 || a.hg > SSD_HG ||
+      a.G <= 0 || a.H % a.G != 0 ||
       (long long)grid.x != (long long)a.B * a.NC ||
-      (int)grid.y != (a.H + a.hg - 1) / a.hg ||
+      (int)grid.y != a.G * ((a.H / a.G + a.hg - 1) / a.hg) ||
       (a.Lc > SSD_T && ws == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;

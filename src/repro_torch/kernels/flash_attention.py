@@ -42,11 +42,13 @@ BLOCK_Q = BLOCK_K = 64
 #: head dims the kernels are instantiated for
 HEAD_DIMS = (16, 32, 64, 128, 256)
 #: the kernel each (dtype, head dim) runs on the card: the tensor-core
-#: kernel for bf16 at 64, 128 and 256, the FMA tile for the rest
+#: kernel for bf16 at 64, 128, 224 (Zamba2-7B's shared attention; laid out
+#: as 256, its last columns zero-filled by TMA) and 256, the FMA tile for
+#: the rest
 PATHS = {**{(torch.float32, d): "fma" for d in HEAD_DIMS},
          (torch.bfloat16, 16): "fma", (torch.bfloat16, 32): "fma",
          (torch.bfloat16, 64): "wgmma", (torch.bfloat16, 128): "wgmma",
-         (torch.bfloat16, 256): "wgmma"}
+         (torch.bfloat16, 224): "wgmma", (torch.bfloat16, 256): "wgmma"}
 #: path codes of ``kapla_flash_attention``
 _PATH_CODES = {"fma": 0, "wgmma": 1}
 
@@ -56,9 +58,10 @@ def flash_path(dtype: torch.dtype, head_dim: int) -> str:
     and head dim ``head_dim``; raises for what neither kernel takes."""
     path = PATHS.get((dtype, head_dim))
     if path is None:
+        dims = sorted(d for t, d in PATHS if t == dtype)
         raise ValueError(f"flash_attention: no kernel for {dtype} at head "
-                         f"dim {head_dim}; the kernels take float32 and "
-                         f"bfloat16 at head dims {HEAD_DIMS}")
+                         f"dim {head_dim}; the kernels take it at head "
+                         f"dims {dims}")
     return path
 
 

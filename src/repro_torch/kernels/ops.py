@@ -239,18 +239,25 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
         b: torch.Tensor, c: torch.Tensor, chunk: int = 128):
     """Chunked SSD forward.
 
-    x: [B,S,H,P]; dt: [B,S,H] (positive); a_log: [H]; b,c: [B,S,N] (G=1).
-    Returns (y [B,S,H,P], final_state [B,H,P,N]).  The inter-chunk
-    recurrence runs here in f32; the intra-chunk term goes to
-    ``ssd_intra_chunk``.
+    x: [B,S,H,P]; dt: [B,S,H] (positive); a_log: [H]; b,c: [B,S,N] (one
+    group, shared by every head) or [B,S,G,N] (G groups, G dividing H:
+    head h reads group h // (H / G)).  Returns (y [B,S,H,P], final_state
+    [B,H,P,N]).  The inter-chunk recurrence runs here in f32; the
+    intra-chunk term goes to ``ssd_intra_chunk``, one launch for all the
+    groups.  [B,S,N] is taken as [B,S,1,N].
     """
     ref.full_fp32(x)
     B, S, H, P = x.shape
     N = b.shape[-1]
+    if b.dim() == 3:                          # one group, shared by all
+        b, c = b[:, :, None], c[:, :, None]
+    G = b.shape[2]
     chunk = min(chunk, S)
     if S % chunk:
         raise ValueError(f"ssd: sequence {S} is not a multiple of the "
                          f"chunk {chunk}")
+    if H % G:
+        raise ValueError(f"ssd: {G} groups of B and C for {H} heads")
     NC = S // chunk
     a = -torch.exp(a_log.float())                             # [H]
     dtf = dt.float()
@@ -259,15 +266,20 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     x_c = x.reshape(B, NC, chunk, H, P)
     dt_c = dtf.reshape(B, NC, chunk, H)
     ad_c = ad.reshape(B, NC, chunk, H)
-    b_c = b.reshape(B, NC, chunk, N).float()
-    c_c = c.reshape(B, NC, chunk, N).float()
+    b_c = b.reshape(B, NC, chunk, G, N).float()               # [B,NC,Lc,G,N]
+    c_c = c.reshape(B, NC, chunk, G, N).float()
     acum = torch.cumsum(ad_c, dim=2)                          # [B,NC,Lc,H]
     a_end = acum[:, :, -1]                                    # [B,NC,H]
 
+    def by_group(t, at: int):
+        """``t`` with its heads axis ``at`` split into [G, H / G]."""
+        return t.reshape(*t.shape[:at], G, H // G, *t.shape[at + 1:])
+
     # per-chunk state contributions: sum_j exp(a_end - acum_j) dt_j x_j b_j^T
     w = torch.exp(a_end[:, :, None] - acum) * dt_c            # [B,NC,Lc,H]
-    states = torch.einsum("bclh,bclhp,bcln->bchpn",
-                          w, x_c.float(), b_c)                # [B,NC,H,P,N]
+    states = torch.einsum(
+        "bclgh,bclghp,bclgn->bcghpn", by_group(w, 3),
+        by_group(x_c.float(), 3), b_c).reshape(B, NC, H, P, N)
 
     # inter-chunk recurrence (sequential over NC, cheap)
     decay_chunk = torch.exp(a_end)                            # [B,NC,H]
@@ -282,8 +294,11 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
         + states[:, -1]
 
     # inter-chunk output term
-    y_inter = torch.einsum("bcln,bchpn,bclh->bclhp",
-                           c_c, h0, torch.exp(acum))
+    y_inter = torch.einsum(
+        "bclgn,bcghpn,bclgh->bclghp", c_c, by_group(h0, 2),
+        by_group(torch.exp(acum), 3)).reshape(B, NC, chunk, H, P)
+    # the kernel's B and C: one [Lc, N] slab a (b, chunk, group)
+    b_c, c_c = b_c.transpose(2, 3), c_c.transpose(2, 3)
 
     # intra-chunk quadratic term: the CUDA kernel on the card
     y_intra = ssd_intra_chunk_vjp(

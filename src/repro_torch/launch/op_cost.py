@@ -117,18 +117,20 @@ def flash_bytes(B: int, H: int, KV: int, Sq: int, Sk: int, D: int,
         + (4 * B * H * Sq if lse else 0)
 
 
-def ssd_ops(B: int, H: int, NC: int, Lc: int, P: int, N: int) -> int:
-    """C Bᵀ once per (b, chunk) and its decay-masked product with x per
-    head, over the pairs l >= m of a chunk."""
+def ssd_ops(B: int, H: int, NC: int, Lc: int, P: int, N: int,
+            G: int = 1) -> int:
+    """C Bᵀ once per (b, chunk, B/C group) and its decay-masked product
+    with x per head, over the pairs l >= m of a chunk."""
     tri = Lc * (Lc + 1) // 2
-    return 2 * B * NC * tri * N + 2 * B * H * NC * tri * P
+    return 2 * B * NC * G * tri * N + 2 * B * H * NC * tri * P
 
 
 def ssd_bytes(B: int, H: int, NC: int, Lc: int, P: int, N: int,
-              elem: int) -> int:
-    """x and the output in x's type; dt and acum, B and C in float32."""
+              elem: int, G: int = 1) -> int:
+    """x and the output in x's type; dt and acum, B and C (G groups) in
+    float32."""
     return 2 * elem * B * H * NC * Lc * P + 4 * 2 * B * H * NC * Lc \
-        + 4 * 2 * B * NC * Lc * N
+        + 4 * 2 * B * NC * G * Lc * N
 
 
 def _flash_unit(q, k, v, causal=True, window=0, return_lse=False):
@@ -140,9 +142,9 @@ def _flash_unit(q, k, v, causal=True, window=0, return_lse=False):
 
 def _ssd_unit(x, b):
     B, H, NC, Lc, P = x.shape
-    N = b.shape[-1]
-    return (ssd_ops(B, H, NC, Lc, P, N),
-            ssd_bytes(B, H, NC, Lc, P, N, x.element_size()))
+    G, N = b.shape[2], b.shape[-1]      # b as [B, NC, G, Lc, N]
+    return (ssd_ops(B, H, NC, Lc, P, N, G),
+            ssd_bytes(B, H, NC, Lc, P, N, x.element_size(), G))
 
 
 def _sumsq_unit(tensors):

@@ -286,6 +286,9 @@ class ModelAPI:
     shards: Optional[Shards] = None
     #: ``cache_shapes(batch, max_len)``: (shape, dtype) of every cache leaf
     cache_shapes: Optional[Callable] = None
+    #: device marks the model records while a tracer is installed
+    #: (``obs/device.py`` ``Marks``; the published Zamba2's sites)
+    marks: Optional[Any] = None
 
 
 def _placed(tree: Mapping[str, Any], prefix: str,
@@ -315,8 +318,15 @@ def build_model(cfg: ModelConfig, device=None,
     ``forward``, ``prefill`` and ``decode_step`` take parameters, inputs
     and cache as DTensors at the plan's placements and return DTensors:
     the logits sharded as the batch and (over ``model``) the vocabulary,
-    the cache in place.  ``prefill`` then needs the partitioned cache."""
+    the cache in place.  ``prefill`` then needs the partitioned cache.
+
+    A published Zamba2 (``models/zamba2.py`` ``Zamba2Config``) takes that
+    module's path; ``family == "hybrid"`` otherwise is the reference's
+    simplified Zamba2."""
     _check_family(cfg)
+    from . import zamba2       # it builds on this module's classes
+    if isinstance(cfg, zamba2.Zamba2Config):
+        return zamba2.build(cfg, device, dtype, trainable, mesh)
     dev = backend.resolve_device(device)
     sh = Shards(mesh) if mesh is not None and not hasattr(mesh, "devices") \
         else None

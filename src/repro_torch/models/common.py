@@ -46,7 +46,9 @@ class _RmsNorm(torch.autograd.Function):
         w = 1.0 + scale.float()
         u = dy.float() * w
         dx = rstd * (u - xhat * (u * xhat).mean(-1, keepdim=True))
-        dscale = (dy.float() * xhat).sum(dim=tuple(range(dy.dim() - 1)))
+        # a gain of several dims (a grouped norm's [G, width]) keeps them
+        dscale = (dy.float() * xhat).sum(
+            dim=tuple(range(dy.dim() - scale.dim())))
         return dx.to(x.dtype), dscale.to(scale.dtype)
 
 

@@ -43,10 +43,13 @@ def ssm_dims(cfg: ModelConfig) -> Tuple[int, int, int]:
 
 
 def init_mamba(generator: torch.Generator, cfg: ModelConfig,
-               dtype: torch.dtype = torch.bfloat16
+               dtype: torch.dtype = torch.bfloat16, groups: int = 1
                ) -> Dict[str, torch.Tensor]:
+    """A block's leaves; B and C's projections and convolutions are
+    ``groups`` x ``ssm_state`` wide (``groups`` B/C groups)."""
     d = cfg.d_model
     di, H, N = ssm_dims(cfg)
+    N *= groups
     cw = cfg.conv_width
     dev = generator.device
     g = generator
@@ -96,10 +99,14 @@ def _local_dims(p: Mapping[str, torch.Tensor], cfg: ModelConfig
 
 
 def _gated_norm(y: torch.Tensor, scale: torch.Tensor, cfg: ModelConfig,
-                sh: Optional[Shards]) -> torch.Tensor:
-    """``rms_norm`` over the inner width; where it is sharded the sums of
-    squares are summed over ``model`` first."""
+                sh: Optional[Shards], groups: int = 1) -> torch.Tensor:
+    """``rms_norm`` over the inner width, or with ``groups`` B/C groups
+    over each group's channels (``mamba_ssm``'s ``group_size``); where it
+    is sharded the sums of squares are summed over ``model`` first."""
     full = ssm_dims(cfg)[0]
+    if groups > 1:
+        gy = y.reshape(*y.shape[:-1], groups, full // groups)
+        return rms_norm(gy, scale.reshape(groups, -1)).reshape(y.shape)
     if sh is None or y.shape[-1] == full:
         return rms_norm(y, scale)
     yf = y.float()
@@ -112,9 +119,15 @@ def _gated_norm(y: torch.Tensor, scale: torch.Tensor, cfg: ModelConfig,
 def mamba_forward(p: Mapping[str, torch.Tensor], x_in: torch.Tensor,
                   cfg: ModelConfig, sh: Optional[Shards] = None,
                   seq: bool = False) -> torch.Tensor:
-    """Full-sequence forward.  x_in: [B, S, d]."""
+    """Full-sequence forward.  x_in: [B, S, d].  B and C come in as many
+    groups as ``w_b`` holds ``ssm_state`` columns (head h reading group
+    h // (H / G)), the gated norm then grouped as theirs; one group runs
+    the program every other model runs."""
     B, S, _ = x_in.shape
     di, H = _local_dims(p, cfg)
+    G = p["w_b"].shape[-1] // cfg.ssm_state
+    if G > 1 and sh is not None:
+        raise ValueError("mamba_forward: B/C groups on a partitioned plan")
     p, x_in = local_share(p, x_in, sh, di < ssm_dims(cfg)[0], seq, WHOLE)
     z = x_in @ p["w_z"]
     xs = _causal_conv(x_in @ p["w_x"], p["conv_x_w"], p["conv_x_b"])
@@ -122,10 +135,13 @@ def mamba_forward(p: Mapping[str, torch.Tensor], x_in: torch.Tensor,
     c = _causal_conv(x_in @ p["w_c"], p["conv_c_w"], p["conv_c_b"])
     dt = F.softplus((x_in @ p["w_dt"]).float() + p["dt_bias"])
     xh = xs.reshape(B, S, H, cfg.ssm_head_dim)
+    if G > 1:
+        b = b.reshape(B, S, G, cfg.ssm_state)
+        c = c.reshape(B, S, G, cfg.ssm_state)
     y, _ = ops.ssd(xh, dt, p["a_log"], b, c)
     y = y + xh * p["d_skip"][None, None, :, None].to(xh.dtype)
     y = y.reshape(B, S, di)
-    y = _gated_norm(y * F.silu(z), p["norm"], cfg, sh)
+    y = _gated_norm(y * F.silu(z), p["norm"], cfg, sh, G)
     out = y @ p["w_out"]
     if sh is not None:
         out = sh.finish(out, partial=di < ssm_dims(cfg)[0], seq=seq)

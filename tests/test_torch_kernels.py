@@ -303,7 +303,9 @@ def test_ssd_launch_geometry(case):
     assert tssd.SSD_HG == 8                                # the kernel's
     assert L.x_pitch == (68 if elem == 4 else 72)
     assert L.workspace == (Lc > tssd.SSD_TILE)
-    assert len(L.params(0, True, True)) == 13
+    # the 13 sizes and flags, then the B/C groups (one here)
+    assert len(L.params(0, True, True)) == 14
+    assert L.params(0, True, True)[-1] == L.G == 1
     if case in ("mamba2-1.3b", "zamba2-1.2b"):
         assert (B, H, NC, Lc, P) == (8, 64, 4, 128, 64)
         assert (L.hg, L.grid) == (8, (32, 8))
