@@ -28,7 +28,9 @@ Phases, in order; any failure exits non-zero:
    version and one PyTorch library call on the same inputs;
 3. ResNet-50 b64 end to end: solve -> lower_network -> network_runner on
    the card, with the launch counters set to 0 just before the run and
-   read just after (each must equal the plan's layer count of its kind);
+   read just after (each must equal the plan's layer count of its kind, a
+   conv's weight layout one a conv, and the layout conversions
+   ``LAYOUT_CONVERSIONS``: ResNet-50's one, the images);
    every layer within 1e-3 of the torch oracles; measure_network, its
    predicted latency recorded as drift;
 4. the same for AlexNet b64;
@@ -278,10 +280,10 @@ name and power limit, and last ``{"ok": true, "device": {...,
 "count": 4}}``; details to ``chiprun_out/chip_smoke_multi.json``.
 
 Every ``[kernel]`` line and ``kernels`` entry names the path that ran:
-``wgmma`` (flash attention's tensor-core kernel, bf16), ``mma-3xtf32`` (fc,
-conv, attention at head dims up to 128 and the SSD intra-chunk term on the
-tensor cores) or ``fma`` (the CUDA cores: pool, eltwise, attention at head
-dim 256).  ``ms`` and
+``wgmma`` (flash attention's tensor-core kernel, bf16), ``wgmma-3xtf32``
+(conv: TMA and wgmma in 3xTF32), ``mma-3xtf32`` (fc, attention at head dims
+up to 128 and the SSD intra-chunk term on the tensor cores with mma.sync)
+or ``fma`` (the CUDA cores: pool, eltwise, attention at head dim 256).  ``ms`` and
 ``library_ms`` are ``stream_ms``: 20 calls back to back between two CUDA
 events, the median of 5 such means.  A layer-tier kernel and its library
 call cycle through copies of their inputs (``cold_copies``) that together
@@ -292,10 +294,10 @@ one set, since in a prefill the operation just before writes q, k and v.
 of the redesigned kernels (fc, flash, conv, attention, eltwise, SSD) quote
 their time before the redesign, copied from PERF.md and not measured here.
 A bound is read at the rate of the path: bf16 on the tensor cores for
-``wgmma``; for ``mma-3xtf32`` the TF32 rate over 3, since every
-multiply-add is three TF32 products (hi*hi + hi*lo + lo*hi) that keep the
-float32 contract; the FP32 rate of the CUDA cores for ``fma``; bytes at
-the device-memory rate for all.
+``wgmma``; for ``wgmma-3xtf32`` and ``mma-3xtf32`` the TF32 rate over 3,
+since every multiply-add is three TF32 products (hi*hi + hi*lo + lo*hi)
+that keep the float32 contract; the FP32 rate of the CUDA cores for
+``fma``; bytes at the device-memory rate for all.
 
 Details go to ``chiprun_out/chip_smoke.json`` beside this script.
 """
@@ -331,7 +333,7 @@ PEAKS = {"PCIe": (51.2e12, 2.0e12, 756e12, 378e12),
 #: the path each kernel runs (flash: its serve path, bf16)
 #: (attention: at the kernels line's case, head dim 64; the path by head
 #: dim is ``lower/exec.py`` ``ATTN_PATHS``)
-PATHS = {"fc": "mma-3xtf32", "conv": "mma-3xtf32", "pool": "fma",
+PATHS = {"fc": "mma-3xtf32", "conv": "wgmma-3xtf32", "pool": "fma",
          "eltwise": "fma", "attention": "mma-3xtf32",
          "flash_attention": "wgmma", "ssd_intra_chunk": "mma-3xtf32"}
 #: the redesigned kernels' times before the redesign, per the kernels
@@ -339,7 +341,7 @@ PATHS = {"fc": "mma-3xtf32", "conv": "mma-3xtf32", "pool": "fma",
 #: H100 80GB HBM3, 700.00 W; fc and flash one call between two CUDA events,
 #: the others this script's method).  Logged beside this run's times, never
 #: put in the kernels line.
-EARLIER_MS = {"fc": 0.3468, "conv": 91.81,
+EARLIER_MS = {"fc": 0.3468, "conv": 32.70,
               "attention": 1.1872, "eltwise": 1.823,
               "ssd_intra_chunk": 14.25}
 #: the Zamba2 train step's peaks (GB) while the optimizer returned new
@@ -349,7 +351,8 @@ EARLIER_MS = {"fc": 0.3468, "conv": 91.81,
 EARLIER_PEAK_GB = {"train": 50.01, "dryrun-meta": 40.574, "dryrun": 40.577}
 #: the kernels whose ptxas registers and spills ``[ptxas]`` reports
 REDESIGNED = ("flash_wgmma_kernel", "fc_kernel", "fc_reduce_kernel",
-              "conv_kernel", "attention_mma_kernel", "eltwise_kernel",
+              "conv_kernel_wgmma", "conv_kernel_weights",
+              "attention_mma_kernel", "eltwise_kernel",
               "ssd_intra_kernel", "mt_sumsq_kernel", "mt_total_kernel",
               "mt_adamw_kernel")
 #: the eltwise case past one launch's operands (chained launches)
@@ -541,10 +544,9 @@ def calibration_phase(dev, out_dir: Path):
         1 for p in rec["pairs"] if p["kind"] == "attention"
         and lx.ATTN_PATHS[lx.attention_head_dim(head_dim[p["layer"]])]
         == "mma-3xtf32")
-    for kind, count in launches.items():
-        if count != (1 + CAL_ITERS) * pairs.get(kind, 0):
-            raise AssertionError(f"calibration: {kind} launched {count} "
-                                 f"times for {pairs.get(kind, 0)} pairs")
+    pairs["conv_weights"] = pairs["conv"]
+    check_launches("calibration", launches,
+                   {k: (1 + CAL_ITERS) * n for k, n in pairs.items()})
     worst = max(rec["pairs"], key=lambda p: p["rel_err"])
     log(f"[calibrate] {rec['n_pairs']} pairs ({dict(pairs)}) on {rec['hw']} "
         f"in {cal_s:.1f} s, launches {launches}, skipped {rec['skipped']}, "
@@ -565,16 +567,15 @@ def calibration_phase(dev, out_dir: Path):
     expect = collections.Counter()
     for net in nets:                         # solves are memoized
         nplan = lower_network(solve(net, hw), net, hw)
+        for kind, n in plan_launches(nplan).items():
+            expect[kind] += (1 + CAL_ITERS) * n
         for n in nplan.order:
             plan = nplan.plans[n]
-            expect[plan.kind] += 1 + CAL_ITERS
             if plan.kind == "attention" and lx.ATTN_PATHS[
                     lx.attention_head_dim(plan.layer.dim("K"))] \
                     == "mma-3xtf32":
                 expect["attention_mma"] += 1 + CAL_ITERS
-    if net_launches != {k: expect.get(k, 0) for k in net_launches}:
-        raise AssertionError(f"network calibration: launches {net_launches}"
-                             f", plans {dict(expect)}")
+    check_launches("network calibration", net_launches, expect)
     log(f"[calibrate] network sweep {[e['net'] for e in net_rec['nets']]} "
         f"in {net_s:.1f} s, launches {net_launches}, worst rel err "
         f"{max(e['max_rel_err'] for e in net_rec['nets']):.2e}, "
@@ -633,13 +634,8 @@ def fused_phase(dev, nplans, scheds, predicted, e2e):
         lx.reset_launch_counts()
         ex = run()
         launches = dict(lx.LAUNCHES)
-        expect = collections.Counter(nplan.plans[n].kind
-                                     for n in nplan.order)
-        for kind, count in launches.items():
-            if count != expect.get(kind, 0):
-                raise AssertionError(f"fused {net_name}: {kind} launched "
-                                     f"{count} times a replay, plan has "
-                                     f"{expect.get(kind, 0)}")
+        check_launches(f"fused {net_name} (a replay)", launches,
+                       plan_launches(nplan, LAYOUT_CONVERSIONS[net_name]))
         unequal = [n for n in nplan.order
                    if not torch.equal(ex.outputs[n], want[n])]
         if unequal:
@@ -779,7 +775,7 @@ def mesh_phase(dev, nplans, scheds, e2e, fused_res):
     # phase 3's per-layer run of the same tensors, kept on the host
     want = {n: v.cpu().numpy() for n, v in network_runner(
         nplan, inputs, device=dev)().outputs.items()}
-    expect = collections.Counter(nplan.plans[n].kind for n in nplan.order)
+    expect = plan_launches(nplan)
     mplan = plan_multinode(sched, graph, hw, NodeMesh(nodes=4))
     # a fresh executor's first request lands on the first node of
     # segment 0's part: the chaos request's victim
@@ -818,11 +814,7 @@ def mesh_phase(dev, nplans, scheds, e2e, fused_res):
             lx.reset_launch_counts()
             r = ex.run(ext, "count")
             launches = dict(lx.LAUNCHES)
-            for kind, count in launches.items():
-                if count != expect.get(kind, 0):
-                    raise AssertionError(
-                        f"mesh {tier}: {kind} launched {count} times a "
-                        f"request, plan has {expect.get(kind, 0)}")
+            check_launches(f"mesh {tier} (a request)", launches, expect)
             # the count request is the executor's first: the warm-up
             check(tier, "count request", r)
             host_bytes = sum(v.nbytes for v in r.outputs.values())
@@ -911,6 +903,33 @@ def plan_key(plan):
             tuple(sorted(L.meta.items())),
             tuple((a.dim, a.steps) for a in plan.grid),
             tuple(sorted(plan.block.items())))
+
+
+#: layout conversions a call of each network (``lower/netexec.py``):
+#: ResNet-50's images (folded for conv1); AlexNet's images and pool5's 6 x 6
+#: positions flattened before fc6
+LAYOUT_CONVERSIONS = {"resnet": 1, "alexnet": 2}
+
+
+def plan_launches(nplan, layout=None):
+    """The launches a call of ``nplan`` makes by kind (a conv's weight
+    layout beside each conv), and, where given, its layout conversions."""
+    expect = collections.Counter(nplan.plans[n].kind for n in nplan.order)
+    expect["conv_weights"] = expect["conv"]
+    if layout is not None:
+        expect["layout"] = layout
+    return expect
+
+
+def check_launches(what: str, launches: dict, expect) -> None:
+    """Every count of ``launches`` equals ``expect``'s (the layout
+    conversions only where ``expect`` names them)."""
+    for kind, count in launches.items():
+        if kind == "layout" and kind not in expect:
+            continue
+        if count != expect.get(kind, 0):
+            raise AssertionError(f"{what}: {kind} launched {count} times, "
+                                 f"expected {expect.get(kind, 0)}")
 
 
 def work(plan):
@@ -3853,7 +3872,7 @@ def main(argv=None) -> int:
     #: each path's rate of the kernels' operations (3xTF32: three TF32
     #: products a multiply-add)
     path_ops = {"fma": peak_ops, "wgmma": peak_bf16,
-                "mma-3xtf32": peak_tf32 / 3}
+                "mma-3xtf32": peak_tf32 / 3, "wgmma-3xtf32": peak_tf32 / 3}
     log(f"torch {torch.__version__} cuda {torch.version.cuda} | {name}")
     detail = {"device": name, "peaks": {"fp32_ops_s": peak_ops,
                                         "bytes_s": peak_bw,
@@ -4004,7 +4023,10 @@ def main(argv=None) -> int:
             rows.append(rel_err)
             continue
         copies = cold_copies(inputs)
-        ms = stream_ms([functools.partial(run[plan.kind], plan, c)
+        # the kernel's input layout (channels-last), made outside the
+        # calls timed
+        ms = stream_ms([functools.partial(run[plan.kind], plan,
+                                          lx.kernel_inputs(plan, c, dev))
                         for c in copies])
         lib_ms = stream_ms([functools.partial(library, plan, c)
                             for c in copies])
@@ -4013,6 +4035,8 @@ def main(argv=None) -> int:
         path = lx.ATTN_PATHS[lx.attention_head_dim(plan.layer.dim("K"))] \
             if plan.kind == "attention" else PATHS[plan.kind]
         row = {"plan": where, "kind": plan.kind, "path": path,
+               "window": f"{plan.layer.meta['R']}x{plan.layer.meta['S']}"
+               if plan.kind in ("conv", "pool") else None,
                "describe": plan.describe(), "resnet_uses": resnet_uses[k],
                "max_abs_err": abs_err, "max_rel_err": rel_err, "ms": ms,
                "plain_ms": plain_ms, "library_ms": lib_ms, "ops": ops,
@@ -4048,12 +4072,8 @@ def main(argv=None) -> int:
         lx.reset_launch_counts()
         ex = runner()
         launches = dict(lx.LAUNCHES)
-        expect = collections.Counter(nplan.plans[n].kind
-                                     for n in nplan.order)
-        for kind, count in launches.items():
-            if count != expect.get(kind, 0):
-                raise AssertionError(f"{net_name}: {kind} launched {count} "
-                                     f"times, plan has {expect.get(kind, 0)}")
+        check_launches(net_name, launches,
+                       plan_launches(nplan, LAYOUT_CONVERSIONS[net_name]))
         ver = compare_network(nplan, ex, inputs, tol=NETWORK_TOL)
         if not ver.ok:
             raise AssertionError(f"{net_name}: layer {ver.worst_layer} rel "
@@ -4169,6 +4189,15 @@ def main(argv=None) -> int:
                             for r in res),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "library_ms": per_forward("library_ms")})
+        if kind == "conv":                   # by window: 1x1, 3x3, 7x7
+            kernels[-1]["ms_by_window"] = {
+                w: sum(r["ms"] * r["resnet_uses"] for r in res
+                       if r["window"] == w)
+                for w in sorted({r["window"] for r in res})}
+            log(f"[kernel] conv a ResNet-50 b64 forward by window: "
+                f"{kernels[-1]['ms_by_window']} ms, bound "
+                f"{kernels[-1]['bound_ms']:.4f} ms, F.conv2d (TF32 off) "
+                f"{kernels[-1]['library_ms']:.4f} ms")
     zamba = next(r for r in rows if r["plan"] == distinct[zamba_key][0])
     cal_launches = detail["calibration"]["launches"]
     kernels.append({

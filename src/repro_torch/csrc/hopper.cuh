@@ -1,13 +1,14 @@
 // PTX wrappers for Hopper (sm_90a) that the tensor-core flash-attention
-// kernel (model_kernels.cu flash_wgmma_kernel) is built from, and the host
-// helper that describes a tensor to the Tensor Memory Accelerator.
+// kernel (model_kernels.cu flash_wgmma_kernel) and the conv kernel
+// (lower_kernels.cu conv_kernel_wgmma) are built from, and the host helpers
+// that describe a tensor to the Tensor Memory Accelerator.
 //
 // - mbarrier: init, arrive, arrive + expect_tx (a TMA load's byte count),
 //   and a parity wait.  The wait traps after 2^24 polls: a barrier that never
 //   completes is a bug in the kernel, and a trap reports it as a launch
 //   failure instead of hanging the card.
-// - TMA: 3-D tiled loads into shared memory that complete on an mbarrier,
-//   and 3-D tiled stores from shared memory (bulk group, commit, wait).
+// - TMA: 3-D and 4-D tiled loads into shared memory that complete on an
+//   mbarrier, and 3-D tiled stores from shared memory (bulk group, commit, wait).
 //   fence.proxy.async orders ordinary shared-memory stores before a TMA store
 //   reads them.
 // - wgmma: the 64-bit shared-memory matrix descriptor for the 128-byte
@@ -108,6 +109,25 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// Box at (c0, c1, c2, c3) of a 4-D `map` into `dst`; completes on `bar`.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Fetch `map` into the TMA unit's cache ahead of its first copy.
+__device__ __forceinline__ void tma_prefetch(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
 // `src` into the box at (c0, c1, c2) of `map`; rows outside the tensor are
 // not written.
 __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
@@ -163,6 +183,11 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Wait until at most N committed groups are pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // Keeps the compiler from moving reads or writes of accumulator registers
@@ -342,6 +367,27 @@ inline cudaError_t make_map_bf16_3d(CUtensorMap* map, const void* base,
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
                          const_cast<void*>(base), dims, strides, box, elem,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A float32 tensor of rank 4 (dims innermost first, `strides` in bytes of
+// dims 1..3) as a map with boxes of `box` elements traversed at `estr`
+// (TMA loads box[i] / estr[i] elements along dim i) and the 128-byte
+// swizzle: the box's inner extent is at most 32 floats.  Elements outside the
+// tensor read as zeros.
+inline cudaError_t make_map_f32_4d(CUtensorMap* map, const void* base,
+                                   const cuuint64_t (&dims)[4],
+                                   const cuuint64_t (&strides)[3],
+                                   const cuuint32_t (&box)[4],
+                                   const cuuint32_t (&estr)[4]) {
+  const EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
+                         const_cast<void*>(base), dims, strides, box, estr,
                          CU_TENSOR_MAP_INTERLEAVE_NONE,
                          CU_TENSOR_MAP_SWIZZLE_128B,
                          CU_TENSOR_MAP_L2_PROMOTION_L2_128B,

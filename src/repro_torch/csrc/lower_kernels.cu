@@ -9,17 +9,20 @@
 // kernels accumulate into an output block across revisits (attention: every
 // C tile is a step of the online softmax, whose state stays in registers).
 // fc splits C across blocks instead, and a second kernel adds the C tiles in
-// the plan's order.
+// the plan's order.  conv and pool read and write activations channels-last
+// ([N, X, Y, C]), the layout the network executor keeps between its kernels
+// (repro_torch/lower/netexec.py).
 //
 // All five take float32 and accumulate in float32.  fc, conv and attention
-// run their products on the tensor cores in 3xTF32 (tf32_mma.cuh): three
+// run their products on the tensor cores in 3xTF32 (tf32_mma.cuh; conv on
+// wgmma, fc and attention on mma.sync): three
 // TF32 products per multiply-add, which keeps the 1e-5 parity with the plain
 // versions that a single TF32 product (about three decimal digits) would
 // break.  Attention at head dim 256 keeps the FMA tile of online_softmax.cuh
 // on the CUDA cores (the tensor-core kernel's tiles would pass the shared
 // memory and registers a block has there).  pool and eltwise move bytes and
 // run on the CUDA cores.
-// Launch geometry (sub-tile sizes, warp layout, channel chunk, C split,
+// Launch geometry (sub-tile sizes, warp layout, wgmma orientation, C split,
 // shared memory, grid) is computed by the Python wrappers in
 // repro_torch/lower/exec.py and passed in an int64 parameter array; each
 // entry point returns cudaGetLastError().
@@ -253,332 +256,410 @@ __global__ void fc_reduce_kernel(const float* __restrict__ ws,
 }
 
 // ---------------------------------------------------------------------------
-// conv: O[N,K,XO,YO] = VALID conv of I[N,C,XI,YI] with W[K,C,R,S], stride
+// conv: O = VALID conv of I with W [K, C, R, S] at a stride, activations
+// channels-last: I [N, XI, YI, C] at a channel pitch cp >= C (a multiple of
+// 4), O [N, XO, YO, K]
 // Replaces src/repro/lower/exec.py _run_conv.  Bound: operations for every
 // layer of ResNet-50 and AlexNet, at the 3xTF32 rate (495 TFLOP/s TF32 / 3
-// products = 165 TFLOP/s on the H100 SXM); a 1x1 layer with few channels
-// comes near the bytes.  The earlier kernel ran FMA on the CUDA cores (67
-// TFLOP/s) in 4x4 register tiles and left most threads idle on the plans'
-// 1x1 spatial tiles and narrow K tiles.
-// Design: an implicit GEMM on mma.sync m16n8k8 in 3xTF32.  A block owns one
-// output sub-tile of one plan tile (conv_launch covers each plan tile
-// exactly once): M = its positions (tn images x tx rows x ty cols,
-// flattened), N = its tk output channels, and the reduction (c, r, s) over
-// the channels, C tile by C tile in plan order.  Four warps, laid out wm x wn
-// over the block tile (16 MT positions x 8 NT channels a warp; conv_launch
-// picks MT, NT and the layout from the plan tile, so a 16 x 128 tile runs
-// one warp row of four warp columns and a K = 8 tile four warp rows).
-// - Per channel chunk (cc channels, never straddling a plan C tile) the
-//   block stages the halo'd input window of its positions,
-//   [cc][tn][(tx-1)*stride+R][(ty-1)*stride+S] at a channel pitch of
-//   cpitch, and the chunk's W[k0:k0+tk, c0:c0+cc, :, :], which is already
-//   reduction-contiguous: the "col" B operand mma wants, [k][j] at pitch ldw
-//   (ldw = 4 mod 8: conflict-free B reads).  A 3-stage ring of cp.async
-//   copies (16 bytes for W where its rows are aligned, else 4; 4 for the
-//   window rows, which are not aligned in general) overlaps the next chunks'
-//   loads with this chunk's products; copies past the valid data zero-fill.
-// - No im2col buffer: the A fragment of position p and reduction index
-//   j = (c*R + r)*S + s is window[pbase[p] + off[j]], with pbase per thread
-//   in registers and off[j] = c*cpitch + r*winy + s in a shared table.  The
-//   chunk's reduction is padded to a multiple of 8 (jpad) with zero weights
-//   (conv1: C = 3 at 7x7 or 11x11); padded entries read channel 0 or a
-//   zero-filled channel, so they add exact zeros.
-// - Per chunk, hi*hi and the corrections accumulate on the tensor cores in
-//   separate registers from zero (at most 16 k-steps: a long chain of
-//   tensor-core accumulations loses low bits on every add and broke 1e-5 on
-//   r5b.b's 4608-deep reduction), then add into the C tile's sum in
-//   float32; when a plan C tile ends its sum is added to the output
-//   accumulator: the C tiles add in plan order, and two launches agree bit
-//   for bit.
+// products = 165 TFLOP/s on the H100 SXM).  Why channels-last: on [N, C, X,
+// Y] activations the plans' 1-column tiles make every window element a
+// 32-byte sector of its own, and TF32 wgmma, the only way to the tensor
+// cores' full rate, takes its operands K-major (the reduction axis
+// contiguous), which C is not in that layout.
+// Design: an implicit GEMM on wgmma m64nNk8 .tf32 in 3xTF32.  A plan tile
+// is cut into output sub-tiles (conv_launch covers each plan tile exactly
+// once), each a box of tn images x tx rows x ty cols of positions by tk
+// output channels; a block walks `group` sub-tiles of one plan tile in
+// turn, its ring running on from one to the next, so one sub-tile's stores
+// overlap the next one's loads.  The reduction walks the plan's C tiles in
+// plan order,
+// each as pieces of 32 channels (one 128-byte row) by the R x S taps; a
+// step is one (C tile, piece, tap).
+// - Channels-last makes a step's operands two K-major tiles that TMA copies
+//   whole: the positions' 32 channels at tap (r, s) are the box (32, ty, tx,
+//   tn) of the input at (c0, y0*sy + s, x0*stride + r, n0), traversed at
+//   the strides along x and y; the weights' are the box (32, 1, 1, rows) of
+//   the weights laid out [K, T, R*S, bcp] by conv_kernel_weights (T the C
+//   tiles; a tile's pieces start at its first channel rounded down to a
+//   multiple of 4, since a box starts on a 16-byte unit, and its row holds
+//   zeros around its channels).  Channels of a piece outside its C tile
+//   meet those zero weights (or TMA's zero fill past the tensor), so no
+//   step straddles a C tile; k8 steps past the tile's channels are
+//   skipped.
+// - An input of at most 4 channels in one C tile (the images) comes folded
+//   by its layout conversion (exec.py conv_input): each position's row of S
+//   taps as its channels, [N, XI, YO, 4 S] at the y stride, so the kernel
+//   runs it as R taps of 4 S channels (y stride 1, S = 1) instead of R*S
+//   steps of one k8 step each, 28 of every 32 channels zero.
+// - 3xTF32: lo*hi + hi*lo + hi*hi, three wgmma a k8 step.  conv_kernel_
+//   weights stores the weights split (hi = the leading 19 bits, lo = x -
+//   hi); the activations are split in shared memory when they arrive.
+// - Warp-specialised: a producer warpgroup, one thread of which issues the
+//   TMA copies into a ring of stages (full / ready / empty mbarriers), and
+//   three warps of which split each arrived activation tile in place (hi)
+//   and into a lo tile; one or two consumer warpgroups of 64 rows run the
+//   wgmma, each step's products issued while the step before runs.  The
+//   launch picks wgmma's 64-row M side: the positions where the plan tile
+//   holds 64 or more (two warpgroups share the weight tiles from 128), else
+//   the output channels, with the positions as N.
+// - Precision: the products of CONV_CHAIN steps (at most 8 k8 steps x 3)
+//   accumulate on the tensor cores from zero, then add into the float32
+//   output accumulator, in plan order: a long chain of tensor-core
+//   accumulations loses low bits on every add.  No atomics: two launches
+//   agree bit for bit.
+// - The accumulators go straight to O: a warp's store covers whole 32-byte
+//   sectors (8 channels of a position, or 8 bytes of each of 8 positions'
+//   runs); positions and channels past the sub-tile are dropped.
 // ---------------------------------------------------------------------------
 
-constexpr int CONV_THREADS = 128, CONV_STAGES = 3;
+constexpr int CONV_THREADS = 384;  // producer warpgroup + two consumers
+constexpr int CONV_SPLITTERS = 96; // producer warps 1-3
+constexpr int CONV_CHAIN = 2;      // steps a tensor-core sum spans
 // the most dynamic shared memory conv_launch asks for (the H100's 227 KB)
 constexpr int CONV_SMEM_MAX = 232448;
 
 struct ConvArgs {
-  int N, C, K, XI, YI, XO, YO, R, S, stride;
+  int N, C, K, XO, YO, R, S, stride, sy;  // sy: the y stride (1 folded)
   int bn, bc, bk, bx, by;          // plan block
-  int tn, tx, ty, tk, cc;          // CUDA sub-tile and channel chunk
+  int tn, tx, ty, tk;              // block sub-tile: position box, channels
   int sub_n, sub_k, sub_x, sub_y;  // sub-tiles per plan tile
-  int wm, wn;                      // warps along positions / channels
-  int jpad, ldw, cpitch, stage;    // chunk depth, W and window pitches,
-                                   // floats a stage
-  int spmax, vec;                  // window elements of one channel; W
-                                   // copies of 16 bytes
+  int pos_m, cw;                   // positions on the M side; consumer
+                                   // warpgroups
+  int xrows, wrows, stages;        // rows of a stage's activation and
+                                   // weight tiles; stages in the ring
+  int bcp;                         // row of a C tile's laid-out weights
+  int vec;                         // 8-byte output stores
+  int group, groups;               // sub-tiles a block walks; blocks a
+                                   // plan tile
 };
 
-// Channels [c0, c0 + nc) of plan C tile `q / cpt` (chunk `q % cpt`).
-__device__ __forceinline__ void conv_chunk(const ConvArgs& a, int cpt, int q,
-                                           int& c0, int& nc) {
-  const int ct = q / cpt;
-  c0 = ct * a.bc + (q - ct * cpt) * a.cc;
-  nc = min(a.cc, (ct + 1) * a.bc - c0);
+// Step q of a block: C tile t, piece j of 32 channels, tap rs.  A tile's
+// pieces start at its first channel rounded down to a multiple of 4
+// (TMA's boxes start on 16-byte units): sh channels early.
+__device__ __forceinline__ void conv_step(const ConvArgs& a, int q, int& t,
+                                          int& j, int& rs, int& sh) {
+  const int RS = a.R * a.S, pieces = (a.bcp + 31) / 32;
+  t = q / (pieces * RS);
+  const int rem = q - t * pieces * RS;
+  j = rem / RS;
+  rs = rem - j * RS;
+  sh = (t * a.bc) & 3;
 }
 
-// Stage one chunk: the weights W[k0 + k, c0 .. c0 + nc, :, :] as [k][j] at
-// pitch ldw (rows k >= ak and j >= nc*R*S zero), then the window of every
-// channel of the chunk at pitch cpitch (channels >= nc zero).  `ib` and
-// `wb` are the window's origin in I and the block's first weight row.  Each
-// thread walks its elements with running (row, column) indices: no
-// division in the loops.
-__device__ __forceinline__ void conv_stage(float* ws, const float* I,
-                                           const float* W, const float* ib,
-                                           const float* wb, const int* spo,
-                                           const ConvArgs& a, int bnw,
-                                           int ak, int sp, int c0, int nc,
-                                           int tid) {
-  const int RS = a.R * a.S, row = nc * RS;
-  const size_t plane_in = (size_t)a.XI * a.YI, wrow = (size_t)a.C * RS;
-  const float* wc = wb + (size_t)c0 * RS;
-  float* xs = ws + bnw * a.ldw;
-  const int w_cols = a.vec ? a.jpad / 4 : a.jpad;
-  const int w_dk = CONV_THREADS / w_cols, w_dj = CONV_THREADS % w_cols;
-  int k = tid / w_cols, j = tid % w_cols;
-  for (int idx = tid; idx < bnw * w_cols; idx += CONV_THREADS) {
-    if (a.vec) {
-      const int valid = k < ak ? max(0, min(4, row - 4 * j)) : 0;
-      cp_async16(ws + k * a.ldw + 4 * j,
-                 valid ? wc + (size_t)k * wrow + 4 * j : W, 4 * valid);
-    } else {
-      const bool ok = k < ak && j < row;
-      cp_async4(ws + k * a.ldw + j, ok ? wc + (size_t)k * wrow + j : W,
-                ok ? 4 : 0);
-    }
-    k += w_dk;
-    j += w_dj;
-    if (j >= w_cols) {
-      j -= w_cols;
-      ++k;
-    }
-  }
-  const int x_dc = CONV_THREADS / sp, x_ds = CONV_THREADS % sp;
-  int c = tid / sp, e = tid % sp;
-  for (int idx = tid; idx < a.cc * sp; idx += CONV_THREADS) {
-    const bool ok = c < nc;  // channels past a ragged chunk: zeros
-    cp_async4(xs + c * a.cpitch + e,
-              ok ? ib + (size_t)(c0 + c) * plane_in + spo[e] : I, ok ? 4 : 0);
-    c += x_dc;
-    e += x_ds;
-    if (e >= sp) {
-      e -= sp;
-      ++c;
-    }
-  }
+// K-major, 128-byte swizzled tile at `tile`: the descriptor of k8 step kk.
+__device__ __forceinline__ uint64_t conv_desc(uint32_t tile, int kk) {
+  return desc_sw128(tile + kk * 32, 16, 1024);
 }
 
-// Step s of a block's ring: its chunk s into stage s % CONV_STAGES.
-__device__ __forceinline__ void conv_stage_step(
-    float* sm, const float* I, const float* W, const float* ib,
-    const float* wb, const int* spo, const ConvArgs& a, int bnw, int ak,
-    int sp, int cpt, int s, int tid) {
-  int c0, nc;
-  conv_chunk(a, cpt, s, c0, nc);
-  conv_stage(sm + (s % CONV_STAGES) * a.stage, I, W, ib, wb, spo, a, bnw,
-             ak, sp, c0, nc, tid);
-}
-
-template <int MT, int NT>
-__global__ void __launch_bounds__(CONV_THREADS, 1)
-conv_kernel(const float* __restrict__ I, const float* __restrict__ W,
-            float* __restrict__ O, ConvArgs a) {
-  constexpr int BN_W = 8 * NT;  // channels a warp
-  extern __shared__ float4 conv_smem4[];
-  float* sm = reinterpret_cast<float*>(conv_smem4);
-  int* off = reinterpret_cast<int*>(sm + CONV_STAGES * a.stage);  // [jpad]
-  int* spo = off + a.jpad;  // [spmax]: window element -> input offset
-
-  const int ny = (a.YO / a.by) * a.sub_y;
+// Sub-tile u of this block's plan tile: its origin and extent along N, K,
+// X and Y (K sub-tiles fastest, then Y, X and N: exec.py block_subtiles).
+struct ConvTile {
   int n0, an, k0, ak, x0, ax, y0, ay;
-  sub_tile(blockIdx.x / ny, a.sub_x, a.bx, a.tx, x0, ax);
-  sub_tile(blockIdx.x % ny, a.sub_y, a.by, a.ty, y0, ay);
-  sub_tile(blockIdx.y, a.sub_k, a.bk, a.tk, k0, ak);
-  sub_tile(blockIdx.z, a.sub_n, a.bn, a.tn, n0, an);
-  const int RS = a.R * a.S, st = a.stride;
-  const int winx = (ax - 1) * st + a.R, winy = (ay - 1) * st + a.S;
-  const int sp = an * winx * winy;
-  const int P = an * ax * ay;
-  const int bnw = a.wn * BN_W;  // W rows staged (the block tile's width)
-  const size_t plane_in = (size_t)a.XI * a.YI;
+};
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t4 = lane % 4;
-  const int wrow = (warp / a.wn) * 16 * MT, wcol = (warp % a.wn) * BN_W;
-
-  for (int j = tid; j < a.jpad; j += CONV_THREADS) {
-    const int c = j / RS, rs = j - c * RS, r = rs / a.S;
-    off[j] = c < a.cc ? c * a.cpitch + r * winy + (rs - r * a.S) : 0;
-  }
-  for (int s = tid; s < sp; s += CONV_THREADS) {
-    const int n = s / (winx * winy), rem = s - n * winx * winy;
-    const int i = rem / winy;
-    spo[s] = (int)((size_t)n * a.C * plane_in + (size_t)i * a.YI +
-                   (rem - i * winy));
-  }
-  __syncthreads();  // the tables are read by the staging below
-
-  const float* ib = I + (size_t)n0 * a.C * plane_in +
-                    (size_t)x0 * st * a.YI + (size_t)y0 * st;
-  const float* wb = W + (size_t)k0 * a.C * RS;
-  const int cpt = (a.bc + a.cc - 1) / a.cc;  // chunks per plan C tile
-  const int steps = (a.C / a.bc) * cpt;
-
-  // window offset of each of this thread's A rows (g and g + 8 of each
-  // 16-row tile); rows past the sub-tile read element 0 and are not stored
-  int pb[MT][2];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int p = wrow + mt * 16 + g + 8 * h;
-      pb[mt][h] = 0;
-      if (p < P) {
-        const int pn = p / (ax * ay), rem = p - pn * ax * ay;
-        const int px = rem / ay, py = rem - px * ay;
-        pb[mt][h] = (pn * winx + px * st) * winy + py * st;
-      }
-    }
-  const bool active = wrow < P && wcol < ak;
-
-  // acc: the output, C tile by C tile; tile: this C tile's partial sum
-  float acc[MT][NT][4], tile[MT][NT][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = tile[mt][nt][e] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < CONV_STAGES - 1; ++s) {
-    if (s < steps)
-      conv_stage_step(sm, I, W, ib, wb, spo, a, bnw, ak, sp, cpt, s, tid);
-    cp_async_commit();
-  }
-  for (int step = 0; step < steps; ++step) {
-    cp_async_wait<CONV_STAGES - 2>();
-    __syncthreads();  // this chunk is in; the one before it is consumed
-    if (step + CONV_STAGES - 1 < steps)
-      conv_stage_step(sm, I, W, ib, wb, spo, a, bnw, ak, sp, cpt,
-                      step + CONV_STAGES - 1, tid);
-    cp_async_commit();
-
-    int c0, nc;
-    conv_chunk(a, cpt, step, c0, nc);
-    const float* ws = sm + (step % CONV_STAGES) * a.stage;
-    const float* xs = ws + bnw * a.ldw;
-    if (active) {
-      // the chunk's products accumulate on the tensor cores from zero (at
-      // most 16 k-steps), then add into the tile's sum in float32: a long
-      // chain of tensor-core accumulations loses low bits on every add
-      float prt[MT][NT][4], cor[MT][NT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) prt[mt][nt][e] = cor[mt][nt][e] = 0.f;
-      const int depth = (nc * RS + 7) & ~7;
-#pragma unroll 2
-      for (int kk = 0; kk < depth; kk += 8) {
-        const int o0 = off[kk + t4], o1 = off[kk + t4 + 4];
-        uint32_t ah[MT][4], al[MT][4];
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          split_tf32(xs[pb[mt][0] + o0], ah[mt][0], al[mt][0]);
-          split_tf32(xs[pb[mt][1] + o0], ah[mt][1], al[mt][1]);
-          split_tf32(xs[pb[mt][0] + o1], ah[mt][2], al[mt][2]);
-          split_tf32(xs[pb[mt][1] + o1], ah[mt][3], al[mt][3]);
-        }
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const float* br = ws + (wcol + nt * 8 + g) * a.ldw + kk + t4;
-          uint32_t bh[2], bl[2];
-          split_tf32(br[0], bh[0], bl[0]);
-          split_tf32(br[4], bh[1], bl[1]);
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt)
-            mma_3xtf32(prt[mt][nt], cor[mt][nt], ah[mt], al[mt], bh, bl);
-        }
-      }
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            tile[mt][nt][e] += prt[mt][nt][e] + cor[mt][nt][e];
-    }
-    if (step % cpt == cpt - 1) {  // a plan C tile is done: add it in order
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            acc[mt][nt][e] += tile[mt][nt][e];
-            tile[mt][nt][e] = 0.f;
-          }
-    }
-  }
-
-  if (!active) return;
-  const size_t hw = (size_t)a.XO * a.YO;
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int p = wrow + mt * 16 + g + 8 * h;
-      if (p >= P) continue;
-      const int pn = p / (ax * ay), rem = p - pn * ax * ay;
-      const int px = rem / ay, py = rem - px * ay;
-      float* dst = O + (size_t)(n0 + pn) * a.K * hw + (size_t)k0 * hw +
-                   (size_t)(x0 + px) * a.YO + y0 + py;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int k = wcol + nt * 8 + 2 * t4 + e;
-          if (k < ak) dst[(size_t)k * hw] = acc[mt][nt][2 * h + e];
-        }
-    }
+__device__ __forceinline__ ConvTile conv_subtile(const ConvArgs& a, int u) {
+  const int py = a.YO / a.by;
+  const int pk = blockIdx.y, pn = blockIdx.z / a.groups;
+  const int px = blockIdx.x / py, pyi = blockIdx.x - px * py;
+  ConvTile s;
+  const int sk = u % a.sub_k;
+  u /= a.sub_k;
+  const int sy = u % a.sub_y;
+  u /= a.sub_y;
+  const int sx = u % a.sub_x, sn = u / a.sub_x;
+  sub_tile(pn * a.sub_n + sn, a.sub_n, a.bn, a.tn, s.n0, s.an);
+  sub_tile(pk * a.sub_k + sk, a.sub_k, a.bk, a.tk, s.k0, s.ak);
+  sub_tile(px * a.sub_x + sx, a.sub_x, a.bx, a.tx, s.x0, s.ax);
+  sub_tile(pyi * a.sub_y + sy, a.sub_y, a.by, a.ty, s.y0, s.ay);
+  return s;
 }
 
-template <int MT, int NT>
-cudaError_t launch_conv(dim3 grid, size_t smem, cudaStream_t s,
-                        const float* I, const float* W, float* O,
-                        const ConvArgs& a) {
+template <int NW>
+__global__ void __launch_bounds__(CONV_THREADS, 1)
+conv_kernel_wgmma(const __grid_constant__ CUtensorMap tx,
+                  const __grid_constant__ CUtensorMap thi,
+                  const __grid_constant__ CUtensorMap tlo,
+                  float* __restrict__ O, ConvArgs a) {
+  extern __shared__ uint8_t conv_smem[];
+  uint8_t* ring = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(conv_smem) + 1023) & ~uintptr_t(1023));
+  const uint32_t stage_bytes = 256u * (a.xrows + a.wrows);
+  const uint32_t xlo_off = 128u * a.xrows, whi_off = 256u * a.xrows;
+  const uint32_t wlo_off = whi_off + 128u * a.wrows;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + a.stages * stage_bytes);
+  uint64_t* ready = full + a.stages;
+  uint64_t* empty = ready + a.stages;
+
+  // this block's sub-tiles [u0, u1) of its plan tile, steps each
+  const int subs = a.sub_n * a.sub_k * a.sub_x * a.sub_y;
+  const int u0 = (blockIdx.z % a.groups) * a.group;
+  const int u1 = min(subs, u0 + a.group);
+  const int steps = (a.C / a.bc) * ((a.bcp + 31) / 32) * a.R * a.S;
+  const int consumers = 128 * a.cw;
+
+  if (threadIdx.x == 0) {
+    tma_prefetch(&tx);
+    tma_prefetch(&thi);
+    tma_prefetch(&tlo);
+    for (int s = 0; s < a.stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&ready[s], CONV_SPLITTERS);
+      mbar_init(&empty[s], consumers);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= consumers) {
+    // ---- producer warpgroup ----
+    setmaxnreg_dec<40>();
+    const int pt = threadIdx.x - consumers;
+    if (pt == 0) {
+      // the loader: one thread issues every TMA copy
+      const uint32_t bytes =
+          128u * (a.tn * a.tx * a.ty) + 2u * 128u * a.wrows;
+      int stage = 0, phase = 0;
+      for (int u = u0; u < u1; ++u) {
+        const ConvTile s0 = conv_subtile(a, u);
+        for (int q = 0; q < steps; ++q) {
+          int t, j, rs, sh;
+          conv_step(a, q, t, j, rs, sh);
+          const int r = rs / a.S, s = rs - r * a.S;
+          mbar_wait(&empty[stage], phase ^ 1);
+          uint8_t* base = ring + stage * stage_bytes;
+          mbar_arrive_expect_tx(&full[stage], bytes);
+          tma_load_4d(base, &tx, &full[stage], t * a.bc - sh + 32 * j,
+                      s0.y0 * a.sy + s, s0.x0 * a.stride + r, s0.n0);
+          tma_load_4d(base + whi_off, &thi, &full[stage], 32 * j, rs, t,
+                      s0.k0);
+          tma_load_4d(base + wlo_off, &tlo, &full[stage], 32 * j, rs, t,
+                      s0.k0);
+          if (++stage == a.stages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    } else if (pt >= 32) {
+      // the splitters: each arrived activation tile -> hi in place, lo
+      const int sid = pt - 32, n4 = a.xrows * 8;
+      int stage = 0, phase = 0;
+      for (int q = 0; q < (u1 - u0) * steps; ++q) {
+        mbar_wait(&full[stage], phase);
+        float4* xh = reinterpret_cast<float4*>(ring + stage * stage_bytes);
+        float4* xl = reinterpret_cast<float4*>(ring + stage * stage_bytes +
+                                               xlo_off);
+#pragma unroll 4
+        for (int i = sid; i < n4; i += CONV_SPLITTERS) {
+          float4 hi, lo;
+          split_tf32_4(xh[i], hi, lo);
+          xh[i] = hi;
+          xl[i] = lo;
+        }
+        fence_proxy_async();  // the wgmma reads them through the async proxy
+        mbar_arrive(&ready[stage]);
+        if (++stage == a.stages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroups ----
+  setmaxnreg_inc<232>();
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32, txy = a.tx * a.ty;
+  const int box = a.tn * txy;
+  const uint32_t ring_u = smem_u32(ring);
+  int stage = 0, phase = 0;
+  for (int u = u0; u < u1; ++u) {
+    const ConvTile s0 = conv_subtile(a, u);
+    float acc[NW / 2], d[NW / 2];
+#pragma unroll
+    for (int i = 0; i < NW / 2; ++i) acc[i] = 0.f;
+    bool fresh = true;  // d holds no product of this chain yet
+    int held = -1;      // a stage the running wgmma still reads
+    for (int q = 0; q < steps; ++q) {
+      int t, j, rs, sh;
+      conv_step(a, q, t, j, rs, sh);
+      // k8 steps that hold channels of the tile (none: it adds nothing)
+      const int ks = (max(0, min(32, sh + a.bc - 32 * j)) + 7) / 8;
+      const uint32_t base = ring_u + stage * stage_bytes;
+      // A: this warpgroup's 64 rows of the M side; B: the N side
+      uint32_t ah, al, bh, bl;
+      if (a.pos_m) {
+        ah = base + wg * 64 * 128;
+        al = base + xlo_off + wg * 64 * 128;
+        bh = base + whi_off;
+        bl = base + wlo_off;
+      } else {
+        ah = base + whi_off + wg * 64 * 128;
+        al = base + wlo_off + wg * 64 * 128;
+        bh = base;
+        bl = base + xlo_off;
+      }
+      mbar_wait(&ready[stage], phase);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        if (kk < ks) {
+          wgmma_tf32<NW>(d, conv_desc(al, kk), conv_desc(bh, kk), !fresh);
+          wgmma_tf32<NW>(d, conv_desc(ah, kk), conv_desc(bl, kk), 1);
+          wgmma_tf32<NW>(d, conv_desc(ah, kk), conv_desc(bh, kk), 1);
+          fresh = false;
+        }
+      }
+      wgmma_commit();
+      if (q + 1 == steps || (q + 1) % CONV_CHAIN == 0) {
+        // the chain ends: its sum joins the accumulator in float32
+        wgmma_wait<0>();
+        fence_regs(d);
+        if (held >= 0) mbar_arrive(&empty[held]);
+        mbar_arrive(&empty[stage]);
+        held = -1;
+        if (!fresh) {
+#pragma unroll
+          for (int i = 0; i < NW / 2; ++i) acc[i] += d[i];
+        }
+        fresh = true;
+      } else {
+        // this step's products run on; the step before is done with its
+        // stage
+        wgmma_wait<1>();
+        if (held >= 0) mbar_arrive(&empty[held]);
+        held = stage;
+      }
+      if (++stage == a.stages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+
+    // ---- the result: straight from the accumulators to O, while the
+    // loader fills the ring for the next sub-tile ----
+    // accumulator i of a thread: M row 16 warp + lane / 4 + 8 ((i >> 1) &
+    // 1), N column 8 (i >> 2) + 2 (lane & 3) + (i & 1)
+    if (a.pos_m) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int p = wg * 64 + 16 * warp + lane / 4 + 8 * h;
+        const int pn = p / txy, px = (p - pn * txy) / a.ty, py = p % a.ty;
+        if (p >= box || pn >= s0.an || px >= s0.ax || py >= s0.ay) continue;
+        float* dst = O + (((size_t)(s0.n0 + pn) * a.XO + s0.x0 + px) * a.YO +
+                          s0.y0 + py) * a.K + s0.k0;
+#pragma unroll
+        for (int g = 0; g < NW / 8; ++g) {
+          const int c = 8 * g + 2 * (lane & 3);
+          const float v0 = acc[4 * g + 2 * h], v1 = acc[4 * g + 2 * h + 1];
+          if (a.vec && c + 1 < s0.ak) {
+            *reinterpret_cast<float2*>(dst + c) = make_float2(v0, v1);
+          } else {
+            if (c < s0.ak) dst[c] = v0;
+            if (c + 1 < s0.ak) dst[c + 1] = v1;
+          }
+        }
+      }
+    } else {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = wg * 64 + 16 * warp + lane / 4 + 8 * h;
+        if (c >= s0.ak) continue;
+#pragma unroll
+        for (int i = 0; i < NW / 4; ++i) {
+          const int p = 8 * (i >> 1) + 2 * (lane & 3) + (i & 1);
+          const int pn = p / txy, px = (p - pn * txy) / a.ty, py = p % a.ty;
+          if (p >= box || pn >= s0.an || px >= s0.ax || py >= s0.ay)
+            continue;
+          O[(((size_t)(s0.n0 + pn) * a.XO + s0.x0 + px) * a.YO + s0.y0 +
+             py) * a.K + s0.k0 + c] = acc[4 * (i >> 1) + 2 * h + (i & 1)];
+        }
+      }
+    }
+  }
+}
+
+template <int NW>
+cudaError_t launch_conv(const CUtensorMap& tx, const CUtensorMap& thi,
+                        const CUtensorMap& tlo, float* O, const ConvArgs& a,
+                        dim3 grid, size_t smem, cudaStream_t s) {
   static bool smem_set = false;
   if (smem > (size_t)CONV_SMEM_MAX) return cudaErrorInvalidValue;
   // opt in once to the most conv_launch asks for, whatever this call needs
-  cudaError_t err = allow_smem(conv_kernel<MT, NT>, CONV_SMEM_MAX, smem_set);
+  cudaError_t err =
+      allow_smem(conv_kernel_wgmma<NW>, CONV_SMEM_MAX, smem_set);
   if (err != cudaSuccess) return err;
-  conv_kernel<MT, NT><<<grid, CONV_THREADS, smem, s>>>(I, W, O, a);
+  conv_kernel_wgmma<NW><<<grid, 128 * (a.cw + 1), smem, s>>>(tx, thi, tlo, O,
+                                                            a);
   return cudaGetLastError();
 }
 
+// The weights for conv_kernel_wgmma: W [K, C, R*S] -> hi and lo, each
+// [K, T, RS, bcp], C tile t's channels at [sh, sh + bc) (sh = t*bc mod 4,
+// where the tile's pieces start) and zeros around them; for a folded input
+// (fs = S > 0: RS = R, one C tile) tap r's row holds W[k, c, r, s] at
+// 4 s + c.  Runs once a conv call, so a weight written between calls is
+// always seen.  Bound: bytes (W read once, hi and lo written once).
+struct ConvWeightArgs {
+  int K, C, RS, T, bc, bcp, fs;
+};
+
+__global__ void conv_kernel_weights(const float* __restrict__ W,
+                                    float* __restrict__ hi,
+                                    float* __restrict__ lo,
+                                    ConvWeightArgs a) {
+  const size_t total = (size_t)a.K * a.T * a.RS * a.bcp;
+  for (size_t o = (size_t)blockIdx.x * blockDim.x + threadIdx.x; o < total;
+       o += (size_t)gridDim.x * blockDim.x) {
+    const int cc = o % a.bcp;
+    const size_t row = o / a.bcp;
+    const int rs = row % a.RS;
+    const size_t kt = row / a.RS;
+    const int t = kt % a.T;
+    const size_t k = kt / a.T;
+    float v = 0.f;
+    if (a.fs > 0) {
+      const int s = cc / 4, c = cc % 4;
+      if (c < a.C && s < a.fs) v = W[((k * a.C + c) * a.RS + rs) * a.fs + s];
+    } else {
+      const int c = cc - ((t * a.bc) & 3);
+      if (c >= 0 && c < a.bc)
+        v = W[(k * a.C + (size_t)t * a.bc + c) * a.RS + rs];
+    }
+    const float h = __uint_as_float(__float_as_uint(v) & 0xffffe000u);
+    hi[o] = h;
+    lo[o] = v - h;
+  }
+}
+
 // ---------------------------------------------------------------------------
-// pool: max over an R x S window with a stride, from -1e30
+// pool: max over an R x S window with a stride, from -1e30, channels-last
+// (I [N, XI, YI, C] at a channel pitch cp, O [N, XO, YO, C])
 // Replaces src/repro/lower/exec.py _run_pool.  Bound: bytes.  Design: one
-// thread per output element; neighbouring threads read neighbouring columns.
+// thread per output element, neighbouring threads on neighbouring channels,
+// so every window row a warp reads is one run of channels.
 // ---------------------------------------------------------------------------
 
 struct PoolArgs {
-  int N, C, XI, YI, XO, YO, R, S, stride;
+  int N, C, XI, YI, XO, YO, R, S, stride, cp;
 };
 
 __global__ void pool_kernel(const float* __restrict__ I,
                             float* __restrict__ O, PoolArgs a) {
-  const size_t total = (size_t)a.N * a.C * a.XO * a.YO;
+  const size_t total = (size_t)a.N * a.XO * a.YO * a.C;
   for (size_t o = (size_t)blockIdx.x * blockDim.x + threadIdx.x; o < total;
        o += (size_t)gridDim.x * blockDim.x) {
-    const int y = o % a.YO, x = (o / a.YO) % a.XO;
-    const size_t nc = o / ((size_t)a.XO * a.YO);
-    const float* in = I + nc * a.XI * a.YI +
-                      (size_t)x * a.stride * a.YI + (size_t)y * a.stride;
+    const int c = o % a.C;
+    const size_t pos = o / a.C;
+    const int y = pos % a.YO, x = (pos / a.YO) % a.XO;
+    const size_t n = pos / ((size_t)a.XO * a.YO);
+    const float* in = I + ((n * a.XI + (size_t)x * a.stride) * a.YI +
+                           (size_t)y * a.stride) * a.cp + c;
     float m = -1e30f;
     for (int r = 0; r < a.R; ++r)
-      for (int s = 0; s < a.S; ++s) m = fmaxf(m, in[r * a.YI + s]);
+      for (int s = 0; s < a.S; ++s)
+        m = fmaxf(m, in[((size_t)r * a.YI + s) * a.cp]);
     O[o] = m;
   }
 }
@@ -1036,40 +1117,79 @@ extern "C" int kapla_fc(const float* I, const float* W, float* O, float* ws,
   return (int)cudaGetLastError();
 }
 
-// p: ConvArgs (32 values), then the grid (x, y, z), the dynamic shared
-// memory in bytes, and the warp tile (MT, NT)
-extern "C" int kapla_conv(const float* I, const float* W, float* O,
-                          const long long* p, void* stream) {
+// p: ConvArgs (31 values), then the input's XI, YI and channel pitch cp,
+// the weights' T, the grid (x, y, z), the dynamic shared memory in bytes
+// and the wgmma width NW; Whi and Wlo from kapla_conv_weights
+extern "C" int kapla_conv(const float* I, const float* Whi, const float* Wlo,
+                          float* O, const long long* p, void* stream) {
   constexpr int NA = sizeof(ConvArgs) / sizeof(int);
-  static_assert(NA == 32, "ConvArgs layout");
+  static_assert(NA == 31, "ConvArgs layout");
   int v[NA];
   for (int i = 0; i < NA; ++i) v[i] = (int)p[i];
   ConvArgs a;
   memcpy(&a, v, sizeof(a));
-  const dim3 grid((unsigned)p[NA], (unsigned)p[NA + 1], (unsigned)p[NA + 2]);
-  const size_t smem = (size_t)p[NA + 3];
-  const int mt = (int)p[NA + 4], nt = (int)p[NA + 5];
-  if (a.wm * a.wn * 32 != CONV_THREADS || a.tk > a.wn * 8 * nt ||
-      a.tn * a.tx * a.ty > a.wm * 16 * mt || a.jpad % 8 != 0)
+  const long long XI = p[NA], YI = p[NA + 1], cp = p[NA + 2];
+  const long long T = p[NA + 3], bcp = a.bcp;
+  const dim3 grid((unsigned)p[NA + 4], (unsigned)p[NA + 5],
+                  (unsigned)p[NA + 6]);
+  const size_t smem = (size_t)p[NA + 7];
+  const int nw = (int)p[NA + 8];
+  const int st = a.stride, box = a.tn * a.tx * a.ty;
+  const int mrows = 64 * a.cw;
+  if (a.cw < 1 || a.cw > 2 || cp % 4 || bcp % 4 || a.stages < 2 ||
+      a.xrows != (a.pos_m ? mrows : nw) || a.wrows != (a.pos_m ? nw : mrows) ||
+      box > a.xrows || a.tk > (a.pos_m ? nw : mrows))
     return (int)cudaErrorInvalidValue;
+  CUtensorMap tx, thi, tlo;
+  const cuuint64_t xdims[4] = {(cuuint64_t)cp, (cuuint64_t)YI,
+                               (cuuint64_t)XI, (cuuint64_t)a.N};
+  const cuuint64_t xstr[3] = {(cuuint64_t)cp * 4, (cuuint64_t)(YI * cp * 4),
+                              (cuuint64_t)(XI * YI * cp * 4)};
+  const cuuint32_t xbox[4] = {32, (cuuint32_t)(a.ty * a.sy),
+                              (cuuint32_t)(a.tx * st), (cuuint32_t)a.tn};
+  const cuuint32_t xest[4] = {1, (cuuint32_t)a.sy, (cuuint32_t)st, 1};
+  const cuuint64_t wdims[4] = {(cuuint64_t)bcp, (cuuint64_t)(a.R * a.S),
+                               (cuuint64_t)T, (cuuint64_t)a.K};
+  const cuuint64_t wstr[3] = {(cuuint64_t)bcp * 4,
+                              (cuuint64_t)(a.R * a.S * bcp * 4),
+                              (cuuint64_t)(T * a.R * a.S * bcp * 4)};
+  const cuuint32_t wbox[4] = {32, 1, 1, (cuuint32_t)a.wrows};
+  const cuuint32_t west[4] = {1, 1, 1, 1};
+  cudaError_t err;
+  if ((err = make_map_f32_4d(&tx, I, xdims, xstr, xbox, xest)) ||
+      (err = make_map_f32_4d(&thi, Whi, wdims, wstr, wbox, west)) ||
+      (err = make_map_f32_4d(&tlo, Wlo, wdims, wstr, wbox, west)))
+    return (int)err;
   const cudaStream_t s = (cudaStream_t)stream;
-  switch (mt * 10 + nt) {
-    case 11: return (int)launch_conv<1, 1>(grid, smem, s, I, W, O, a);
-    case 12: return (int)launch_conv<1, 2>(grid, smem, s, I, W, O, a);
-    case 13: return (int)launch_conv<1, 3>(grid, smem, s, I, W, O, a);
-    case 14: return (int)launch_conv<1, 4>(grid, smem, s, I, W, O, a);
-    case 21: return (int)launch_conv<2, 1>(grid, smem, s, I, W, O, a);
-    case 22: return (int)launch_conv<2, 2>(grid, smem, s, I, W, O, a);
-    case 23: return (int)launch_conv<2, 3>(grid, smem, s, I, W, O, a);
-    case 24: return (int)launch_conv<2, 4>(grid, smem, s, I, W, O, a);
+  switch (nw) {
+    case 8: return (int)launch_conv<8>(tx, thi, tlo, O, a, grid, smem, s);
+    case 16: return (int)launch_conv<16>(tx, thi, tlo, O, a, grid, smem, s);
+    case 24: return (int)launch_conv<24>(tx, thi, tlo, O, a, grid, smem, s);
+    case 32: return (int)launch_conv<32>(tx, thi, tlo, O, a, grid, smem, s);
+    case 48: return (int)launch_conv<48>(tx, thi, tlo, O, a, grid, smem, s);
+    case 64: return (int)launch_conv<64>(tx, thi, tlo, O, a, grid, smem, s);
+    case 96: return (int)launch_conv<96>(tx, thi, tlo, O, a, grid, smem, s);
+    case 128: return (int)launch_conv<128>(tx, thi, tlo, O, a, grid, smem, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
+// p: ConvWeightArgs (K, C, RS, T, bc, bcp, fs); hi and lo [K, T, RS, bcp]
+extern "C" int kapla_conv_weights(const float* W, float* hi, float* lo,
+                                  const long long* p, void* stream) {
+  ConvWeightArgs a{(int)p[0], (int)p[1], (int)p[2], (int)p[3], (int)p[4],
+                   (int)p[5], (int)p[6]};
+  const size_t total = (size_t)a.K * a.T * a.RS * a.bcp;
+  conv_kernel_weights<<<grid_1d(total, 256), 256, 0, (cudaStream_t)stream>>>(
+      W, hi, lo, a);
+  return (int)cudaGetLastError();
+}
+
+// p: PoolArgs (N, C, XI, YI, XO, YO, R, S, stride, cp)
 extern "C" int kapla_pool(const float* I, float* O, const long long* p,
                           void* stream) {
   PoolArgs a{(int)p[0], (int)p[1], (int)p[2], (int)p[3], (int)p[4],
-             (int)p[5], (int)p[6], (int)p[7], (int)p[8]};
+             (int)p[5], (int)p[6], (int)p[7], (int)p[8], (int)p[9]};
   const size_t total = (size_t)a.N * a.C * a.XO * a.YO;
   pool_kernel<<<grid_1d(total, 256), 256, 0, (cudaStream_t)stream>>>(I, O,
                                                                        a);

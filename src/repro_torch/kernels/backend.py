@@ -55,7 +55,8 @@ MODEL_SOURCE = CSRC / "model_kernels.cu"
 #: C entry points of each source and their argument counts; every argument
 #: is a pointer (device buffers, the host parameter arrays, the stream)
 ENTRY_POINTS = {
-    SOURCE.name: {"kapla_fc": 6, "kapla_conv": 5, "kapla_pool": 4,
+    SOURCE.name: {"kapla_fc": 6, "kapla_conv": 6, "kapla_conv_weights": 5,
+                  "kapla_pool": 4,
                   "kapla_eltwise": 4, "kapla_attention": 7},
     MODEL_SOURCE.name: {"kapla_flash_attention": 8,
                         "kapla_ssd_intra_chunk": 9, "kapla_mt_sumsq": 3,

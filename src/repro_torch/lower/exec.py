@@ -18,6 +18,12 @@ does: the port's counterpart of interpret mode.  A wrapper takes the plain
 version only for tensors on the CPU; for CUDA tensors it launches the kernel
 or raises.  ``LAUNCHES`` counts kernel launches per family; a launch
 captured into a CUDA graph (``fuse.py``) counts at each replay.
+
+Every tensor keeps the reference's shape ([N, C, X, Y] for activations).
+conv and pool read and write channels-last memory (``to_channels_last``),
+which the network executor keeps between kernels; their wrappers take
+row-major inputs too and convert them, and ``LAUNCHES["layout"]`` counts
+the conversions.
 """
 from __future__ import annotations
 
@@ -37,9 +43,13 @@ from .plan import KernelPlan
 
 #: kernel launches per family since the last ``reset_launch_counts()``
 #: (``attention`` counts both attention paths, ``attention_mma`` the
-#: tensor-core one)
-LAUNCHES: Dict[str, int] = {"fc": 0, "conv": 0, "pool": 0, "eltwise": 0,
-                            "attention": 0, "attention_mma": 0}
+#: tensor-core one; ``conv`` counts ``conv_kernel_wgmma``, ``conv_weights``
+#: the weight layout before it), and ``layout``: the activations copied
+#: between row-major [N, C, X, Y] and channels-last memory
+#: (``to_channels_last``, ``to_reference_layout``)
+LAUNCHES: Dict[str, int] = {"fc": 0, "conv": 0, "conv_weights": 0,
+                            "pool": 0, "eltwise": 0, "attention": 0,
+                            "attention_mma": 0, "layout": 0}
 
 #: the TPU kernel each CUDA kernel replaces (file:line of its definition)
 REPLACES = {"fc": "src/repro/lower/exec.py:88",
@@ -53,31 +63,32 @@ NEG_INF = -1e30
 #: operands one eltwise launch adds; ``eltwise_chain`` chains launches for
 #: more
 ELTWISE_MAX_OPS = 8
-#: the most elements an array of one conv launch may hold: its window
-#: offsets are 32-bit, so ``conv_batch_parts`` splits the batch under it
+#: the most elements an array of one conv launch may hold (the kernel's
+#: launch arguments are 32-bit); ``conv_batch_parts`` splits the batch
+#: under it
 CONV_MAX_ELEMS = (1 << 31) - 1
-#: the H100's SMs, over which the conv model spreads blocks
-SMS = 132
-CONV_THREADS = 128
-CONV_WARPS = CONV_THREADS // 32
-CONV_STAGES = 3                 # the conv kernel's ring of cp.async stages
-#: the most dynamic shared memory a block may opt into (227 KB), and the
-#: caps conv_launch sizes chunks for (four, two and one block an SM)
+#: rows of a conv consumer warpgroup's wgmma tile (its M side)
+CONV_ROWS = 64
+#: the wgmma widths (N of m64nNk8) ``conv_kernel_wgmma`` is built at
+CONV_WIDTHS = (8, 16, 24, 32, 48, 64, 96, 128)
+#: channels a conv step stages: one 128-byte row of floats
+CONV_PIECE = 32
+CONV_STAGES = 8                 # the most stages of the conv kernel's ring
+#: the most dynamic shared memory a block may opt into (227 KB)
 CONV_SMEM_MAX = 232448
-CONV_SMEM_CAPS = (56 * 1024, 113 * 1024, CONV_SMEM_MAX)
-#: the deepest reduction a conv chunk stages, unless one channel's R*S is
-#: deeper
-CONV_DEPTH = 80
-#: the conv warp tiles: (mt, nt, wm, wn), each warp 16 mt positions x 8 nt
-#: channels, the four warps wm x wn
-CONV_TILES = tuple((mt, nt, wm, CONV_WARPS // wm) for mt in (1, 2)
-                   for nt in (1, 2, 3, 4) for wm in (1, 2, 4))
-#: registers a thread of each conv warp tile (mt, nt) takes (ptxas for
-#: sm_90a, CUDA 12.8), and the cycles a block waits for its first stages:
-#: the conv model's occupancy and fill
-CONV_REGS = {(1, 1): 89, (1, 2): 108, (1, 3): 127, (1, 4): 147,
-             (2, 1): 116, (2, 2): 151, (2, 3): 187, (2, 4): 227}
-CONV_FILL = 10000
+#: TMA's limits: elements a box spans along a dimension, and the stride it
+#: traverses one at
+CONV_BOX_MAX = 256
+CONV_STRIDE_MAX = 8
+#: the H100's SMs, and the blocks an SM runs in turn that the conv launch
+#: leaves at least, where it groups sub-tiles into blocks
+SMS = 132
+CONV_WAVES = 4
+#: the most channels of an input the conv kernel reads folded
+#: (``conv_folds``): one 16-byte unit a tap
+CONV_FOLD_C = 4
+#: the bits of a float32 that TF32 keeps (sign, exponent, 10 of mantissa)
+TF32_MASK = -8192               # 0xffffe000 as an int32
 FC_TILE = 64                    # widest fc output sub-tile side
 FC_SLAB = 32                    # C depth of one staged fc slab
 #: blocks ``fc_launch`` aims the C split at: two for each of the H100's
@@ -135,7 +146,7 @@ def _check_reduction(plan: KernelPlan) -> None:
 
 
 def _check(t: torch.Tensor, shape: Tuple[int, ...], what: str,
-           device: torch.device) -> None:
+           device: torch.device, layout: bool = False) -> None:
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{what}: expected a torch.Tensor, got {type(t)}")
     if t.device != device:
@@ -145,8 +156,9 @@ def _check(t: torch.Tensor, shape: Tuple[int, ...], what: str,
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{what}: shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{what}: must be contiguous")
+    if not (t.is_contiguous() or layout and channel_pitch(t) is not None):
+        raise ValueError(f"{what}: must be contiguous" + (
+            " or channels-last" if layout else ""))
 
 
 def _cuda_or_cpu(t: torch.Tensor, what: str) -> bool:
@@ -330,6 +342,91 @@ def run_fc(plan: KernelPlan, x: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# activation layout: channels-last inside the network tiers
+# ---------------------------------------------------------------------------
+
+def _cl_strides(shape: Sequence[int], pitch: int) -> Tuple[int, ...]:
+    """Strides of a [N, C, X, Y] tensor held as [N, X, Y, pitch]."""
+    _, _, X, Y = shape
+    return (X * Y * pitch, 1, Y * pitch, pitch)
+
+
+def _strides_match(t: torch.Tensor, want: Sequence[int]) -> bool:
+    """``t``'s strides are ``want`` on every dim longer than 1."""
+    return all(n == 1 or s == w for n, s, w in zip(t.shape, t.stride(), want))
+
+
+def channel_pitch(t: torch.Tensor) -> Optional[int]:
+    """The channel pitch of a 4-D tensor held channels-last (``[N, X, Y,
+    pitch]`` with its channels first in each row), or None when it is not
+    held so."""
+    if t.dim() != 4:
+        return None
+    N, C, X, Y = t.shape
+    pitch = t.stride(3) if Y > 1 else t.stride(2) if X > 1 else C
+    if pitch < C or not _strides_match(t, _cl_strides(t.shape, pitch)):
+        return None
+    return pitch
+
+
+def _channels_inner(t: torch.Tensor) -> bool:
+    """Whether ``t``'s channels are innermost in memory (channels-last, or a
+    view of it such as a crop), where that differs from [N, C, X, Y] memory
+    (more than one channel and more than one position)."""
+    return t.shape[1] > 1 and t.shape[2] * t.shape[3] > 1 \
+        and t.stride(1) == 1
+
+
+def channels_last_zeros(shape: Sequence[int], pitch: Optional[int] = None,
+                        device=None) -> torch.Tensor:
+    """Float32 zeros of ``shape`` ([N, C, X, Y]) held as [N, X, Y, pitch]
+    (default C)."""
+    N, C, X, Y = shape
+    cp = C if pitch is None else pitch
+    return torch.zeros((N, X, Y, cp), dtype=torch.float32,
+                       device=device).permute(0, 3, 1, 2)[:, :C]
+
+
+def to_channels_last(t: torch.Tensor,
+                     pitch: Optional[int] = None) -> torch.Tensor:
+    """``t`` ([N, C, X, Y]) held channels-last at channel pitch ``pitch``
+    (default C; padding channels zero): ``t`` itself when it already is,
+    else a copy.  A copy of a tensor that was not channels-last is a layout
+    conversion and counts in ``LAUNCHES["layout"]``."""
+    cp = t.shape[1] if pitch is None else pitch
+    if channel_pitch(t) == cp:
+        return t
+    out = channels_last_zeros(t.shape, cp, t.device)
+    out.copy_(t)
+    if not _channels_inner(t) and _channels_inner(out):
+        backend.count_launch(LAUNCHES, "layout")
+    return out
+
+
+def to_reference_layout(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in [N, C, X, Y] (row-major) memory, for a reshape in the
+    reference's element order: ``t`` itself when it already is, else a copy,
+    which counts in ``LAUNCHES["layout"]`` where the layouts differ."""
+    if t.is_contiguous():
+        return t
+    if t.dim() == 4 and _channels_inner(t):
+        backend.count_launch(LAUNCHES, "layout")
+    return t.contiguous()
+
+
+def _cl_copy(t: torch.Tensor) -> torch.Tensor:
+    """A plain version's [N, C, X, Y] result in the kernels' channels-last
+    memory (the plain versions emulate the kernels' layout: no count)."""
+    return t.contiguous(memory_format=torch.channels_last)
+
+
+def conv_pitch(C: int) -> int:
+    """The channel pitch the conv kernel reads its input at: C rounded up to
+    a multiple of 4 (TMA takes rows of whole 16-byte units)."""
+    return -(-C // 4) * 4
+
+
+# ---------------------------------------------------------------------------
 # conv
 # ---------------------------------------------------------------------------
 
@@ -337,8 +434,10 @@ def plain_conv(plan: KernelPlan, x: torch.Tensor,
                w: torch.Tensor) -> torch.Tensor:
     """Direct VALID conv walked over the plan's grid: per step, the halo'd
     window of the (ix, iy) block, one channel contraction per (r, s) into
-    the ``[bn, bk, bx, by]`` tile, added to the output block."""
+    the ``[bn, bk, bx, by]`` tile, added to the output block.  Takes ``x``
+    in either memory layout; returns [N, K, X, Y] in row-major memory."""
     ref.full_fp32(x)
+    x = x.contiguous()
     L, b = plan.layer, plan.block
     R, S, st = (int(L.meta[k]) for k in ("R", "S", "stride"))
     bx, by = b["X"], b["Y"]
@@ -359,10 +458,6 @@ def plain_conv(plan: KernelPlan, x: torch.Tensor,
     return out
 
 
-def _round8(v: int) -> int:
-    return -(-v // 8) * 8
-
-
 def _even(block: int, tile: int) -> int:
     """The sub-tile width that cuts ``block`` into as many pieces as
     ``tile`` does, balanced (the last piece at most one short of the
@@ -370,19 +465,29 @@ def _even(block: int, tile: int) -> int:
     return _ceil(block, _ceil(block, tile))
 
 
+def conv_width(n: int) -> int:
+    """The wgmma width (``CONV_WIDTHS``) an N side of ``n`` runs at."""
+    return next(w for w in CONV_WIDTHS if w >= n)
+
+
 @dataclasses.dataclass(frozen=True)
 class ConvLaunch:
     """Geometry of one ``kapla_conv`` call (``csrc/lower_kernels.cu``
-    ``conv_kernel<mt, nt>``, an implicit GEMM in 3xTF32).  Block ``(x, y,
-    z)`` owns one output sub-tile of one plan tile: X/Y sub-tile ``x``
-    (``x // ny``, ``x % ny``), K sub-tile ``y`` and N sub-tile ``z``
-    (``sub_tile``): ``tn`` images x ``tx`` rows x ``ty`` cols of positions
-    by ``tk`` channels.  Its ``wm x wn`` warps each compute ``16 mt``
-    positions x ``8 nt`` channels.  The reduction walks the plan's C tiles
-    in order, each in chunks of ``cc`` channels (``chunks``) whose depth
-    ``nc * R * S`` is padded to a multiple of 8; a stage holds the chunk's
-    weights (``bnw`` rows at pitch ``ldw``) and input window (``cc``
-    channels at pitch ``cpitch``)."""
+    ``conv_kernel_wgmma<nw>``, an implicit GEMM on wgmma in 3xTF32 over
+    channels-last activations).  A plan tile is cut into output sub-tiles
+    (``sub_tile``), each a box of ``tn`` images x ``tx`` rows x ``ty`` cols
+    of positions by ``tk`` channels.  Block ``(x, y, z)`` owns plan tile
+    (X/Y ``x``, K ``y``, N ``z // groups``) and walks ``group`` of its
+    sub-tiles in turn (``block_subtiles``), the ring running on from one
+    to the next, so a sub-tile's stores overlap the next one's loads.
+    ``pos_m``: the positions are wgmma's 64-row M side (``cw``
+    consumer warpgroups of 64 rows) and the channels its N side, ``nw``
+    wide; else the channels are M and the positions N.  The reduction walks
+    ``steps()``: the plan's C tiles in order, each in pieces of
+    ``CONV_PIECE`` channels by the R x S taps, one ring stage a step.  The
+    dims are those the kernel runs: for a folded input (``conv_folds``) C
+    is 4 S, YI is XO's columns, S is 1 and ``sy`` 1, ``fold`` the layer's
+    S."""
 
     N: int
     C: int
@@ -394,6 +499,7 @@ class ConvLaunch:
     R: int
     S: int
     stride: int
+    sy: int         # the y stride (1 for a folded input)
     bn: int
     bc: int
     bk: int
@@ -403,12 +509,12 @@ class ConvLaunch:
     tx: int
     ty: int
     tk: int
-    cc: int
-    mt: int         # 16-row mma tiles a warp (positions)
-    nt: int         # 8-column mma tiles a warp (channels)
-    wm: int         # warps along positions
-    wn: int         # warps along channels
-    vec: bool       # 16-byte weight copies (rows 16-byte aligned)
+    pos_m: bool
+    cw: int         # consumer warpgroups
+    nw: int         # wgmma width (N side)
+    stages: int     # ring stages
+    fold: int = 0   # the layer's S folded into the channels (0: none)
+    group: int = 1  # sub-tiles a block walks
 
     @property
     def sub(self) -> Dict[str, int]:
@@ -418,54 +524,94 @@ class ConvLaunch:
                  ("X", self.bx, self.tx), ("Y", self.by, self.ty))}
 
     @property
+    def subs(self) -> int:
+        """Sub-tiles per plan tile."""
+        return int(np.prod(list(self.sub.values())))
+
+    @property
+    def groups(self) -> int:
+        """Blocks per plan tile."""
+        return _ceil(self.subs, self.group)
+
+    @property
     def grid(self) -> Tuple[int, int, int]:
+        return ((self.XO // self.bx) * (self.YO // self.by),
+                self.K // self.bk, (self.N // self.bn) * self.groups)
+
+    def block_subtiles(self, x: int, y: int, z: int
+                       ) -> List[Tuple[Tuple[int, int], ...]]:
+        """The sub-tiles block (x, y, z) walks, in order, each as (start,
+        extent) along N, K, X and Y: the K sub-tiles fastest, then Y, X and
+        N (the kernel's ``conv_subtile``)."""
         sub = self.sub
-        return ((self.XO // self.bx) * sub["X"] * (self.YO // self.by)
-                * sub["Y"], (self.K // self.bk) * sub["K"],
-                (self.N // self.bn) * sub["N"])
+        py = self.YO // self.by
+        plan = {"N": z // self.groups, "K": y, "X": x // py, "Y": x % py}
+        first = (z % self.groups) * self.group
+        out = []
+        for u in range(first, min(self.subs, first + self.group)):
+            idx = {}
+            for d in "KYXN":
+                idx[d] = u % sub[d]
+                u //= sub[d]
+            out.append(tuple(self.sub_tile(d, plan[d] * sub[d] + idx[d])
+                             for d in "NKXY"))
+        return out
 
     @property
-    def bm(self) -> int:
-        """Positions the block's warps cover."""
-        return self.wm * 16 * self.mt
+    def cp(self) -> int:
+        """The input's channel pitch."""
+        return conv_pitch(self.C)
 
     @property
-    def bnw(self) -> int:
-        """Channels the block's warps cover (weight rows staged)."""
-        return self.wn * 8 * self.nt
+    def box(self) -> int:
+        """Positions of the block's box (rows of its activation tile)."""
+        return self.tn * self.tx * self.ty
 
     @property
-    def jpad(self) -> int:
-        """Reduction depth of a full chunk, padded to a multiple of 8."""
-        return _round8(self.cc * self.R * self.S)
+    def xrows(self) -> int:
+        """Rows of a stage's activation tile."""
+        return CONV_ROWS * self.cw if self.pos_m else self.nw
 
     @property
-    def ldw(self) -> int:
-        """Weight row pitch: 4 mod 8 floats, conflict-free B fragments."""
-        return self.jpad + 4
+    def wrows(self) -> int:
+        """Rows (output channels) of a stage's weight tile."""
+        return self.nw if self.pos_m else CONV_ROWS * self.cw
 
     @property
-    def spmax(self) -> int:
-        """Input window elements of one channel of the largest sub-tile."""
-        return self.tn * ((self.tx - 1) * self.stride + self.R) \
-            * ((self.ty - 1) * self.stride + self.S)
+    def bcp(self) -> int:
+        """Row of a C tile in the laid-out weights (``conv_bcp``)."""
+        return conv_bcp(self.bc)
 
     @property
-    def cpitch(self) -> int:
-        """Window channel pitch: 8 mod 32 floats, so the four channels of a
-        1x1 layer's A fragment fall in distinct banks."""
-        return self.spmax + (8 - self.spmax) % 32
+    def vec(self) -> bool:
+        """8-byte output stores: every pair of channels starts 8-byte
+        aligned."""
+        return self.K % 2 == 0 and self.bk % 2 == 0 and self.tk % 2 == 0
 
     @property
-    def stage(self) -> int:
-        """Floats of one stage of the ring."""
-        return self.bnw * self.ldw + self.cc * self.cpitch
+    def x_box(self) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+        """The activation tile's TMA box over [N, XI, YI, cp] (dims and
+        element strides, innermost first)."""
+        st, sy = self.stride, self.sy
+        return ((CONV_PIECE, self.ty * sy, self.tx * st, self.tn),
+                (1, sy, st, 1))
+
+    @property
+    def w_box(self) -> Tuple[int, ...]:
+        """The weight tiles' TMA box over [K, T, R*S, bcp]."""
+        return (CONV_PIECE, 1, 1, self.wrows)
+
+    @property
+    def stage_bytes(self) -> int:
+        """A stage: the activation tile, split into hi and lo, and the
+        weights' hi and lo tiles, 128-byte rows."""
+        return 2 * 128 * (self.xrows + self.wrows)
 
     @property
     def smem(self) -> int:
-        """Dynamic shared memory: the ring, the reduction offset table and
-        the window offset table."""
-        return 4 * (CONV_STAGES * self.stage + self.jpad + self.spmax)
+        """Dynamic shared memory: 1024-byte alignment, the ring and three
+        mbarriers a stage."""
+        return 1024 + self.stages * (self.stage_bytes + 3 * 8)
 
     def sub_tile(self, axis: str, g: int) -> Tuple[int, int]:
         """(start, extent) of sub-tile ``g`` along ``axis`` (N, K, X or
@@ -477,89 +623,45 @@ class ConvLaunch:
         start = (g // sub) * block + (g % sub) * tile
         return start, min(tile, (g // sub + 1) * block - start)
 
-    def chunks(self) -> List[Tuple[int, int, int]]:
-        """(C tile, c0, channels) of each chunk, in the kernel's order."""
+    def steps(self) -> List[Tuple[int, int, int, int, int]]:
+        """(C tile, piece, tap r*S + s, box channel, k8 steps) of each
+        step, in the kernel's order (``conv_step``): a tile's pieces start
+        at its first channel rounded down to a multiple of 4, and the k8
+        steps are those that hold channels of the tile (0: none)."""
         out = []
         for t in range(self.C // self.bc):
-            for c0 in range(t * self.bc, (t + 1) * self.bc, self.cc):
-                out.append((t, c0, min(self.cc, (t + 1) * self.bc - c0)))
+            sh = t * self.bc % 4
+            for j in range(_ceil(self.bcp, CONV_PIECE)):
+                held = max(0, min(CONV_PIECE,
+                                  sh + self.bc - j * CONV_PIECE))
+                for rs in range(self.R * self.S):
+                    out.append((t, j, rs,
+                                t * self.bc - sh + j * CONV_PIECE,
+                                _ceil(held, 8)))
         return out
 
-    def params(self, vec: bool) -> List[int]:
-        """``kapla_conv``'s parameter array; ``vec`` is ``self.vec`` and
-        the 16-byte alignment of W."""
-        return [self.N, self.C, self.K, self.XI, self.YI, self.XO, self.YO,
-                self.R, self.S, self.stride, self.bn, self.bc, self.bk,
-                self.bx, self.by, self.tn, self.tx, self.ty, self.tk,
-                self.cc, *(self.sub[d] for d in "NKXY"), self.wm, self.wn,
-                self.jpad, self.ldw, self.cpitch, self.stage, self.spmax,
-                int(vec), *self.grid, self.smem, self.mt, self.nt]
+    def params(self) -> List[int]:
+        """``kapla_conv``'s parameter array."""
+        sub = self.sub
+        return [self.N, self.C, self.K, self.XO, self.YO, self.R, self.S,
+                self.stride, self.sy, self.bn, self.bc, self.bk, self.bx,
+                self.by, self.tn, self.tx, self.ty, self.tk, sub["N"],
+                sub["K"], sub["X"], sub["Y"], int(self.pos_m), self.cw,
+                self.xrows, self.wrows, self.stages, self.bcp,
+                int(self.vec), self.group, self.groups, self.XI, self.YI,
+                self.cp, self.C // self.bc, *self.grid, self.smem, self.nw]
 
 
-def _conv_box(bn: int, bx: int, by: int, bm: int) -> Tuple[int, int, int]:
+def _conv_box(bn: int, bx: int, by: int, bm: int, st: int,
+              sy: int) -> Tuple[int, int, int]:
     """The (images, rows, cols) box of at most ``bm`` positions that cuts
-    a plan tile into the fewest sub-tiles, whole rows of the tile first."""
-    ty = _even(by, min(by, bm))
-    tx = _even(bx, min(bx, bm // ty))
-    tn = _even(bn, min(bn, bm // (tx * ty)))
+    a plan tile into the fewest sub-tiles, whole rows of the tile first,
+    within TMA's 256-element box (rows and cols traversed at the
+    strides)."""
+    ty = _even(by, min(by, bm, CONV_BOX_MAX // sy))
+    tx = _even(bx, min(bx, bm // ty, CONV_BOX_MAX // st))
+    tn = _even(bn, min(bn, bm // (tx * ty), CONV_BOX_MAX))
     return tn, tx, ty
-
-
-def _conv_chunk(bc: int, RS: int,
-                fits: Callable[[int], bool]) -> Optional[int]:
-    """The channel chunk: the fewest padded reduction steps over a C tile
-    (a chunk costs about 16 more for its stage), within ``CONV_DEPTH``
-    (or one channel, where R*S is deeper) and ``fits``; None when one
-    channel does not fit."""
-    cap = max(CONV_DEPTH, _round8(RS))
-    best = None
-    for cc in range(1, bc + 1):
-        if _round8(cc * RS) > cap or not fits(cc):
-            break
-        n = _ceil(bc, cc)
-        cost = (n - 1) * _round8(cc * RS) \
-            + _round8((bc - (n - 1) * cc) * RS) + 16 * n
-        if best is None or cost < best[0]:
-            best = (cost, cc)
-    return None if best is None else best[1]
-
-
-def _conv_time(launch: ConvLaunch) -> float:
-    """A model of the kernel's time, in SM cycles: per block, the
-    k-steps (8 deep) of every chunk at the larger of the busy warps' mma
-    products (3 m16n8k8 a multiply-add tile, at half of one a cycle) and
-    their shared-memory fragment reads (one warp's a cycle), plus a
-    quarter cycle per 32-byte sector the chunks stage (a window row of w
-    floats touches (w + 7) / 8), and a fill of ``CONV_FILL`` cycles shared
-    by the blocks an SM holds (registers, ``CONV_REGS``, and shared
-    memory); blocks spread over the SMs.  Its weights come from timing
-    every candidate on every ResNet-50 and AlexNet b64 plan on the card
-    (``tools/conv_tiles.py``): over a ResNet-50 forward its picks came
-    within 3% of the fastest candidates'."""
-    L = launch
-    warps = CONV_WARPS - _conv_idle_warps(L)
-    mma = warps * 3 * L.mt * L.nt * 2
-    lds = warps * (4 * L.mt + 2 * L.nt + 2)
-    chunks = L.chunks()
-    ksteps = sum(_round8(nc * L.R * L.S) // 8 for _, _, nc in chunks)
-    winx = (L.tx - 1) * L.stride + L.R
-    winy = (L.ty - 1) * L.stride + L.S
-    sectors = len(chunks) * (L.cc * L.tn * winx * (winy + 7) / 8
-                             + L.bnw * L.jpad / 8)
-    per_block = max(mma, lds) * ksteps + sectors / 4
-    occupancy = max(1, min(65536 // (CONV_REGS[L.mt, L.nt] * CONV_THREADS),
-                           CONV_SMEM_MAX // (L.smem + 1024)))
-    blocks = L.grid[0] * L.grid[1] * L.grid[2]
-    return blocks * (per_block + CONV_FILL / occupancy) / SMS
-
-
-def _conv_idle_warps(launch: ConvLaunch) -> int:
-    """Warps of a full sub-tile's block that have no position or no
-    channel to compute."""
-    L = launch
-    busy = min(L.wm, _ceil(L.tn * L.tx * L.ty, 16 * L.mt)) \
-        * min(L.wn, _ceil(L.tk, 8 * L.nt))
-    return CONV_WARPS - busy
 
 
 def conv_batch_parts(plan: KernelPlan, XI: int,
@@ -570,13 +672,14 @@ def conv_batch_parts(plan: KernelPlan, XI: int,
     whole batch does)."""
     L, bn = plan.layer, plan.block["N"]
     N = L.dim("N")
-    per_image = max(L.dim("C") * XI * YI,
+    C, XI, YI = conv_kernel_dims(plan, XI, YI)[:3]
+    per_image = max(conv_pitch(C) * XI * YI,
                     L.dim("K") * L.dim("X") * L.dim("Y"))
     step = CONV_MAX_ELEMS // per_image // bn * bn
     if step == 0:
         raise ValueError(f"{plan.describe()}: one N block of {bn} images "
                          f"holds {bn * per_image} elements; the kernel's "
-                         "window offsets are 32-bit")
+                         "launch arguments are 32-bit")
     return [(n0, min(N, n0 + step)) for n0 in range(0, N, step)]
 
 
@@ -584,26 +687,28 @@ def conv_launch(plan: KernelPlan, XI: int, YI: int,
                 batch: Optional[int] = None) -> ConvLaunch:
     """The geometry of ``kapla_conv`` for ``plan`` (over ``batch`` images
     of it, a multiple of its N block, where ``conv_batch_parts`` splits the
-    batch; by default all of them): of the warp tiles in
-    ``CONV_TILES``, each with its chunks sized for every cap of
-    ``CONV_SMEM_CAPS``, of those with the fewest idle warps the one that
-    the model ``_conv_time`` finds quickest (then the largest, then the
-    least shared memory).  Sub-tiles cover each plan tile once; chunks
-    never straddle a plan C tile."""
+    batch; by default all of them).  A plan tile of 64 positions or more
+    puts them on wgmma's M side: boxes of up to 128 positions over two
+    consumer warpgroups (64 and one, under 128 positions), the channels in
+    sub-tiles of up to 128; a smaller tile puts its output channels on the
+    M side (sub-tiles of up to 128, two warpgroups past 64) and its
+    positions, whole, on the N side.  Sub-tiles cover each plan tile once;
+    as many ring stages as fit, up to ``CONV_STAGES``."""
     _check_reduction(plan)
     L, b = plan.layer, plan.block
-    N, C, K, XO, YO = (L.dim(d) for d in "NCKXY")
+    N, K, XO, YO = (L.dim(d) for d in "NKXY")
     N = N if batch is None else batch
-    R, S, st = (int(L.meta[k]) for k in ("R", "S", "stride"))
-    if N % b["N"] or max(N * C * XI * YI, N * K * XO * YO) > CONV_MAX_ELEMS:
+    C, XI, YI, R, S, st, sy, bc, fold = conv_kernel_dims(plan, XI, YI)
+    if N % b["N"] or max(N * conv_pitch(C) * XI * YI,
+                         N * K * XO * YO) > CONV_MAX_ELEMS:
         raise ValueError(f"{plan.describe()}: a launch of {N} images; the "
                          "kernel takes whole N blocks and arrays of at most "
                          f"{CONV_MAX_ELEMS} elements (conv_batch_parts)")
-    launch = _conv_launch(N, C, K, XI, YI, XO, YO, R, S, st, b["N"],
-                          b["C"], b["K"], b["X"], b["Y"])
-    if launch is None:
-        raise ValueError(f"{plan.describe()}: one channel of the conv "
-                         "window does not fit in shared memory")
+    if not 1 <= st <= CONV_STRIDE_MAX:
+        raise ValueError(f"{plan.describe()}: stride {st}; TMA traverses "
+                         f"at most {CONV_STRIDE_MAX}")
+    launch = _conv_launch(N, C, K, XI, YI, XO, YO, R, S, st, sy, b["N"],
+                          bc, b["K"], b["X"], b["Y"], fold)
     if launch.grid[0] >= 1 << 31 or max(launch.grid[1:]) > 65535:
         raise ValueError(f"{plan.describe()}: conv grid {launch.grid} too "
                          "large")
@@ -611,79 +716,183 @@ def conv_launch(plan: KernelPlan, XI: int, YI: int,
 
 
 @functools.lru_cache(maxsize=None)
-def _conv_launch(N, C, K, XI, YI, XO, YO, R, S, st, bn, bc, bk, bx, by):
-    found = [f for cap in CONV_SMEM_CAPS for f in conv_candidates(
-        N, C, K, XI, YI, XO, YO, R, S, st, bn, bc, bk, bx, by, cap)]
-    if not found:
-        return None
-    return min(found, key=lambda f: f[0])[1]
-
-
-def conv_candidates(N, C, K, XI, YI, XO, YO, R, S, st, bn, bc, bk, bx, by,
-                    cap):
-    """(key, launch) for every warp tile of ``CONV_TILES`` whose stage fits
-    ``cap`` bytes of shared memory: its sub-tile box, width and channel
-    chunk, and ``key`` = (idle warps, ``_conv_time``, -tile size, shared
-    memory), which ``conv_launch`` minimizes."""
-    RS = R * S
-    vec = (C * RS) % 4 == 0 and (bc * RS) % 4 == 0
-    found = []
-    for mt, nt, wm, wn in CONV_TILES:
-        tn, tx, ty = _conv_box(bn, bx, by, wm * 16 * mt)
-        tk = _even(bk, min(bk, wn * 8 * nt))
-        while True:
-            base = ConvLaunch(N, C, K, XI, YI, XO, YO, R, S, st, bn, bc, bk,
-                              bx, by, tn, tx, ty, tk, 1, mt, nt, wm, wn,
-                              False)
-
-            def fits(cc, base=base):
-                return dataclasses.replace(base, cc=cc).smem <= cap
-            cc = _conv_chunk(bc, RS, fits)
-            if cc is not None or (tn, tx, ty) == (1, 1, 1):
-                break
-            if tn > 1:          # shrink the window until a channel fits
-                tn = _ceil(tn, 2)
-            elif tx > 1:
-                tx = _ceil(tx, 2)
-            else:
-                ty = _ceil(ty, 2)
-        if cc is None:
-            continue
-        launch = dataclasses.replace(base, cc=cc,
-                                     vec=vec and cc * RS % 4 == 0)
-        found.append(((_conv_idle_warps(launch), _conv_time(launch),
-                       -launch.bm * launch.bnw, launch.smem), launch))
-    return found
+def _conv_launch(N, C, K, XI, YI, XO, YO, R, S, st, sy, bn, bc, bk, bx, by,
+                 fold):
+    P = bn * bx * by
+    pos_m = P >= CONV_ROWS
+    if pos_m:
+        cw = 2 if P >= 2 * CONV_ROWS else 1
+        tn, tx, ty = _conv_box(bn, bx, by, CONV_ROWS * cw, st, sy)
+        tk = _even(bk, min(bk, CONV_WIDTHS[-1]))
+        nw = conv_width(tk)
+    else:
+        tn, tx, ty = _conv_box(bn, bx, by, P, st, sy)
+        tk = _even(bk, min(bk, 2 * CONV_ROWS))
+        cw = 2 if tk > CONV_ROWS else 1
+        nw = conv_width(tn * tx * ty)
+    base = ConvLaunch(N, C, K, XI, YI, XO, YO, R, S, st, sy, bn, bc, bk, bx,
+                      by, tn, tx, ty, tk, pos_m, cw, nw, 1, fold)
+    stages = min(CONV_STAGES,
+                 (CONV_SMEM_MAX - 1024 - 24 * CONV_STAGES)
+                 // base.stage_bytes)
+    # as many sub-tiles a block as leave CONV_WAVES blocks an SM, in
+    # groups of equal size
+    tiles = (XO // bx) * (YO // by) * (K // bk) * (N // bn)
+    group = max(1, min(base.subs,
+                       tiles * base.subs // (CONV_WAVES * SMS)))
+    group = _ceil(base.subs, _ceil(base.subs, group))
+    return dataclasses.replace(base, stages=stages, group=group)
 
 
 @functools.lru_cache(maxsize=None)
-def _conv_params(launch: ConvLaunch, vec: bool):
+def _conv_params(launch: ConvLaunch):
     """``kapla_conv``'s parameter array (built once per geometry)."""
-    return _params(launch.params(vec))
+    return _params(launch.params())
+
+
+def conv_bcp(bc: int) -> int:
+    """The row of one C tile of ``bc`` channels in the laid-out weights:
+    the tile's channels from ``t*bc mod 4`` (where its pieces start) and
+    zeros around them, to a multiple of 4."""
+    return conv_pitch(bc + (3 if bc % 4 else 0))
+
+
+def conv_folds(plan: KernelPlan) -> bool:
+    """Whether the conv kernel reads ``plan``'s input folded: at most
+    ``CONV_FOLD_C`` channels in one C tile (the images), each position's
+    row of S taps laid out as its channels (``conv_input``)."""
+    C = plan.layer.dim("C")
+    return C <= CONV_FOLD_C and plan.block["C"] == C
+
+
+def conv_kernel_dims(plan: KernelPlan, XI: int, YI: int
+                     ) -> Tuple[int, int, int, int, int, int, int, int, int]:
+    """(C, XI, YI, R, S, x stride, y stride, C tile, folded S) of the
+    layer as the conv kernel runs it: the layer's own, or, folded, 4 S
+    channels over XO's columns at the y stride, one tap along y."""
+    L = plan.layer
+    R, S, st = (int(L.meta[k]) for k in ("R", "S", "stride"))
+    if conv_folds(plan):
+        C = CONV_FOLD_C * S
+        return C, XI, L.dim("Y"), R, 1, st, 1, C, S
+    return L.dim("C"), XI, YI, R, S, st, st, plan.block["C"], 0
+
+
+def conv_input_shape(plan: KernelPlan) -> Tuple[int, int, int, int]:
+    """The shape of ``conv_input``'s result: [N, C, XI, YI], or, folded,
+    [N, 4 S, XI, YO]."""
+    L = plan.layer
+    XI, YI = input_extent(L)
+    C, XI, YI = conv_kernel_dims(plan, XI, YI)[:3]
+    return (L.dim("N"), C, XI, YI)
+
+
+def _unfold(plan: KernelPlan, xf: torch.Tensor) -> torch.Tensor:
+    """A folded input back as [N, C, XI, YI] (the columns no window reads
+    zero), for the plain version."""
+    L = plan.layer
+    C, S, st = L.dim("C"), int(L.meta["S"]), int(L.meta["stride"])
+    N, _, XI, YO = xf.shape
+    x = torch.zeros((N, C) + input_extent(L), dtype=xf.dtype,
+                    device=xf.device)
+    taps = xf.reshape(N, S, CONV_FOLD_C, XI, YO)[:, :, :C]
+    for s in range(S):
+        x[:, :, :, s:s + (YO - 1) * st + 1:st] = taps[:, s]
+    return x
+
+
+def conv_input(plan: KernelPlan, x: torch.Tensor) -> torch.Tensor:
+    """``x`` [N, C, XI, YI] as ``conv_kernel_wgmma`` reads it: channels-last
+    at ``conv_pitch`` (as it is where it already is), or, where the input
+    folds (``conv_folds``), [N, 4 S, XI, YO] held channels-last with
+    channel 4 s + c of column y = x[:, c, :, y * stride + s] (zeros for c
+    >= C), an im2col along Y.  A copy that changes the layout counts in
+    ``LAUNCHES["layout"]``."""
+    L = plan.layer
+    C = L.dim("C")
+    if not conv_folds(plan):
+        cp = channel_pitch(x)
+        return x if cp is not None and cp % 4 == 0 \
+            else to_channels_last(x, conv_pitch(C))
+    S, st = int(L.meta["S"]), int(L.meta["stride"])
+    N, _, XI, _ = x.shape
+    YO = L.dim("Y")
+    buf = torch.zeros((N, XI, YO, S, CONV_FOLD_C), dtype=torch.float32,
+                      device=x.device)
+    buf[..., :C] = x.unfold(3, S, st).permute(0, 2, 3, 4, 1)
+    backend.count_launch(LAUNCHES, "layout")
+    return buf.reshape(N, XI, YO, CONV_FOLD_C * S).permute(0, 3, 1, 2)
+
+
+def conv_weight_layout(plan: KernelPlan, w: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``conv_kernel_weights``' function: W [K, C, R, S] as hi and lo
+    [K, T, RS, bcp] for the dims the kernel runs (``conv_kernel_dims``;
+    ``bcp = conv_bcp(bc)``): C tile t's channels at [sh, sh + bc) of each
+    tap's row with sh = t*bc mod 4, zeros around them; folded, tap r's row
+    holds W[k, c, r, s] at 4 s + c.  hi the leading 19 bits, lo = W - hi."""
+    K, C, R, S = w.shape
+    Cv, _, _, Rv, Sv, _, _, bc, fold = conv_kernel_dims(plan, 1, 1)
+    T, bcp = Cv // bc, conv_bcp(bc)
+    laid = torch.zeros((K, T, Rv * Sv, bcp), dtype=torch.float32,
+                       device=w.device)
+    if fold:
+        per_tap = torch.zeros((K, R, S, CONV_FOLD_C), device=w.device)
+        per_tap[..., :C] = w.permute(0, 2, 3, 1)
+        laid[:, 0, :, :CONV_FOLD_C * S] = per_tap.reshape(K, R, -1)
+    else:
+        tiles = w.reshape(K, T, bc, R * S).transpose(2, 3)
+        for t in range(T):
+            sh = t * bc % 4
+            laid[:, t, :, sh:sh + bc] = tiles[:, t]
+    hi = (laid.view(torch.int32) & TF32_MASK).view(torch.float32)
+    return hi, laid - hi
 
 
 def run_conv(plan: KernelPlan, x: torch.Tensor,
              w: torch.Tensor) -> torch.Tensor:
     """conv wrapper: the CUDA kernel on the card, ``plain_conv`` on the
-    CPU.  ``x`` holds exactly the halo'd input extent."""
+    CPU.  ``x`` [N, C, XI, YI] holds exactly the halo'd input extent, in
+    either memory layout: channels-last (the network executor's, at a
+    channel pitch that is a multiple of 4) goes to the kernel as it is,
+    row-major is converted first, and an input that folds is folded
+    (``conv_input``), unless it comes folded (``conv_input_shape``).  The
+    result is [N, K, X, Y] in channels-last memory.
+    On the card ``conv_kernel_weights`` lays the weights out for the
+    kernel, then ``conv_kernel_wgmma`` runs once a batch part
+    (``conv_batch_parts``)."""
     L = plan.layer
     N, C, K = L.dim("N"), L.dim("C"), L.dim("K")
     R, S = int(L.meta["R"]), int(L.meta["S"])
     XI, YI = input_extent(L)
-    _check(x, (N, C, XI, YI), "conv input I[N,C,XI,YI]", x.device)
+    folded = conv_folds(plan) and tuple(x.shape) == conv_input_shape(plan)
+    _check(x, conv_input_shape(plan) if folded else (N, C, XI, YI),
+           "conv input I[N,C,XI,YI]", x.device, layout=True)
     _check(w, (K, C, R, S), "conv weight W[K,C,R,S]", x.device)
     if not _cuda_or_cpu(x, "conv"):
-        return plain_conv(plan, x, w)
+        return _cl_copy(plain_conv(plan, _unfold(plan, x) if folded else x,
+                                   w))
+    if not folded:
+        x = conv_input(plan, x)
+    Cv, _, _, Rv, Sv, _, _, bc, fold = conv_kernel_dims(plan, XI, YI)
+    T, bcp = Cv // bc, conv_bcp(bc)
     out = torch.empty((N, K, L.dim("X"), L.dim("Y")), dtype=torch.float32,
-                      device=x.device)
+                      device=x.device, memory_format=torch.channels_last)
+    hi = torch.empty((K, T, Rv * Sv, bcp), dtype=torch.float32,
+                     device=x.device)
+    lo = torch.empty_like(hi)
     with torch.cuda.device(x.device):
         lib = backend.library()
+        stream = backend.stream_handle(x.device)
+        backend.check_launch("kapla_conv_weights", lib.kapla_conv_weights(
+            w.data_ptr(), hi.data_ptr(), lo.data_ptr(),
+            _params([K, C, Rv * Sv, T, bc, bcp, fold]), stream))
+        backend.count_launch(LAUNCHES, "conv_weights")
         for n0, n1 in conv_batch_parts(plan, XI, YI):
             launch = conv_launch(plan, XI, YI, n1 - n0)
-            prm = _conv_params(launch, launch.vec and w.data_ptr() % 16 == 0)
             backend.check_launch("kapla_conv", lib.kapla_conv(
-                x[n0:n1].data_ptr(), w.data_ptr(), out[n0:n1].data_ptr(),
-                prm, backend.stream_handle(x.device)))
+                x[n0:n1].data_ptr(), hi.data_ptr(), lo.data_ptr(),
+                out[n0:n1].data_ptr(), _conv_params(launch), stream))
             backend.count_launch(LAUNCHES, "conv")
     return out
 
@@ -693,7 +902,9 @@ def run_conv(plan: KernelPlan, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def plain_pool(plan: KernelPlan, x: torch.Tensor) -> torch.Tensor:
-    """Max pool walked over the plan's grid, each block from ``NEG_INF``."""
+    """Max pool walked over the plan's grid, each block from ``NEG_INF``.
+    Takes ``x`` in either memory layout; returns row-major memory."""
+    x = x.contiguous()
     L, b = plan.layer, plan.block
     R, S, st = (int(L.meta[k]) for k in ("R", "S", "stride"))
     bx, by = b["X"], b["Y"]
@@ -715,16 +926,23 @@ def plain_pool(plan: KernelPlan, x: torch.Tensor) -> torch.Tensor:
 
 def run_pool(plan: KernelPlan, x: torch.Tensor) -> torch.Tensor:
     """pool wrapper: the CUDA kernel on the card, ``plain_pool`` on the
-    CPU."""
+    CPU.  ``x`` in either memory layout, as ``run_conv`` takes it (a
+    row-major one is converted first); the result is channels-last."""
     L = plan.layer
     N, C, XO, YO = (L.dim(d) for d in "NCXY")
     XI, YI = input_extent(L)
-    _check(x, (N, C, XI, YI), "pool input I[N,C,XI,YI]", x.device)
+    _check(x, (N, C, XI, YI), "pool input I[N,C,XI,YI]", x.device,
+           layout=True)
     if not _cuda_or_cpu(x, "pool"):
-        return plain_pool(plan, x)
+        return _cl_copy(plain_pool(plan, x))
+    cp = channel_pitch(x)
+    if cp is None:
+        x = to_channels_last(x)
+        cp = C
     prm = _params([N, C, XI, YI, XO, YO, int(L.meta["R"]),
-                   int(L.meta["S"]), int(L.meta["stride"])])
-    out = torch.empty((N, C, XO, YO), dtype=torch.float32, device=x.device)
+                   int(L.meta["S"]), int(L.meta["stride"]), cp])
+    out = torch.empty((N, C, XO, YO), dtype=torch.float32, device=x.device,
+                      memory_format=torch.channels_last)
     with torch.cuda.device(x.device):
         lib = backend.library()
         backend.check_launch("kapla_pool", lib.kapla_pool(
@@ -773,15 +991,22 @@ def run_eltwise(plan: KernelPlan,
     """eltwise wrapper (any number of operands): the CUDA kernel on the
     card (one launch per ``eltwise_chain`` step, ping-ponging the running
     sum so that no launch reads what it writes), ``plain_eltwise`` on the
-    CPU.  Both add in operand order, so they agree bit for bit."""
+    CPU.  Both add in operand order, so they agree bit for bit.  The
+    operands share one memory layout, which the result keeps: channels-last
+    where any operand is held so (the others converted), else row-major."""
     shape = tuple(plan.layer.dim(d) for d in "NCXY")
     chain = eltwise_chain(len(xs))
     for i, x in enumerate(xs):
-        _check(x, shape, f"eltwise operand {i}", xs[0].device)
+        _check(x, shape, f"eltwise operand {i}", xs[0].device, layout=True)
+    cl = any(not x.is_contiguous() for x in xs)
+    xs = [to_channels_last(x) if cl else x for x in xs]
     if not _cuda_or_cpu(xs[0], "eltwise"):
-        return plain_eltwise(plan, xs)
+        out = plain_eltwise(plan, xs)
+        return _cl_copy(out) if cl else out
     dev = xs[0].device
-    out = torch.empty(shape, dtype=torch.float32, device=dev)
+    out = torch.empty(shape, dtype=torch.float32, device=dev,
+                      memory_format=torch.channels_last if cl
+                      else torch.contiguous_format)
     # the last launch writes out; the ones before alternate with tmp
     tmp = torch.empty_like(out) if len(chain) > 1 else None
     dsts = [out if (len(chain) - 1 - k) % 2 == 0 else tmp
@@ -951,6 +1176,30 @@ def as_tensor(v, device: torch.device) -> torch.Tensor:
     return v.to(device=device, dtype=torch.float32).contiguous()
 
 
+def _as_input(v, device: torch.device) -> torch.Tensor:
+    """``as_tensor``, except that a float32 tensor on ``device`` held
+    channels-last stays as it is (``kernel_inputs``)."""
+    if isinstance(v, torch.Tensor) and v.device == device \
+            and v.dtype == torch.float32 and channel_pitch(v) is not None:
+        return v
+    return as_tensor(v, device)
+
+
+def kernel_inputs(plan: KernelPlan, inputs: Mapping,
+                  device=None) -> Dict[str, torch.Tensor]:
+    """The plan's inputs in the memory layout its kernel reads: a conv's or
+    a pool's ``I`` channels-last (a conv's at ``conv_pitch``), the rest as
+    given.  A caller that times a plan converts once with this, outside
+    the calls it times."""
+    dev = backend.resolve_device(device)
+    out = {k: as_tensor(v, dev) for k, v in inputs.items()}
+    if plan.kind == "conv" and not conv_folds(plan):
+        out["I"] = conv_input(plan, out["I"])
+    elif plan.kind == "pool":
+        out["I"] = to_channels_last(out["I"])
+    return out
+
+
 def make_inputs(plan: KernelPlan, seed: int = 0,
                 device=None) -> Dict[str, torch.Tensor]:
     """Deterministic float32 inputs in the plan's canonical layouts, drawn
@@ -995,7 +1244,7 @@ def plan_runner(plan: KernelPlan, device=None,
         return lambda inputs: run_eltwise(
             plan, [as_tensor(inputs[n], dev) for n in names])
     fn = _RUN[plan.kind]
-    return lambda inputs: fn(plan, *(as_tensor(inputs[n], dev)
+    return lambda inputs: fn(plan, *(_as_input(inputs[n], dev)
                                      for n in names))
 
 

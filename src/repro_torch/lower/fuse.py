@@ -12,7 +12,8 @@ tensor through host numpy and back.  This tier removes both:
     or boundary, stays on the device; nothing goes through host numpy;
   * **static buffers owned by the network**: one for every external
     ``.I`` and ``.W`` input (and, for a segment, every boundary tensor it
-    reads).  Every call copies all of the caller's inputs in, weights
+    reads, held channels-last as the kernels write it, so the copy-in is
+    the only conversion a caller's row-major tensor takes).  Every call copies all of the caller's inputs in, weights
     included: a weight written in place in any way (``.data``, a numpy
     view, a kernel through its pointer) is always seen, for one device
     copy of the weights a call.  A graph reads nothing but
@@ -57,8 +58,8 @@ from ..kernels.backend import resolve_device
 from ..kernels.graph import CapturedStep
 from ..obs import device as obs_device
 from ..obs import metrics
-from .exec import (input_shapes, run_attention, run_conv, run_eltwise, run_fc,
-                   run_pool)
+from .exec import (channels_last_zeros, conv_pitch, input_shapes,
+                   run_attention, run_conv, run_eltwise, run_fc, run_pool)
 from .netexec import _check_executable, _layer_fn, network_input_shapes
 from .netplan import NetworkPlan
 from .plan import KernelPlan
@@ -88,11 +89,18 @@ class _Buffers:
         self.bufs: Dict[str, torch.Tensor] = {}
         self.nbytes = 0
 
-    def add(self, name: str, shape: Sequence[int]) -> torch.Tensor:
+    def add(self, name: str, shape: Sequence[int],
+            channels_last: bool = False,
+            pitch: Optional[int] = None) -> torch.Tensor:
+        """The buffer ``name``, made at its first add: row-major, or held
+        channels-last (at channel pitch ``pitch``), where a caller's tensor
+        is copied into the kernels' layout."""
         if name not in self.bufs:
-            self.bufs[name] = torch.zeros(tuple(shape), dtype=torch.float32,
-                                          device=self.device)
-            self.nbytes += self.bufs[name].numel() * 4
+            buf = channels_last_zeros(shape, pitch, self.device) \
+                if channels_last else torch.zeros(
+                    tuple(shape), dtype=torch.float32, device=self.device)
+            self.bufs[name] = buf
+            self.nbytes += buf.untyped_storage().nbytes()
         return self.bufs[name]
 
     def bind(self, values: Mapping, names: Sequence[str]) -> None:
@@ -147,7 +155,11 @@ def plan_graph_runner(plan: KernelPlan, device=None
     dev = resolve_device(device)
     bufs = _Buffers(dev)
     shapes = input_shapes(plan)
-    args = [bufs.add(n, shapes[n]) for n in names]
+    # a conv's or a pool's input is copied in channels-last, so the graph
+    # holds the kernel alone
+    cl = plan.kind in ("conv", "pool")
+    pitch = conv_pitch(plan.layer.dim("C")) if plan.kind == "conv" else None
+    args = [bufs.add(n, shapes[n], cl and n == "I", pitch) for n in names]
     lock = threading.Lock()
     graph: List[CapturedStep] = []
 
@@ -329,7 +341,8 @@ class FusedNetwork:
     def _boundary_buffers(self, names: Sequence[str]) -> None:
         for name in names:
             if name not in self._feed:           # a boundary tensor
-                self._bufs.add(name, output_shape(self.nplan.plans[name]))
+                shape = output_shape(self.nplan.plans[name])
+                self._bufs.add(name, shape, len(shape) == 4)
 
     def _graph(self, key: Tuple) -> Tuple[CapturedStep, bool]:
         """The variant's graph, and whether this call built it."""
@@ -352,8 +365,9 @@ class FusedNetwork:
             with obs_device.span("fused.replay", call=self._calls):
                 out = graph()
             self._marks.mark("end")
-            if copy:
-                out = {k: v.clone() for k, v in out.items()}
+            if copy:                             # in the reference layout
+                out = {k: v.clone(memory_format=torch.contiguous_format)
+                       for k, v in out.items()}
         if built:                                # it holds more memory now
             _trim(keep=self)
         return out

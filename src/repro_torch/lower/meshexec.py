@@ -103,7 +103,8 @@ class SegmentTask:
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
-    return t.cpu().numpy()
+    """A boundary tensor's host copy, in the reference's layout."""
+    return np.ascontiguousarray(t.cpu().numpy())
 
 
 def _on(a, dev: torch.device) -> torch.Tensor:

@@ -17,6 +17,16 @@ tiers:
     measures this tier unless told otherwise, as the reference measures
     its compiled tier.
 
+Inside one call the activations are held channels-last (``[N, X, Y,
+C]`` memory under the reference's ``[N, C, X, Y]`` shape; ``exec.
+to_channels_last``), the layout the conv kernel reads: the external inputs
+are converted once where a layer reads them, every conv, pool and eltwise
+sum writes channels-last, and the adapter below keeps the layout.  Only a
+reshape in the reference's element order (the flatten before an fc with
+more than one position, a fold-sum) converts back.  ``exec.LAUNCHES
+["layout"]`` counts the conversions: one a call for ResNet-50 (the images).
+Tensors handed back to a caller are in the reference's layout.
+
 Producer and consumer shapes line up only approximately (conv halos,
 flattening before FC, LSTM gate merges, inception concat).  One canonical
 adapter closes the gap, used identically by the executor and the
@@ -42,13 +52,14 @@ from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..kernels import backend, ref
 from ..obs import metrics, trace, watch
 from ..workloads.layers import LayerSpec
-from .exec import (as_tensor, input_extent, input_shapes, rel_error,
-                   run_conv, run_eltwise, run_fc, run_pool)
+from .exec import (as_tensor, channels_last_zeros, conv_folds, conv_input,
+                   conv_pitch, input_extent, input_shapes, rel_error,
+                   run_conv, run_eltwise, run_fc, run_pool, to_channels_last,
+                   to_reference_layout)
 from .netplan import NetworkPlan
 
 
@@ -69,43 +80,74 @@ def required_input_shape(layer: LayerSpec) -> Tuple[int, ...]:
     raise ValueError(f"no network-exec input feed for kind {layer.kind!r}")
 
 
-def adapt_tensor(arr: torch.Tensor, shape: Tuple[int, ...]) -> torch.Tensor:
+def _pad_crop(arr: torch.Tensor, shape: Tuple[int, ...],
+              channels_last: bool) -> torch.Tensor:
+    """Centered zero-pad / crop of the spatial dims of a channel-matched
+    4-D tensor (a crop is a view; a pad is held channels-last with
+    ``channels_last``)."""
+    out = arr
+    lo = [0, 0]
+    for ax in (2, 3):
+        d = shape[ax] - out.shape[ax]
+        if d < 0:
+            out = out.narrow(ax, (-d) // 2, shape[ax])
+        elif d > 0:
+            lo[ax - 2] = d // 2
+    if tuple(out.shape) == tuple(shape):
+        return out
+    pad = _zeros(shape, arr, channels_last)
+    pad[:, :, lo[0]:lo[0] + out.shape[2], lo[1]:lo[1] + out.shape[3]] = out
+    return pad
+
+
+def _zeros(shape: Tuple[int, ...], like: torch.Tensor,
+           channels_last: bool) -> torch.Tensor:
+    """Zeros of ``shape`` on ``like``'s device, channels-last or
+    row-major."""
+    if channels_last:
+        return channels_last_zeros(shape, device=like.device)
+    return torch.zeros(shape, dtype=like.dtype, device=like.device)
+
+
+def adapt_tensor(arr: torch.Tensor, shape: Tuple[int, ...],
+                 channels_last: bool = False,
+                 pitch: Optional[int] = None) -> torch.Tensor:
     """Adapt a producer output to a consumer's required input shape (see
-    module docstring for the three rules); the result is contiguous."""
-    if tuple(arr.shape) == tuple(shape):
-        return arr.contiguous()
-    n = shape[0]
-    src_per = int(np.prod(arr.shape[1:]))
-    dst_per = int(np.prod(shape[1:]))
-    if src_per == dst_per:
-        return arr.reshape(shape).contiguous()
-    if arr.dim() == 4 and len(shape) == 4 and arr.shape[1] == shape[1]:
-        out = arr
-        for ax in (2, 3):
-            d = shape[ax] - out.shape[ax]
-            if d > 0:
-                pad = [0, 0, 0, 0]               # F.pad: last dim first
-                pad[2 * (3 - ax)] = d // 2
-                pad[2 * (3 - ax) + 1] = d - d // 2
-                out = F.pad(out, pad)
-            elif d < 0:
-                lo = (-d) // 2
-                out = out.narrow(ax, lo, shape[ax])
-        return out.contiguous()
-    if src_per % dst_per == 0:
-        k = src_per // dst_per
-        return arr.reshape((n, k, dst_per)).sum(dim=1).reshape(shape)
-    raise ValueError(f"cannot adapt shape {tuple(arr.shape)} -> "
-                     f"{tuple(shape)}")
+    module docstring for the three rules), in the reference's element order
+    whatever ``arr``'s memory layout.  The result is contiguous, or, with
+    ``channels_last`` and a 4-D ``shape``, held channels-last (at channel
+    pitch ``pitch``; ``exec.to_channels_last``): the network executor's
+    layout.  A copy between the two layouts counts in
+    ``exec.LAUNCHES["layout"]``."""
+    shape = tuple(shape)
+    if tuple(arr.shape) != shape:
+        n = shape[0]
+        src_per = int(np.prod(arr.shape[1:]))
+        dst_per = int(np.prod(shape[1:]))
+        if src_per == dst_per:
+            arr = to_reference_layout(arr).reshape(shape)
+        elif arr.dim() == 4 and len(shape) == 4 and arr.shape[1] == shape[1]:
+            arr = _pad_crop(arr, shape, channels_last)
+        elif src_per % dst_per == 0:
+            k = src_per // dst_per
+            arr = to_reference_layout(arr).reshape(
+                (n, k, dst_per)).sum(dim=1).reshape(shape)
+        else:
+            raise ValueError(f"cannot adapt shape {tuple(arr.shape)} -> "
+                             f"{shape}")
+    if channels_last and len(shape) == 4:
+        return to_channels_last(arr, pitch)
+    return to_reference_layout(arr)
 
 
-def _eltwise_operands(srcs: Sequence[torch.Tensor],
-                      layer: LayerSpec) -> List[torch.Tensor]:
+def _eltwise_operands(srcs: Sequence[torch.Tensor], layer: LayerSpec,
+                      channels_last: bool = False) -> List[torch.Tensor]:
     """Adapt eltwise sources to the output shape.  When the sources'
     channel counts partition the output channels (inception concat), each
     source is embedded at its channel offset so the sum kernel computes
     the concatenation; otherwise every source adapts independently and
-    the kernel computes a plain sum (residual add, gate merge)."""
+    the kernel computes a plain sum (residual add, gate merge).  The
+    operands are held channels-last with ``channels_last``."""
     shape = required_input_shape(layer)
     C = shape[1]
     chans = [a.shape[1] if a.dim() == 4 else -1 for a in srcs]
@@ -113,11 +155,14 @@ def _eltwise_operands(srcs: Sequence[torch.Tensor],
             and any(c != C for c in chans):
         out, off = [], 0
         for a, c in zip(srcs, chans):
-            a4 = adapt_tensor(a, (shape[0], c, shape[2], shape[3]))
-            out.append(F.pad(a4, (0, 0, 0, 0, off, C - off - c)))
+            a4 = adapt_tensor(a, (shape[0], c, shape[2], shape[3]),
+                              channels_last)
+            emb = _zeros(shape, a4, channels_last)
+            emb[:, off:off + c] = a4
+            out.append(emb)
             off += c
         return out
-    return [adapt_tensor(a, shape) for a in srcs]
+    return [adapt_tensor(a, shape, channels_last) for a in srcs]
 
 
 # ---------------------------------------------------------------------------
@@ -192,7 +237,12 @@ def from_reference_inputs(arrays: Mapping[str, np.ndarray], plan,
 def _layer_fn(nplan: NetworkPlan, name: str, inputs: Mapping
               ) -> Tuple[Callable, Tuple[str, ...]]:
     """(fn, src_names): ``fn(*src_tensors) -> output`` for one layer, with
-    the shape adapter folded in."""
+    the shape adapter folded in.  Activations pass between layers
+    channels-last: a source held row-major (an external ``.I``, a copy a
+    caller handed back) is converted where a layer reads it, and a conv
+    reads its input at ``exec.conv_pitch``, or, for the images (at most 4
+    channels), folded by ``exec.conv_input`` (conv1's 3 channels padded to
+    4 with zeros, which meet zero weights)."""
     plan = nplan.plans[name]
     layer = plan.layer
     srcs = tuple(s for s in layer.src if s in nplan.plans)
@@ -201,7 +251,7 @@ def _layer_fn(nplan: NetworkPlan, name: str, inputs: Mapping
     if plan.kind == "eltwise":
         def fn(*xs):
             return run_eltwise(plan, _eltwise_operands(
-                list(xs) if xs else [ext], layer))
+                list(xs) if xs else [ext], layer, channels_last=True))
         return fn, srcs
     if plan.kind not in ("fc", "conv", "pool"):
         raise ValueError(f"cannot execute layer {name!r}: kind "
@@ -209,9 +259,15 @@ def _layer_fn(nplan: NetworkPlan, name: str, inputs: Mapping
     shape = required_input_shape(layer)
     run = {"fc": run_fc, "conv": run_conv, "pool": run_pool}[plan.kind]
     extra = () if plan.kind == "pool" else (w,)
+    pitch = conv_pitch(layer.dim("C")) if plan.kind == "conv" else None
+    # an input the conv kernel reads folded is folded from whatever layout
+    # it comes in: one conversion
+    fold = plan.kind == "conv" and conv_folds(plan)
 
     def fn(*xs):
-        return run(plan, adapt_tensor(xs[0] if xs else ext, shape), *extra)
+        x = adapt_tensor(xs[0] if xs else ext, shape,
+                         channels_last=not fold, pitch=pitch)
+        return run(plan, conv_input(plan, x) if fold else x, *extra)
     return fn, srcs
 
 
@@ -219,7 +275,11 @@ def _layer_fn(nplan: NetworkPlan, name: str, inputs: Mapping
 class NetworkExecution:
     """Outputs of one end-to-end network run plus the realized buffer
     schedule.  Forwarded outputs are device tensors; round-tripped ones
-    are the host copies (CPU tensors over the numpy buffers)."""
+    are the host copies (CPU tensors over the numpy buffers).  Every output
+    is in the reference's layout (4-D ones row-major [N, C, X, Y]), except
+    the fused tier's ``keep="boundary"`` outputs, which are the network's
+    own tensors as its kernels left them: the same shapes and values, held
+    channels-last."""
 
     outputs: Dict[str, torch.Tensor]
     forwarded: Tuple[str, ...]      # handed on the device, never left it
@@ -301,9 +361,12 @@ def network_runner(nplan: NetworkPlan, inputs: Mapping, device=None,
                 host[name] = out.cpu().numpy()  # the host round-trip
         _sync(dev)
         seconds = time.perf_counter() - t0
-        outputs = {k: torch.from_numpy(v) for k, v in host.items()}
+        # handed back in the reference's layout (copies where the kernels
+        # left them channels-last)
+        outputs = {k: torch.from_numpy(np.ascontiguousarray(v))
+                   for k, v in host.items()}
         if keep == "all":
-            outputs.update(onchip)
+            outputs.update((k, v.contiguous()) for k, v in onchip.items())
         return NetworkExecution(outputs=outputs, forwarded=tuple(onchip),
                                 roundtrips=tuple(host), seconds=seconds,
                                 device=str(dev))

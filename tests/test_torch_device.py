@@ -93,8 +93,9 @@ def test_cpu_path_launches_no_kernel():
     reset_launch_counts()
     ver = verify_network(_mlp_plan(), device="cpu")
     assert ver.ok
-    assert set(LAUNCHES) == {"fc", "conv", "pool", "eltwise", "attention",
-                             "attention_mma"}
+    assert set(LAUNCHES) == {"fc", "conv", "conv_weights", "pool",
+                             "eltwise", "attention", "attention_mma",
+                             "layout"}
     assert all(v == 0 for v in LAUNCHES.values()), LAUNCHES
 
 
@@ -149,8 +150,11 @@ def test_kernels_match_plain_versions_on_card():
                      plan, [inputs["A"], inputs["B"]])}[plan.kind]()
         torch.cuda.synchronize()
         assert tex.rel_error(out, plain) <= 1e-5, plan.describe()
-    assert LAUNCHES == {"fc": 2, "conv": 3, "pool": 1, "eltwise": 1,
-                        "attention": 0, "attention_mma": 0}
+    # a conv's weight layout beside each conv; the row-major inputs of the
+    # three convs and the pool converted for their kernels
+    assert LAUNCHES == {"fc": 2, "conv": 3, "conv_weights": 3, "pool": 1,
+                        "eltwise": 1, "attention": 0, "attention_mma": 0,
+                        "layout": 4}
 
 
 #: attention plans the solver gives (layer, template): the Zamba2-1.2B shared
@@ -589,10 +593,63 @@ def test_attention_kernel_padded_head_dims_on_card(D):
 
 
 @pytest.mark.gpu
+def test_conv_kernel_on_every_resnet_plan_on_card():
+    """Every distinct conv plan of ResNet-50 b64 on the 16x16 template
+    (conv1 on its folded images, the four plans with channels on wgmma's M
+    side): within 1e-5 of plain_conv, two launches bit for bit equal."""
+    dev = _card()
+    net = get_net("resnet", batch=64)
+    hw = eyeriss_multinode()
+    nplan = lower_network(solve(net, hw), net, hw)
+    seen = set()
+    for n in nplan.order:
+        plan = nplan.plans[n]
+        key = (plan.describe(), tuple(sorted(plan.layer.dims.items())),
+               tuple(sorted(plan.layer.meta.items())))
+        if plan.kind != "conv" or key in seen:
+            continue
+        seen.add(key)
+        inputs = tex.make_inputs(plan, device=dev)
+        out = tex.run_conv(plan, inputs["I"], inputs["W"])
+        again = tex.run_conv(plan, inputs["I"], inputs["W"])
+        want = tex.plain_conv(plan, inputs["I"], inputs["W"])
+        torch.cuda.synchronize()
+        assert tex.rel_error(out, want) <= 1e-5, n
+        assert torch.equal(out, again), n
+    assert len(seen) >= 20
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fused", [False, True])
+def test_resnet50_b64_call_counts_on_card(fused):
+    """One call of ResNet-50 b64 on either tier: its 53 convolutions through
+    ``conv_kernel_wgmma`` (and one weight layout each), and one layout
+    conversion, the images'."""
+    import collections
+    from repro_torch.lower import clear_cache
+    dev = _card()
+    net = get_net("resnet", batch=64)
+    hw = eyeriss_multinode()
+    nplan = lower_network(solve(net, hw), net, hw)
+    inputs = make_network_inputs(nplan, seed=0, device=dev)
+    run = network_runner(nplan, inputs, device=dev, keep="boundary",
+                         fused=fused)
+    run()                                   # the capture, on the fused tier
+    reset_launch_counts()
+    run()
+    kinds = collections.Counter(nplan.plans[n].kind for n in nplan.order)
+    assert kinds["conv"] == 53
+    assert LAUNCHES["conv"] == LAUNCHES["conv_weights"] == 53
+    assert LAUNCHES["layout"] == 1
+    clear_cache()
+
+
+@pytest.mark.gpu
 def test_conv_kernel_past_2_31_elements_on_card():
     """An input of just over 2^31 elements (130 x 64 x 512 x 512 float32,
-    8.7 GB): the batch split into launches within the kernel's 32-bit
-    offsets, against the oracle of kernels/ref.py (F.conv2d, TF32 off)."""
+    8.7 GB): the batch split into launches of fewer than 2^31 elements
+    each (the kernel's 32-bit launch arguments), against the oracle of
+    kernels/ref.py (F.conv2d, TF32 off)."""
     from repro_torch.kernels import ref
     dev = _card()
     torch.backends.cudnn.allow_tf32 = False
@@ -648,6 +705,9 @@ def test_fused_replay_bitwise_equals_per_layer_on_card(case):
     run = network_runner(nplan, inputs, device=dev, fused=True)
     run()                                   # warm-up and capture
     expect = collections.Counter(nplan.plans[n].kind for n in nplan.order)
+    expect["conv_weights"] = expect["conv"]
+    expect["layout"] = {"mlp": 0, "alexnet": 2, "resnet": 1}[case]
+    expect = +expect                        # the kinds that launched
     for _ in range(2):
         reset_launch_counts()
         ex = run()

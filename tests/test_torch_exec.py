@@ -458,8 +458,9 @@ def test_fc_split_emulation_matches_plain(source, cap, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# conv launch geometry (the implicit-GEMM kernel's sub-tiles, warp tiles and
-# channel chunks, computed in Python) and an emulation of its addressing
+# conv launch geometry (the implicit GEMM's sub-tiles, wgmma orientation,
+# TMA boxes and ring, computed in Python) and an emulation of its
+# channels-last addressing
 # ---------------------------------------------------------------------------
 
 def _hand_conv_plan(N, C, K, X, Y, R, stride, block, grid):
@@ -493,6 +494,14 @@ CONV_HAND = {
     "cout-over-k": (2, 48, 16, 4, 4, 3, 1,
                     {"N": 2, "C": 16, "K": 8, "X": 2, "Y": 4},
                     [("C", 3), ("K", 2), ("X", 2)]),
+    # positions on the M side at the emulation's size: two warpgroups
+    # over a ragged 3-image box, and one over a 64-position tile with a
+    # 40-channel C tile (a piece of 8)
+    "pos-m-ragged": (6, 16, 24, 9, 8, 3, 1,
+                     {"N": 3, "C": 16, "K": 24, "X": 9, "Y": 8},
+                     [("N", 2)]),
+    "pos-m-c40": (1, 80, 8, 8, 8, 1, 1,
+                  {"N": 1, "C": 40, "K": 8, "X": 8, "Y": 8}, [("C", 2)]),
 }
 
 
@@ -538,13 +547,23 @@ CONV_SOURCES = ["resnet-16x16", "alexnet-16x16", "alexnet-4x4", "file",
 def _check_conv_launch(plan, launch):
     L, b = plan.layer, plan.block
     N, C, K, XO, YO = (L.dim(d) for d in "NCKXY")
-    RS = int(L.meta["R"]) * int(L.meta["S"])
-    # warps: four, each 16 mt positions x 8 nt channels; the sub-tile fits
-    assert launch.wm * launch.wn == tex.CONV_WARPS
-    assert (launch.mt, launch.nt, launch.wm, launch.wn) in tex.CONV_TILES
-    assert launch.tn * launch.tx * launch.ty <= launch.bm
-    assert launch.tk <= launch.bnw
-    # sub-tiles cover each plan tile exactly once along every axis
+    RS, st = int(L.meta["R"]) * int(L.meta["S"]), int(L.meta["stride"])
+    rows = tex.CONV_ROWS * launch.cw
+    # orientation: the positions on wgmma's M side from 64 a plan tile
+    P = b["N"] * b["X"] * b["Y"]
+    assert launch.pos_m == (P >= tex.CONV_ROWS)
+    assert launch.nw in tex.CONV_WIDTHS and launch.cw in (1, 2)
+    if launch.pos_m:
+        assert launch.box <= rows and launch.tk <= launch.nw
+        assert (launch.xrows, launch.wrows) == (rows, launch.nw)
+        assert launch.cw == (2 if P >= 2 * tex.CONV_ROWS else 1)
+    else:
+        assert launch.box <= launch.nw < launch.box + 8 or \
+            launch.nw == tex.conv_width(launch.box)
+        assert launch.tk <= rows and (launch.xrows, launch.wrows) == \
+            (launch.nw, rows)
+    # sub-tiles cover each plan tile exactly once along every axis, and
+    # none reaches into the next plan tile
     sub = launch.sub
     for axis, dim in (("N", N), ("K", K), ("X", XO), ("Y", YO)):
         for t in range(dim // b[axis]):
@@ -553,32 +572,73 @@ def _check_conv_launch(plan, launch):
             assert _covers_once([(s, s + e) for s, e in pieces],
                                 t * b[axis], (t + 1) * b[axis]), \
                 (axis, pieces)
-    assert launch.grid == ((XO // b["X"]) * sub["X"] * (YO // b["Y"])
-                           * sub["Y"], (K // b["K"]) * sub["K"],
-                           (N // b["N"]) * sub["N"])
-    # chunks: within one plan C tile each, the tiles in plan order, every
-    # channel once
-    chunks = launch.chunks()
-    assert [t for t, _, _ in chunks] == sorted(t for t, _, _ in chunks)
-    for t in range(C // b["C"]):
-        mine = [(c0, c0 + nc) for tt, c0, nc in chunks if tt == t]
-        assert all(t * b["C"] <= c0 < c1 <= (t + 1) * b["C"]
-                   for c0, c1 in mine)
-        assert _covers_once(mine, t * b["C"], (t + 1) * b["C"])
-    assert all(0 < nc <= launch.cc for _, _, nc in chunks)
-    # padded reduction depth, pitches, shared memory, grid limits
-    assert launch.jpad % 8 == 0 and launch.jpad >= launch.cc * RS
-    assert launch.jpad - launch.cc * RS < 8
-    assert launch.jpad <= max(tex.CONV_DEPTH, tex._round8(RS))
-    assert launch.ldw % 8 == 4 and launch.cpitch % 32 == 8
-    assert launch.cpitch >= launch.spmax and launch.stage % 4 == 0
+    # a block walks sub-tiles of one plan tile; the blocks of a plan tile
+    # walk each of its sub-tiles once, in groups of at most ``group``
+    assert launch.grid == ((XO // b["X"]) * (YO // b["Y"]), K // b["K"],
+                           (N // b["N"]) * launch.groups)
+    assert launch.subs == sub["N"] * sub["K"] * sub["X"] * sub["Y"]
+    assert 1 <= launch.group <= launch.subs
+    assert launch.groups == tex._ceil(launch.subs, launch.group)
+    if launch.grid[0] * launch.grid[1] * launch.grid[2] <= 4096:
+        seen = {}
+        for x, y, z in itertools.product(*(range(g) for g in launch.grid)):
+            tiles = launch.block_subtiles(x, y, z)
+            assert 1 <= len(tiles) <= launch.group
+            plan_of = {(d, s // b[d]) for tile in tiles
+                       for d, (s, _) in zip("NKXY", tile)}
+            assert len(plan_of) == 4, "a block spans two plan tiles"
+            for tile in tiles:
+                seen[tile] = seen.get(tile, 0) + 1
+        assert set(seen.values()) == {1}
+        assert len(seen) == launch.subs * (N // b["N"]) * (K // b["K"]) \
+            * (XO // b["X"]) * (YO // b["Y"])
+    # the dims the kernel runs: the layer's, or folded for an input of at
+    # most 4 channels in one C tile: 4 S channels, one tap along y
+    if launch.fold:
+        assert C <= 4 and b["C"] == C and launch.fold == int(L.meta["S"])
+        assert (launch.C, launch.S, launch.sy, launch.YI) == \
+            (4 * launch.fold, 1, 1, YO)
+        C, RS = launch.C, launch.R
+    else:
+        assert (launch.C, launch.S, launch.sy) == (C, int(L.meta["S"]), st)
+    assert launch.fold == tex.conv_folds(plan) * int(L.meta["S"])
+    # steps: the C tiles in plan order; each tap's pieces start on a
+    # 16-byte unit at most 3 channels before the tile and their k8 steps
+    # hold every channel of the tile once, and at most 7 past it
+    steps = launch.steps()
+    bc = launch.bc
+    assert [t for t, *_ in steps] == sorted(t for t, *_ in steps)
+    for t in range(C // bc):
+        for rs in range(RS):
+            mine = [(c, c + 8 * ks) for tt, _, r, c, ks in steps
+                    if tt == t and r == rs and ks]
+            assert all(c % 4 == 0 for c, _ in mine)
+            assert t * bc - 3 <= mine[0][0] <= t * bc < mine[0][1]
+            assert (t + 1) * bc <= mine[-1][1] <= (t + 1) * bc + 7
+            assert all(a[1] == b2[0] for a, b2 in zip(mine, mine[1:]))
+    assert all(0 <= ks <= tex.CONV_PIECE // 8 for *_, ks in steps)
+    assert len(steps) == (C // bc) * tex._ceil(launch.bcp, tex.CONV_PIECE) \
+        * RS
+    # TMA: 16-byte units, rows within the 128-byte swizzle, 256-element
+    # boxes, strides it can traverse, 16-byte global strides
+    (xb, xe), wb = launch.x_box, launch.w_box
+    assert xb[0] * 4 % 16 == 0 and xb[0] * 4 <= 128
+    assert wb[0] * 4 % 16 == 0 and wb[0] * 4 <= 128
+    assert max(*xb, *wb) <= tex.CONV_BOX_MAX and max(xe) <= 8
+    assert [xb[i] // xe[i] for i in (1, 2, 3)] == \
+        [launch.ty, launch.tx, launch.tn]
+    assert xe[1:3] == (launch.sy, st) and wb[3] == launch.wrows
+    assert launch.cp % 4 == 0 and launch.bcp % 4 == 0
+    assert launch.cp >= launch.C and launch.bcp >= launch.bc + (
+        3 if launch.bc % 4 else 0)
+    # the ring and the shared-memory limit
+    assert 2 <= launch.stages <= tex.CONV_STAGES
+    assert launch.stage_bytes % 1024 == 0
     assert launch.smem <= tex.CONV_SMEM_MAX <= 227 * 1024
     assert launch.grid[0] < 2 ** 31 and max(launch.grid[1:]) <= 65535
-    assert N * C * launch.XI * launch.YI < 2 ** 31
-    if launch.vec:              # 16-byte weight copies: aligned rows
-        assert (C * RS) % 4 == 0 and (b["C"] * RS) % 4 == 0 \
-            and (launch.cc * RS) % 4 == 0
-    assert len(launch.params(launch.vec)) == 38
+    assert launch.vec == (K % 2 == 0 and b["K"] % 2 == 0
+                          and launch.tk % 2 == 0)
+    assert len(launch.params()) == 40
 
 
 @pytest.mark.parametrize("source", CONV_SOURCES)
@@ -590,98 +650,165 @@ def test_conv_launch_geometry(source):
         launch = tex.conv_launch(plan, XI, YI)
         _check_conv_launch(plan, launch)
         if source in ("resnet-16x16", "alexnet-16x16", "alexnet-4x4"):
-            assert tex._conv_idle_warps(launch) == 0, plan.describe()
+            # the solver's tiles fill at least 3/4 of the M side's rows
+            m_rows = launch.box if launch.pos_m else launch.tk
+            assert m_rows * 4 >= 3 * tex.CONV_ROWS * launch.cw \
+                or launch.box == plan.block["N"] * plan.block["X"] \
+                * plan.block["Y"], plan.describe()
+
+
+def test_conv_orientation_of_the_resnet_plans():
+    """ResNet-50's four plans with tiles under 64 positions put their
+    output channels on wgmma's M side; every other plan its positions."""
+    by_name = {p.layer.name: p for p in _conv_plans("resnet-16x16")}
+    assert len(by_name) == 53
+    chans_m = {n for n, p in by_name.items()
+               if not tex.conv_launch(p, *tex.input_extent(p.layer)).pos_m}
+    assert chans_m == {"r4a.a", "r4a.p", "r5a.a", "r5a.p"}
+    for name in sorted(chans_m):
+        plan = by_name[name]
+        launch = tex.conv_launch(plan, *tex.input_extent(plan.layer))
+        P = plan.block["N"] * plan.block["X"] * plan.block["Y"]
+        assert launch.box == P and launch.nw == P
+        assert launch.tk == min(plan.block["K"], 2 * tex.CONV_ROWS)
 
 
 def test_conv_launch_fits_the_narrow_plan_tiles():
-    """ResNet-50's 16-position tile runs one warp row of four warp
-    columns; AlexNet's K = 8 tile on the 4x4 template one 8-wide warp
-    column of four warp rows; C outermost keeps the C tile in chunks."""
+    """ResNet-50's 16-position tile runs its 128 channels over two
+    warpgroups and its positions 16 wide; AlexNet's K = 8 tile on the 4x4
+    template one warpgroup of 64 positions by an 8-wide wgmma; C outermost
+    keeps the plan's C tiles as steps."""
     by_name = {p.layer.name: p for p in _conv_plans("resnet-16x16")}
     plan = by_name["r5a.p"]
     launch = tex.conv_launch(plan, *tex.input_extent(plan.layer))
     assert (plan.block["N"], plan.block["X"], plan.block["Y"]) == (16, 1, 1)
-    assert (launch.bm, launch.wm, launch.wn) == (16, 1, 4)
-    assert tex._conv_idle_warps(launch) == 0
+    assert (launch.pos_m, launch.cw, launch.nw, launch.tk) == \
+        (False, 2, 16, 128)
     by_name = {p.layer.name: p for p in _conv_plans("alexnet-4x4")}
     plan = by_name["conv5"]
     launch = tex.conv_launch(plan, *tex.input_extent(plan.layer))
     assert plan.block["K"] == 8
-    assert (launch.tk, launch.nt, launch.wn, launch.wm) == (8, 1, 1, 4)
-    assert tex._conv_idle_warps(launch) == 0
+    assert (launch.pos_m, launch.cw, launch.nw, launch.tk, launch.box) == \
+        (True, 1, 8, 8, 64)
     plan = by_name["conv2"]
     assert plan.grid[0].dim == "C"
     launch = tex.conv_launch(plan, *tex.input_extent(plan.layer))
-    assert len(launch.chunks()) == (plan.layer.dim("C") // plan.block["C"]) \
-        * tex._ceil(plan.block["C"], launch.cc)
+    assert len(launch.steps()) == (plan.layer.dim("C") // plan.block["C"]) \
+        * tex._ceil(plan.block["C"], tex.CONV_PIECE) * 25
+    # conv1: the images folded, 7 taps of 28 channels (3 of every 4 real)
+    plan = _conv_plans("resnet-16x16")[0]
+    launch = tex.conv_launch(plan, *tex.input_extent(plan.layer))
+    assert plan.layer.name == "conv1" and launch.fold == 7
+    assert [ks for *_, ks in launch.steps()] == [4] * 7
 
 
-def _emulate_conv(launch, x, w):
-    """The kernel's addressing and reduction order in torch: per block, the
-    window staged per chunk at channel pitch ``cpitch`` through the window
-    offset table, A rows gathered at ``pbase[p] + off[j]``, the chunk's
-    reduction padded with zero weights, partial sums per plan C tile added
-    in plan order.  Every output element is written exactly once."""
+def _tma_box(t, start, box, estr):
+    """TMA's tiled load of ``t`` (dims outermost first): the box at
+    ``start`` (innermost first), ``box[i] // estr[i]`` elements along dim
+    i, zeros outside the tensor."""
+    idx = []
+    for d, (s0, b, e) in enumerate(zip(start, box, estr)):
+        size = t.shape[t.dim() - 1 - d]
+        i = torch.arange(s0, s0 + b, e)
+        idx.append((i, (i >= 0) & (i < size)))
+    out = torch.zeros([len(i) for i, _ in reversed(idx)])
+    ok = [v for _, v in reversed(idx)]
+    src = t
+    for d, (i, v) in enumerate(reversed(idx)):
+        src = src.index_select(d, i.clamp(0, t.shape[d] - 1))
+    mask = ok[0].view(-1, 1, 1, 1) & ok[1].view(1, -1, 1, 1) \
+        & ok[2].view(1, 1, -1, 1) & ok[3].view(1, 1, 1, -1)
+    out[mask] = src[mask]
+    return out
+
+
+def _split(t):
+    hi = (t.view(torch.int32) & tex.TF32_MASK).view(torch.float32)
+    return hi, t - hi
+
+
+def _emulate_conv(launch, x, w, plan):
+    """The kernel's addressing in torch: the input channels-last at pitch
+    ``cp`` ([N, XI, YI, cp]) and the weights as ``conv_weight_layout``
+    lays them out, each step's tiles cut by TMA boxes (zeros outside), the
+    activations split into hi and lo, the three products of each k8 step
+    that holds channels, each step's sum added to the output accumulator
+    in order, positions and channels past the sub-tile dropped.  Every
+    output element is written exactly once."""
     L = launch
-    RS, st = L.R * L.S, L.stride
-    xf, wf = x.reshape(-1), w.reshape(L.K, -1)
-    plane = L.XI * L.YI
-    out = torch.zeros((L.N, L.K, L.XO, L.YO))
+    xcl = torch.zeros((L.N, L.XI, L.YI, L.cp))
+    xcl[..., :L.C] = tex.conv_input(plan, x).permute(0, 2, 3, 1)
+    whi, wlo = tex.conv_weight_layout(plan, w)
+    (xbox, xest), wbox = L.x_box, L.w_box
+    out = torch.zeros((L.N, L.XO, L.YO, L.K))
     writes = torch.zeros(out.shape, dtype=torch.int32)
-    j = torch.arange(L.jpad)
-    c, rs = j // RS, j % RS
-    chunks = L.chunks()
-    ny = (L.YO // L.by) * L.sub["Y"]
-    gx, gy, gz = L.grid
-    for bxy, bk, bn in itertools.product(range(gx), range(gy), range(gz)):
-        x0, ax = L.sub_tile("X", bxy // ny)
-        y0, ay = L.sub_tile("Y", bxy % ny)
-        k0, ak = L.sub_tile("K", bk)
-        n0, an = L.sub_tile("N", bn)
-        winx, winy = (ax - 1) * st + L.R, (ay - 1) * st + L.S
-        off = torch.where(c < L.cc, c * L.cpitch + (rs // L.S) * winy
-                          + rs % L.S, torch.zeros_like(j))
-        s = torch.arange(an * winx * winy)
-        spo = (s // (winx * winy)) * L.C * plane \
-            + ((s % (winx * winy)) // winy) * L.YI + s % winy
-        base = n0 * L.C * plane + x0 * st * L.YI + y0 * st
-        p = torch.arange(an * ax * ay)
-        pn, px, py = p // (ax * ay), (p % (ax * ay)) // ay, p % ay
-        pb = (pn * winx + px * st) * winy + py * st
-        acc = torch.zeros((len(p), ak))
-        prt = torch.zeros_like(acc)
-        for i, (t, c0, nc) in enumerate(chunks):
-            buf = torch.zeros(L.cc * L.cpitch)
-            for cc in range(nc):
-                buf[cc * L.cpitch:cc * L.cpitch + len(s)] = \
-                    xf[base + (c0 + cc) * plane + spo]
-            depth = tex._round8(nc * RS)
-            a = buf[pb[:, None] + off[None, :depth]]
-            bmat = torch.zeros((ak, depth))
-            bmat[:, :nc * RS] = wf[k0:k0 + ak, c0 * RS:(c0 + nc) * RS]
-            prt = prt + a @ bmat.T
-            if i + 1 == len(chunks) or chunks[i + 1][0] != t:
-                acc, prt = acc + prt, torch.zeros_like(prt)
-        out[n0 + pn, k0:k0 + ak, x0 + px, y0 + py] = acc
-        writes[n0 + pn, k0:k0 + ak, x0 + px, y0 + py] += 1
+    tiles = [t for b in itertools.product(*(range(g) for g in L.grid))
+             for t in L.block_subtiles(*b)]
+    for (n0, an), (k0, ak), (x0, ax), (y0, ay) in tiles:
+        acc = torch.zeros((L.box, L.wrows))
+        for t, j, rs, c0, ks in launch.steps():
+            if not ks:
+                continue
+            r, s = divmod(rs, L.S)
+            a = _tma_box(xcl, (c0, y0 * L.sy + s, x0 * L.stride + r, n0),
+                         xbox, xest).reshape(L.box, -1)
+            bh = _tma_box(whi, (32 * j, rs, t, k0), wbox, (1,) * 4)
+            bl = _tma_box(wlo, (32 * j, rs, t, k0), wbox, (1,) * 4)
+            bh, bl = bh.reshape(L.wrows, -1), bl.reshape(L.wrows, -1)
+            ah, al = _split(a)
+            d = torch.zeros_like(acc)
+            for kk in range(0, 8 * ks, 8):
+                ks = slice(kk, kk + 8)
+                d += al[:, ks] @ bh[:, ks].T + ah[:, ks] @ bl[:, ks].T \
+                    + ah[:, ks] @ bh[:, ks].T
+            acc += d
+        p = torch.arange(L.box)
+        pn, px, py = p // (L.tx * L.ty), (p // L.ty) % L.tx, p % L.ty
+        keep = (pn < an) & (px < ax) & (py < ay)
+        pn, px, py = pn[keep], px[keep], py[keep]
+        rows = acc[keep][:, :ak]
+        out[n0 + pn, x0 + px, y0 + py, k0:k0 + ak] = rows
+        writes[n0 + pn, x0 + px, y0 + py, k0:k0 + ak] += 1
     assert bool((writes == 1).all()), "an output element written " \
         f"{int(writes.min())}..{int(writes.max())} times"
-    return out
+    return out.permute(0, 3, 1, 2)
 
 
 @pytest.mark.parametrize("source", ["file", *CONV_HAND])
 def test_conv_kernel_emulation_matches_plain(source):
-    """The kernel's sub-tiles, window and weight addressing, padded chunks
-    and plan-order C tiles compute plain_conv's function (float32,
-    1e-5)."""
+    """The kernel's sub-tiles, channels-last TMA boxes, laid-out weights,
+    3xTF32 split and plan-order steps compute plain_conv's function
+    (float32, 1e-5)."""
     for plan in _conv_plans(source):
         XI, YI = tex.input_extent(plan.layer)
         launch = tex.conv_launch(plan, XI, YI)
         _check_conv_launch(plan, launch)
         inputs = tex.make_inputs(plan, seed=2, device="cpu")
-        got = _emulate_conv(launch, inputs["I"], inputs["W"])
+        got = _emulate_conv(launch, inputs["I"], inputs["W"], plan)
         want = tex.plain_conv(plan, inputs["I"], inputs["W"])
         assert tex.rel_error(got, want) <= TOL, plan.describe()
+
+
+def test_conv_weight_layout():
+    """``conv_weight_layout`` (the plain version of ``conv_kernel_weights``):
+    C tile t's channels of every tap at [sh, sh + bc) of its row (sh = t*bc
+    mod 4, where its pieces start), zeros around them, hi the leading 19
+    bits, hi + lo = W exactly."""
+    plan = _hand_conv_plan(*CONV_HAND["ragged-x7-cout"])
+    w = tex.make_inputs(plan, seed=3, device="cpu")["W"]
+    hi, lo = tex.conv_weight_layout(plan, w)
+    K, C, R, S = w.shape
+    bc = plan.block["C"]
+    assert bc % 4 and tex.conv_bcp(bc) == 16
+    assert hi.shape == (K, C // bc, R * S, 16) == lo.shape
+    want = torch.zeros(hi.shape)
+    for t in range(C // bc):
+        sh = t * bc % 4
+        want[:, t, :, sh:sh + bc] = w[:, t * bc:(t + 1) * bc].reshape(
+            K, bc, R * S).transpose(1, 2)
+    assert torch.equal(hi + lo, want)
+    assert not (hi.view(torch.int32) & 0x1FFF).any()
+    assert (lo.abs() <= hi.abs() * 2.0 ** -10).all()
 
 
 # ---------------------------------------------------------------------------
@@ -762,7 +889,7 @@ def test_conv_batch_split_past_2_31(case):
         assert (n1 - n0) * per_image <= tex.CONV_MAX_ELEMS
         launch = tex.conv_launch(plan, XI, YI, n1 - n0)
         assert launch.N == n1 - n0
-        assert launch.grid[2] == (n1 - n0) // block["N"] * launch.sub["N"]
+        assert launch.grid[2] == (n1 - n0) // block["N"] * launch.groups
     # one block more a part would pass the limit
     size = parts[0][1] - parts[0][0]
     assert (size + block["N"]) * per_image > tex.CONV_MAX_ELEMS

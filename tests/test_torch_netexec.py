@@ -120,3 +120,82 @@ def test_eltwise_concat_embedding_matches_reference():
     total = sum(g.numpy() for g in got)
     np.testing.assert_allclose(total[:, :2], 1.0)
     np.testing.assert_allclose(total[:, 2:], 2.0)
+
+
+# ---------------------------------------------------------------------------
+# the executor's activation layout: channels-last inside a call
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name,conversions", [("resnet", 1), ("alexnet", 2)])
+def test_channels_last_executor_tiers_agree(name, conversions):
+    """ResNet-50 and AlexNet through the per-layer tier and the fused tier's
+    CPU path (batch 2: at batch 64 each tier's outputs would hold some 4 GB
+    of host memory): every output in the reference layout (row-major [N, C,
+    X, Y]), the two tiers equal bit for bit, within 1e-4 of the torch
+    oracles, and the layout conversions a call are the images' (folded for
+    conv1), and, in AlexNet, pool5's 6 x 6 positions flattened before fc6."""
+    from repro_torch.core.solver import solve as t_solve
+    from repro_torch.lower import exec as lx
+    from repro_torch.workloads.nets import get_net as t_get_net
+    hw = t_eyeriss()
+    tnet = t_get_net(name, batch=2)
+    tplan = lower_network(t_solve(tnet, hw), tnet, hw)
+    inputs = tnx.make_network_inputs(tplan, seed=3, device="cpu")
+    outs = []
+    for fused in (False, True):
+        run = network_runner(tplan, inputs, device="cpu", fused=fused)
+        for _ in range(2):
+            lx.reset_launch_counts()
+            ex = run()
+            assert lx.LAUNCHES["layout"] == conversions
+            assert not any(v for k, v in lx.LAUNCHES.items()
+                           if k != "layout")
+        assert set(ex.outputs) == set(tplan.order)
+        assert all(v.is_contiguous() for v in ex.outputs.values())
+        outs.append(ex.outputs)
+    for n in tplan.order:
+        assert torch.equal(outs[0][n], outs[1][n]), n
+    ver = tnx.compare_network(tplan, ex, inputs, tol=1e-4)
+    assert ver.ok, (ver.worst_layer, ver.max_rel_err)
+
+
+def test_eltwise_concat_embedding_channels_last():
+    """The inception channel embedding on a hand-built two-source eltwise,
+    channels-last: each source embedded at its channel offset in a tensor
+    held channels-last, equal to the row-major path's operands; their sum
+    is the concatenation; sources already channels-last take no
+    conversion, row-major ones one each."""
+    from repro_torch.lower import exec as lx
+    layer = t_eltwise("cat", 2, 24, 5, 5, src=["a", "b"])
+    rng = np.random.default_rng(5)
+    a = torch.from_numpy(rng.standard_normal((2, 10, 5, 5), np.float32))
+    b = torch.from_numpy(rng.standard_normal((2, 14, 5, 5), np.float32))
+    want = tnx._eltwise_operands([a, b], layer)
+    for srcs, conversions in (([lx.to_channels_last(a),
+                                lx.to_channels_last(b)], 0), ([a, b], 2)):
+        lx.reset_launch_counts()
+        got = tnx._eltwise_operands(srcs, layer, channels_last=True)
+        assert lx.LAUNCHES["layout"] == conversions
+        assert [lx.channel_pitch(g) for g in got] == [24, 24]
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        assert torch.equal(got[0] + got[1], torch.cat([a, b], dim=1))
+
+
+def test_adapt_tensor_channels_last_keeps_the_reference_order():
+    """The adapter's rules on a channels-last source: the flatten before an
+    fc and the fold-sum read the reference's [N, C, X, Y] order (one
+    conversion each), a pad or crop keeps the layout (none), and every
+    result equals the row-major path's."""
+    from repro_torch.lower import exec as lx
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.standard_normal((2, 3, 4, 4), np.float32))
+    xcl = lx.to_channels_last(x)
+    for shape, conversions in (((2, 48), 1), ((2, 3, 6, 6), 0),
+                               ((2, 3, 2, 2), 0), ((2, 12, 1, 1), 1)):
+        lx.reset_launch_counts()
+        got = tnx.adapt_tensor(xcl, shape, channels_last=True)
+        assert lx.LAUNCHES["layout"] == conversions, shape
+        assert torch.equal(got, tnx.adapt_tensor(x, shape)), shape
+        if len(shape) == 4:
+            assert lx.channel_pitch(got) == shape[1]
